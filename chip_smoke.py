@@ -9,30 +9,46 @@ Phases, each printing one JSON line:
 
 1. device  — the card's name and count; the next line is nvidia-smi's
    ``name, power.limit`` for the card.
-2. build   — compiles the CUDA decode kernels
-   (``src/repro_torch/csrc/entropy_decode.cu``) from the checkout's source
-   into one library.
+2. build   — compiles the CUDA kernels (every ``.cu`` under
+   ``src/repro_torch/csrc/``: the decode kernels and the fused
+   decode→dequant→matmul kernels) from the checkout's sources, one
+   ``nvcc`` per source started together, linked into one library.
 3. serve   — the main path at full width: qwen3-1.7b (d_model 2048, 16 heads
    and 8 KV heads of 128, d_ff 6144, padded vocab 152064, qk-norm) with its
    depth cut from 28 to ``DEPTH`` layers and seeded random weights.  The
-   weights are compressed under ``SPEC`` (Huffman-8 embed and lm_head, rANS-4
-   layer stacks, fp32 norms), saved and loaded as a container, decoded onto
-   the card through the ``cuda`` backend (both kernels), held bitwise
-   against the symbols ``quant.quantize`` gives, and served with
-   ``Engine.generate`` (batch 4, prompt 32, 16 greedy tokens).  Launch counts
-   are zeroed just before the load and read just after the generate.
+   weights are compressed under ``SPEC`` (Huffman-8 embed, lm_head and
+   ``wo``, rANS-4 for the other layer matrices, fp32 norms), saved and
+   loaded as a container, decoded onto the card through the ``cuda``
+   backend (both decode kernels), held bitwise against the symbols
+   ``quant.quantize`` gives, and served with ``Engine.generate`` (batch 4,
+   prompt 32, 16 greedy tokens).  Launch counts are zeroed just before the
+   load and read just after the generate.
    Then ``profile``: the same few decode steps timed without and then with
    ``torch.profiler``, and device time by operator under it.
-4. reference — the reduced qwen3-1.7b served on the card and on the CPU
-   through the same port: decoded weights must be identical and prefill
-   logits within ``REF_ATOL``; greedy token agreement is reported.
-5. kernels — each kernel on the first chunk the main path decoded with it,
-   held bitwise against its plain PyTorch version on the card, with its
-   time, the plain version's time, its bounds, and the time of the whole
+4. resident — the second path, on the same container: compressed-resident
+   serving with ``fused=True``.  ``wo`` (Huffman-8) goes through the fused
+   prefix kernel, ``wq``, ``wk``, ``wv`` and ``w_down`` (rANS-4) through the
+   fused tANS kernel, and ``w_gate`` / ``w_up`` (rows of 6144, which a
+   65,536-symbol segment does not tile) fall back to the per-layer decode
+   through the ``cuda`` decode kernels on the worker thread.  Launch counts
+   are zeroed just before the weights are built and read just after the
+   generate; the prefill logits are held to the dense-resident engine's.
+5. reference — the reduced qwen3-1.7b served on the card and on the CPU
+   through the same port, dense-resident and compressed-resident fused:
+   decoded weights must be identical and prefill logits within
+   ``REF_ATOL``; greedy token agreement is reported.
+6. kernels — each decode kernel on the first chunk the main path decoded
+   with it, held bitwise against its plain PyTorch version on the card, with
+   its time, the plain version's time, its bounds, and the time of the whole
    ``cuda`` backend call around it (host matrix in, host symbols out).
    The per-kernel line also carries two labelled estimates that no run
    reads directly: the dependent-chain time at an assumed step latency, and
-   the host round trip as backend call time minus kernel time.
+   the host round trip as backend call time minus kernel time.  Then each
+   fused kernel on layer 0's handle of the resident path (``wo`` prefix,
+   ``wq`` tANS; 64 lanes of 65,536 symbols, K = N = 2048) at M = 4 and 128,
+   within ``FUSED_TOL`` of its plain version and bitwise on one-hot rows.
+   Last, ``pending_kernel``: the bound of the one TPU kernel not ported yet
+   (``dequant_matmul``) at the shape the next slice will run it at.
 
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only),
 and as the last line
@@ -49,7 +65,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEPTH = 2
-SPEC = "*norm*:fp32; layers/*:bits=4,codec=rans; *:bits=8,codec=huffman"
+SPEC = ("*norm*:fp32; layers/wo:bits=8,codec=huffman; "
+        "layers/*:bits=4,codec=rans; *:bits=8,codec=huffman")
 BATCH, PROMPT, GEN = 4, 32, 16
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # integer work of one decode step (window bytes, shift, mask, table loads,
@@ -57,6 +74,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # fastest scalar rate, so this bound errs low
 OPS_PER_SYMBOL = 12
 SCALAR_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak
+# what the resident phase must fuse and what must fall back, and why
+FUSED = {"layers/wo": "prefix", "layers/wq": "tans", "layers/wk": "tans",
+         "layers/wv": "tans", "layers/w_down": "tans"}
+FALLBACK = "segment of 65536 symbols does not tile rows of width 6144"
+# fused kernel vs its plain version: the kernel sums a lane's rows in order
+# and the lanes in order, cuBLAS in its own order; both sum exact bf16
+# products in float32, so outputs differ by rounding only (the JAX package
+# holds its own fused kernel to the same 1e-2)
+FUSED_TOL = 1e-2
 # assumed shortest dependent step of a decode lane, for an estimate only:
 # one L1-hit window load (~33 cycles) and one shared-memory table load (~30
 # cycles); ALU work ignored
@@ -166,8 +193,8 @@ def serve_main_path(dev):
     out, met = eng.generate(prompt, GEN, echo_metrics=True)
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("huffman_decode", "ans_decode"):
+        if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
 
     n_checked = check_decoded(cm, host, params, spec, dev)
@@ -201,7 +228,7 @@ def serve_main_path(dev):
          e2e_tok_per_s=met["e2e_tok_per_s"], peak_bytes=peak,
          launches=launches, tensors_checked=n_checked,
          tokens=out[0].tolist())
-    return cm, launches, eng, prompt
+    return cm, launches, eng, prompt, logits.float().cpu(), out.cpu()
 
 
 def profile_decode(eng, prompt, dev):
@@ -255,6 +282,93 @@ def profile_decode(eng, prompt, dev):
                    "calls": e.count} for e in ops])
 
 
+def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
+    """Compressed-resident fused serving of the main path's container:
+    launch counts zeroed just before the weights are built, read just
+    after the generate."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serving import engine
+    from repro_torch.serving.resident import CompressedResidentWeights
+
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=DEPTH)
+    counters = ("resident.prefetch_hit", "resident.prefetch_wait",
+                "resident.consume_wait_s")
+    read = lambda: {c: obs_metrics.counter(c).total()  # noqa: E731
+                    for c in counters}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in build.launches:
+        build.launches[k] = 0
+    t0 = time.perf_counter()
+    rw = CompressedResidentWeights(cm, cfg, backend="cuda", fused=True,
+                                   device=dev)
+    build_s = time.perf_counter() - t0
+    fused = {n: rw._fused_slots[0][n.split("/", 1)[1]].family
+             for n in rw._fused}
+    if fused != FUSED:
+        raise AssertionError(f"fused tensors {fused}, expected {FUSED}")
+    if rw.fused_fallback != {"layers/w_gate": FALLBACK,
+                             "layers/w_up": FALLBACK}:
+        raise AssertionError(f"fallback {rw.fused_fallback}")
+    eng = engine.Engine(cfg, rw, engine.ServeConfig(max_len=PROMPT + GEN),
+                        device=dev, resident="compressed")
+    t0 = time.perf_counter()
+    eng.generate(prompt, 2)          # first call: caches and allocator
+    first_generate_s = time.perf_counter() - t0
+    before, c0 = dict(build.launches), read()
+    out, met = eng.generate(prompt, GEN, echo_metrics=True)
+    launches, c1 = dict(build.launches), read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    during = {k: launches[k] - before[k] for k in launches}
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched on the resident path")
+    for k in ("fused_prefix", "fused_tans", "ans_decode"):
+        if during[k] <= 0:
+            raise AssertionError(f"{k} did not launch during generate")
+    with torch.inference_mode():
+        logits, _ = eng.steps.prefill_fn(rw, torch.as_tensor(prompt,
+                                                             device=dev))
+    logits = logits.float().cpu()
+    err = float((logits - dense_logits).abs().max())
+    rb = rw.resident_bytes()
+    peak_resident, bf16 = rw.peak_resident_bytes(), rw.dense_bf16_bytes()
+    rw.close()
+    forwards = GEN                   # the prefill and GEN - 1 decode steps
+    emit("resident", arch=cfg.name, fused=fused, fallback=rw.fused_fallback,
+         weights_build_s=build_s, first_generate_s=first_generate_s,
+         ttft_s=met["ttft_s"], prefill_s=met["prefill_s"],
+         decode_s=met["decode_s"], decode_tok_per_s=met["decode_tok_per_s"],
+         e2e_tok_per_s=met["e2e_tok_per_s"], peak_bytes=peak,
+         resident_bytes=rb, peak_resident_bytes=peak_resident,
+         dense_resident_bytes=rw.dense_resident_bytes(),
+         dense_bf16_bytes=bf16, launches=launches,
+         launches_in_generate=during,
+         fused_launches_per_forward={
+             k: during[k] / forwards for k in ("fused_prefix", "fused_tans")},
+         prefetch_hits=c1["resident.prefetch_hit"]
+         - c0["resident.prefetch_hit"],
+         prefetch_waits=c1["resident.prefetch_wait"]
+         - c0["resident.prefetch_wait"],
+         consume_wait_s=c1["resident.consume_wait_s"]
+         - c0["resident.consume_wait_s"],
+         logits_max_abs_err_vs_dense=err, atol=REF_ATOL,
+         greedy_token_agreement_vs_serve=float(
+             (out.cpu() == dense_tokens).float().mean()),
+         tokens=out[0].tolist())
+    if not err <= REF_ATOL:
+        raise AssertionError(f"resident vs dense logits differ by {err}")
+    if not peak_resident < bf16:
+        raise AssertionError(f"peak resident {peak_resident} >= bf16 {bf16}")
+    if tuple(out.shape) != (BATCH, GEN) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("resident generate output malformed")
+    return rw, launches
+
+
 def reference_check(dev):
     """Reduced qwen3-1.7b: the port on the card against the port on the
     CPU, from one container."""
@@ -266,6 +380,7 @@ def reference_check(dev):
     from repro_torch.core.store import CompressedModel
     from repro_torch.models import dense
     from repro_torch.serving import engine
+    from repro_torch.serving.resident import CompressedResidentWeights
 
     cfg = registry.reduced(registry.get("qwen3-1.7b"))
     spec = CompressionSpec.parse(SPEC + "; defaults:segment_symbols=4096",
@@ -285,6 +400,21 @@ def reference_check(dev):
                 params, torch.as_tensor(prompt, device=d))
         runs[d.type] = (params, logits.float().cpu(),
                         eng.generate(prompt, 8).cpu())
+    # compressed-resident fused: every reduced matrix tiles 4096-symbol
+    # segments, so all of them go through the fused kernels (their plain
+    # version on the CPU)
+    resident = {}
+    for d, backend in ((dev, "cuda"), (torch.device("cpu"), "torch")):
+        rw = CompressedResidentWeights(cm, cfg, backend=backend, fused=True,
+                                       device=d)
+        assert not rw.fused_fallback, rw.fused_fallback
+        steps = engine.ServeSteps(cfg, engine.ServeConfig(max_len=16),
+                                  resident="compressed")
+        with torch.inference_mode():
+            logits, _ = steps.prefill_fn(rw, torch.as_tensor(prompt,
+                                                             device=d))
+        resident[d.type] = logits.float().cpu()
+        rw.close()
     (pc, lc, tc), (pp, lp, tp) = runs["cuda"], runs["cpu"]
     for name in pp:
         a, b = pc[name], pp[name]
@@ -292,12 +422,18 @@ def reference_check(dev):
         for x, y in parts:
             assert torch.equal(x.cpu(), y), name
     err = float((lc - lp).abs().max())
+    rerr = float((resident["cuda"] - resident["cpu"]).abs().max())
     agree = float((tc == tp).float().mean())
     emit("reference", arch=cfg.name, logits_max_abs_err=err,
+         resident_fused_logits_max_abs_err=rerr,
+         resident_fused_vs_dense_cpu_max_abs_err=float(
+             (resident["cpu"] - lp).abs().max()),
          atol=REF_ATOL, greedy_token_agreement=agree,
          argmax_equal_first_token=bool((tc[:, 0] == tp[:, 0]).all()))
     if not err <= REF_ATOL:
         raise AssertionError(f"card vs CPU logits differ by {err}")
+    if not rerr <= REF_ATOL:
+        raise AssertionError(f"resident card vs CPU logits differ by {rerr}")
 
 
 def kernel_phase(cm, launches, clock_mhz, dev):
@@ -405,6 +541,123 @@ def kernel_phase(cm, launches, clock_mhz, dev):
     return rows
 
 
+def fused_kernel_rows(rw, launches, dev):
+    """Each fused kernel on layer 0's handle of the resident path, at the
+    path's two row counts, against its plain version on the same inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.scheduler import plan_fused_spans
+    from repro_torch.kernels import ans_decode, huffman_decode
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    from repro_torch.models.layers import QT, deq
+
+    rows = []
+    for short, name, replaces in (
+            ("wo", "fused_prefix",
+             "src/repro/kernels/fused_decode_matmul.py:193"),
+            ("wq", "fused_tans",
+             "src/repro/kernels/fused_decode_matmul.py:234")):
+        fq = rw._fused_slots[0][short]
+        S, K, N = fq.mat.shape[0], fq.K, fq.N
+        # the expected dequantized weight, through the decode kernel (held
+        # bitwise against its own plain version in the rows above)
+        counts = torch.full((S,), fq.seg, dtype=torch.int32, device=dev)
+        if fq.family == "prefix":
+            q = huffman_decode.decode_streams(fq.mat, counts, *fq.tabs,
+                                              max_len=fq.tbits,
+                                              max_count=fq.seg)
+        else:
+            q = ans_decode.decode_streams_tans(fq.mat, counts, *fq.tabs,
+                                               table_log=fq.tbits,
+                                               max_count=fq.seg)
+        w = deq(QT(q.reshape(K, N).to(torch.uint8), fq.scale, fq.zero))
+        span = plan_fused_spans(rw.model, rw.n_layers,
+                                [f"layers/{short}"])[f"layers/{short}"][0]
+        stream_bytes = sum(int(s.nbytes) for s in span.segs)
+        per_m = {}
+        for M in (4, 128):
+            x = torch.from_numpy(np.random.default_rng(M).normal(
+                0, 1, (M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+            fdm.fused_decode_matmul(x, fq)                   # warm-up
+            torch.cuda.synchronize()
+            ms, got = cuda_ms(lambda: fdm.fused_decode_matmul(x, fq),
+                              TIMED_LAUNCHES)
+            plain_ms, ref = cuda_ms(
+                lambda: fdm.fused_decode_matmul_plain(x, fq), 1)
+            err = float((got.float() - ref.float()).abs().max())
+            close = bool(torch.allclose(got.float(), ref.float(),
+                                        atol=FUSED_TOL, rtol=FUSED_TOL))
+            pick = torch.tensor([0, 1, K // 2, K - 1], device=dev)
+            onehot = torch.zeros((4, K), dtype=torch.bfloat16, device=dev)
+            onehot[torch.arange(4, device=dev), pick] = 1
+            onehot_equal = torch.equal(fdm.fused_decode_matmul(onehot, fq),
+                                       w[pick])
+            # each input read once (the lanes' stream bytes, tables, affine,
+            # x), the output written once; the decode's integer work and the
+            # product's bf16 FLOPs
+            nbytes = (stream_bytes + sum(4 * t.numel() for t in fq.tabs)
+                      + 4 * (fq.scale.numel() + fq.zero.numel())
+                      + 2 * M * K + 2 * M * N)
+            int_ops, flops = OPS_PER_SYMBOL * K * N, 2 * M * K * N
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = (int_ops / SCALAR_OPS_PER_S
+                      + flops / BF16_FLOPS_PER_S) * 1e3
+            per_m[M] = dict(
+                ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                allclose=close, onehot_bitwise=onehot_equal,
+                shape=[M, K, N], lanes=S, seg=fq.seg, bytes=nbytes,
+                int_ops=int_ops, flops=flops, bytes_ms=bytes_ms,
+                ops_ms=ops_ms,
+                partial_bytes=4 * S * M * N)
+            emit("kernel", name=name, route="cuda",
+                 source="src/repro_torch/csrc/fused_decode_matmul.cu",
+                 replaces=replaces, tensor=f"layers/{short}[0]",
+                 codec=f"{fq.family}{fq.bits}", tolerance=FUSED_TOL,
+                 library_ms=None, launches=launches[name], **per_m[M])
+            if not close:
+                raise AssertionError(f"{name} M={M} differs from its plain "
+                                     f"version by {err}")
+            if not onehot_equal:
+                raise AssertionError(f"{name} one-hot rows are not the "
+                                     f"dequantized weight's rows")
+        head = per_m[4]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/fused_decode_matmul.cu",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=head["max_abs_err"], ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=None,
+            tolerance=FUSED_TOL, shape=head["shape"],
+            onehot_bitwise=head["onehot_bitwise"],
+            m128={k: per_m[128][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "onehot_bitwise")}))
+    return rows
+
+
+def pending_kernel_bound():
+    """The bound of the TPU kernel still to port, ``dequant_matmul``
+    (``src/repro/kernels/dequant_matmul.py:33``), at qwen3-1.7b's
+    ``w_down`` shape in prefill (M = 128, K = 6144, N = 2048, uint8
+    weights, (1, N) float32 scale and zero, bf16 x and out): the target of
+    the next slice, computed from shapes only."""
+    from repro_torch.configs import registry
+    cfg = registry.get("qwen3-1.7b")
+    M, K, N = BATCH * PROMPT, cfg.d_ff, cfg.d_model
+    nbytes = 2 * M * K + K * N + 2 * 4 * N + 2 * M * N
+    flops, deq_ops = 2 * M * K * N, 2 * K * N
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (flops / BF16_FLOPS_PER_S + deq_ops / SCALAR_OPS_PER_S) * 1e3
+    emit("pending_kernel", name="dequant_matmul",
+         replaces="src/repro/kernels/dequant_matmul.py:33",
+         shape=[M, K, N], bytes=nbytes, flops=flops, dequant_ops=deq_ops,
+         bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -432,13 +685,20 @@ def main():
                 if "Compiling" in ln or "registers" in ln or "spill" in ln])
 
     t0 = time.perf_counter()
-    cm, launches, eng, prompt = serve_main_path(dev)
+    cm, launches, eng, prompt, dense_logits, dense_tokens = \
+        serve_main_path(dev)
     serve_s = time.perf_counter() - t0
     profile_decode(eng, prompt, dev)
     del eng
+    t0 = time.perf_counter()
+    rw, resident_launches = resident_phase(cm, prompt, dense_logits,
+                                           dense_tokens, dev)
+    resident_s = time.perf_counter() - t0
     reference_check(dev)
     rows = kernel_phase(cm, launches, clock_mhz, dev)
-    emit("done", serve_phase_s=serve_s)
+    rows += fused_kernel_rows(rw, resident_launches, dev)
+    pending_kernel_bound()
+    emit("done", serve_phase_s=serve_s, resident_phase_s=resident_s)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,6 +26,13 @@ Registered backends:
 ``auto`` (or ``None``) follows the device: ``cuda`` for a CUDA device (the
 default), ``torch`` for the CPU.
 
+Each backend also has the *fused* capability (decode→dequant→matmul in one
+pass, :mod:`repro_torch.kernels.fused_decode_matmul`): ``numpy`` decodes on
+the host and then runs the serving dequant and product (the counterpart of
+the JAX package's ``_fused_ref``), ``torch`` runs the fused plain version on
+the CPU, ``cuda`` launches the fused kernels.  There is no separate fused
+probe: a backend that runs here runs its fused path.
+
 Every backend returns **host** int32 arrays: the ``cuda`` backend copies its
 result back (``.cpu()``, which also waits for the kernel), so the scheduler
 and the container code stay device-agnostic at the price of one round trip
@@ -58,17 +65,41 @@ class DecoderBackend:
     the torch and cuda families copy their result into it — either way the
     caller's buffer holds the symbols on return.
     ``probe`` answers "can this backend run here at all?".
+    ``fused_fns`` maps kernel family -> the fused decode→dequant→matmul
+    ``fused_fns[fam](table, x, mat, scale, zero, *, seg_symbols, K, N,
+    bits)`` -> (..., N) activations on ``x``'s device.
     """
 
     name: str
     fns: Mapping[str, Callable[..., np.ndarray]]
     probe: Callable[[], bool]
+    fused_fns: Optional[Mapping[str, Callable]] = None
 
     def available(self) -> bool:
         return bool(self.probe())
 
     def kernel_families(self) -> List[str]:
         return sorted(self.fns)
+
+    def fused_available(self) -> bool:
+        """Can this backend run the fused decode→dequant→matmul here?"""
+        return bool(self.fused_fns) and self.available()
+
+    def fused_families(self) -> List[str]:
+        return sorted(self.fused_fns or ())
+
+    def fused_matmul(self, table, x: torch.Tensor, mat: np.ndarray, scale,
+                     zero, *, seg_symbols: int, K: int, N: int,
+                     bits: int = 8) -> torch.Tensor:
+        """Fused ``x @ dequant(decode(mat))`` through this backend (same
+        family routing as :meth:`decode_table`)."""
+        fn = (self.fused_fns or {}).get(table.kernel)
+        if fn is None:
+            raise RuntimeError(
+                f"decoder backend {self.name!r} has no fused {table.kernel!r} "
+                f"kernel (fused families: {self.fused_families()})")
+        return fn(table, x, mat, scale, zero, seg_symbols=seg_symbols,
+                  K=K, N=N, bits=bits)
 
     def decode(self, mat: np.ndarray, counts: np.ndarray, lut_sym: np.ndarray,
                lut_len: np.ndarray, *, max_len: int,
@@ -172,6 +203,31 @@ def _tensors(device, mat, counts, *tables):
     return [x.to(device) for x in t]
 
 
+# ---------------------------------------------------------- fused capability
+def _fused_host(table, x, mat, scale, zero, *, seg_symbols, K, N, bits=8):
+    """Host decode through the numpy loop, then the serving dequant and
+    product on ``x``'s device (the counterpart of the JAX package's
+    ``_fused_ref`` / ``kernels.ref.fused_decode_matmul_ref``)."""
+    from ..models.layers import QT, deq
+    counts = np.full(mat.shape[0], seg_symbols, np.int64)
+    dec = _REGISTRY["numpy"].decode_table(table, mat, counts,
+                                          max_count=seg_symbols)
+    t = lambda a, dt: torch.from_numpy(  # noqa: E731
+        np.asarray(a).astype(dt)).to(x.device)
+    q = t(dec.reshape(K, N), np.uint8)
+    return x @ deq(QT(q, t(scale, np.float32), t(zero, np.float32)), x.dtype)
+
+
+def _fused_on(device: str):
+    def fn(table, x, mat, scale, zero, *, seg_symbols, K, N, bits=8):
+        from ..kernels.fused_decode_matmul import (build_fused_qt,
+                                                   fused_decode_matmul)
+        fq = build_fused_qt(table, mat, scale, zero, seg_symbols=seg_symbols,
+                            K=K, N=N, bits=bits, device=device)
+        return fused_decode_matmul(x, fq)
+    return fn
+
+
 # ------------------------------------------------------------------ numpy
 def _numpy_decode(mat, counts, lut_sym, lut_len, max_len, max_count,
                   out=None):
@@ -187,7 +243,8 @@ def _numpy_decode_tans(mat, counts, tab_sym, tab_bits, tab_base, table_log,
 register_backend(DecoderBackend(
     name="numpy",
     fns={"prefix": _numpy_decode, "tans": _numpy_decode_tans},
-    probe=lambda: True))
+    probe=lambda: True,
+    fused_fns={"prefix": _fused_host, "tans": _fused_host}))
 
 
 # ------------------------------------------------------------------ torch
@@ -218,7 +275,8 @@ def _torch_decode_tans(mat, counts, tab_sym, tab_bits, tab_base, table_log,
 register_backend(DecoderBackend(
     name="torch",
     fns={"prefix": _torch_decode, "tans": _torch_decode_tans},
-    probe=lambda: True))
+    probe=lambda: True,
+    fused_fns={"prefix": _fused_on("cpu"), "tans": _fused_on("cpu")}))
 
 
 # ------------------------------------------------------------------- cuda
@@ -243,4 +301,5 @@ def _cuda_decode_tans(mat, counts, tab_sym, tab_bits, tab_base, table_log,
 register_backend(DecoderBackend(
     name="cuda",
     fns={"prefix": _cuda_decode, "tans": _cuda_decode_tans},
-    probe=torch.cuda.is_available))
+    probe=torch.cuda.is_available,
+    fused_fns={"prefix": _fused_on("cuda"), "tans": _fused_on("cuda")}))

@@ -264,3 +264,213 @@ def pack_segments(payload: np.ndarray,
     width = max(GUARD_BYTES, max(s.nbytes for s in segs))
     mat, _ = pack_streams(streams, min_width=pow2_bucket(width, 64))
     return mat, counts
+
+
+# ---------------------------------------------------------------------------
+# Execution-order plans (compressed-resident serving, paper §IV "parallel
+# decoding strategy"): plan the decode in LAYER EXECUTION order so a serving
+# step materializes exactly layer l's weights just before layer l's matmuls,
+# while a worker thread decodes layer l+1.
+
+
+@dataclasses.dataclass
+class ExecutionSpan:
+    """One stacked tensor's layer-l slice, as container segments.
+
+    Segments hold fixed symbol counts and know nothing about layer
+    boundaries, so a layer's symbol range ``[l*P, (l+1)*P)`` may start and
+    end mid-segment: ``segs`` are the overlapping segments in order, ``trim``
+    is the slice start within their concatenated decode, ``count`` the
+    symbols belonging to the layer (``P = n_symbols / n_layers``).  Boundary
+    segments are decoded by both adjacent layers and trimmed — the price of
+    planning over an unmodified container.
+    """
+
+    tensor: str
+    segs: List[_Seg]
+    trim: int
+    count: int
+
+
+@dataclasses.dataclass
+class ExecutionStep:
+    """All spans one layer decodes through ONE code table (one lock-step
+    kernel call, same no-straddling rule as :meth:`DecodeScheduler.plan`)."""
+
+    layer: int
+    table_id: str
+    spans: List[ExecutionSpan]
+
+    @property
+    def segs(self) -> List[_Seg]:
+        return [s for sp in self.spans for s in sp.segs]
+
+
+def plan_execution(model: "CompressedModel", n_layers: int,
+                   names: Sequence[str]) -> List[List[ExecutionStep]]:
+    """Plan per-layer decode of layer-stacked tensors in execution order.
+
+    ``names`` are container tensors whose leading axis is the layer axis
+    (``shape[0] == n_layers``); returns one list of :class:`ExecutionStep`
+    per layer (usually a single step; mixed-codec containers get one step
+    per code table).  The plan holds only coordinates into the resident
+    payload — the bitstream itself is never copied or reordered.
+    """
+    spans: List[List[ExecutionSpan]] = [[] for _ in range(n_layers)]
+    for name in names:
+        meta = model.tensors[name]
+        if len(meta.shape) == 0 or meta.shape[0] != n_layers:
+            raise ValueError(
+                f"{name}: shape {meta.shape} is not stacked over "
+                f"{n_layers} layers")
+        per_layer, rem = divmod(meta.n_symbols, n_layers)
+        assert rem == 0, (name, meta.n_symbols, n_layers)
+        segs = tensor_segments(model, name)
+        starts = np.concatenate([[0], np.cumsum(meta.seg_counts)])
+        for l in range(n_layers):
+            a, b = l * per_layer, (l + 1) * per_layer
+            idx = np.nonzero((starts[:-1] < b) & (starts[1:] > a))[0]
+            spans[l].append(ExecutionSpan(
+                tensor=name, segs=[segs[i] for i in idx],
+                trim=a - int(starts[idx[0]]), count=per_layer))
+    plan: List[List[ExecutionStep]] = []
+    for l, layer_spans in enumerate(spans):
+        by_table: Dict[str, List[ExecutionSpan]] = {}
+        for sp in layer_spans:
+            by_table.setdefault(model.table_id_for(sp.tensor), []).append(sp)
+        plan.append([ExecutionStep(layer=l, table_id=t, spans=s)
+                     for t, s in sorted(by_table.items())])
+    return plan
+
+
+@dataclasses.dataclass
+class FusedTileSpan:
+    """One stacked tensor's layer-l slice as *whole* segments whose lane
+    boundaries coincide with matmul K-tiles (the fused-kernel contract:
+    no trims, uniform counts — contrast :class:`ExecutionSpan`, which
+    tolerates boundary segments by decoding them twice)."""
+
+    tensor: str
+    layer: int
+    segs: List[_Seg]
+    seg_symbols: int
+
+
+def fused_tile_reason(model: "CompressedModel", n_layers: int,
+                      name: str) -> Optional[str]:
+    """Why ``name`` cannot feed the fused decode→dequant→matmul kernel —
+    ``None`` when its segments tile-align with per-layer (K, N) blocks.
+
+    The geometric contract (see kernels/fused_decode_matmul.py): a stacked
+    (L, K, N) tensor whose segments all hold the same ``seg`` symbols, with
+    ``seg`` a multiple of the row width N and the per-layer symbol count a
+    multiple of ``seg`` — so each layer is a whole number of lanes and each
+    decoded lane reshapes row-major into whole (seg/N, N) K-tile rows.
+    """
+    meta = model.tensors[name]
+    if len(meta.shape) != 3:
+        return f"shape {meta.shape} is not a stacked (L, K, N) matrix"
+    if meta.shape[0] != n_layers:
+        return f"leading dim {meta.shape[0]} != n_layers {n_layers}"
+    counts = np.asarray(meta.seg_counts)
+    seg = int(counts[0])
+    if not (counts == seg).all():
+        return "ragged tail segment (non-uniform symbol counts)"
+    _, K, N = meta.shape
+    if seg % N:
+        return f"segment of {seg} symbols does not tile rows of width {N}"
+    if (K * N) % seg:
+        return f"layer slice of {K * N} symbols is not a whole number " \
+               f"of {seg}-symbol segments"
+    return None
+
+
+def plan_fused_spans(model: "CompressedModel", n_layers: int,
+                     names: Sequence[str]) -> Dict[str, List[FusedTileSpan]]:
+    """Per-layer whole-segment spans for fused-eligible tensors.
+
+    Raises on any name failing :func:`fused_tile_reason` — callers classify
+    first and fall back to :func:`plan_execution` for the rest.  Returns
+    ``{name: [span for layer 0, span for layer 1, ...]}``.
+    """
+    out: Dict[str, List[FusedTileSpan]] = {}
+    for name in names:
+        reason = fused_tile_reason(model, n_layers, name)
+        if reason:
+            raise ValueError(f"{name}: {reason}")
+        meta = model.tensors[name]
+        seg = int(meta.seg_counts[0])
+        segs = tensor_segments(model, name)
+        lanes_per_layer = (meta.n_symbols // n_layers) // seg
+        out[name] = [
+            FusedTileSpan(tensor=name, layer=l,
+                          segs=segs[l * lanes_per_layer:
+                                    (l + 1) * lanes_per_layer],
+                          seg_symbols=seg)
+            for l in range(n_layers)
+        ]
+    return out
+
+
+def iter_seg_runs(segs: Sequence[_Seg],
+                  chunk_symbols: Optional[int]) -> Iterator[List[_Seg]]:
+    """Split a segment sequence into consecutive runs of at most
+    ``chunk_symbols`` symbols (at least one segment per run; ``None`` ->
+    one run).  The per-layer decode uses this exactly like
+    :meth:`DecodeScheduler.plan` uses its budget: it bounds the int32
+    decode scratch to O(chunk) instead of O(layer)."""
+    if chunk_symbols is None:
+        yield list(segs)
+        return
+    run: List[_Seg] = []
+    n = 0
+    for s in segs:
+        if run and n + s.count > chunk_symbols:
+            yield run
+            run, n = [], 0
+        run.append(s)
+        n += s.count
+    if run:
+        yield run
+
+
+def decode_execution_step(model: "CompressedModel", step: ExecutionStep,
+                          backend: DecoderBackend, *,
+                          out: Optional[np.ndarray] = None,
+                          chunk_symbols: Optional[int] = None
+                          ) -> Dict[str, np.ndarray]:
+    """Decode one layer-step; returns ``{tensor: flat uint8 layer slice}``.
+
+    Lock-step multi-stream calls through the step's code table, one per
+    budgeted segment run (``chunk_symbols=None`` -> a single call); ``out``
+    is the optional preallocated (streams, max_count) int32 scratch shared
+    across layers (:meth:`DecoderBackend.decode_table`'s decode-into-buffer
+    contract).  Decoded symbols are narrowed to uint8 per segment as they
+    land, so the live int32 footprint never exceeds one run.
+    """
+    table = model.tables[step.table_id]
+    pieces: Dict[str, List[np.ndarray]] = {}
+    n_symbols = sum(s.count for s in step.segs)
+    with obs_trace.span("decode.exec_step", cat="decode", layer=step.layer,
+                        table=step.table_id, backend=backend.name,
+                        segments=len(step.segs), symbols=n_symbols):
+        for run in iter_seg_runs(step.segs, chunk_symbols):
+            mat, counts = pack_segments(model.payload, run)
+            dec = backend.decode_table(table, mat, counts, out=out)
+            for j, s in enumerate(run):
+                pieces.setdefault(s.tensor, []).append(
+                    dec[j, : s.count].astype(np.uint8))
+    obs_metrics.counter("decode.symbols").inc(n_symbols, table=step.table_id)
+    obs_metrics.counter("decode.calls").inc(backend=backend.name)
+    result: Dict[str, np.ndarray] = {}
+    for sp in step.spans:
+        parts = pieces[sp.tensor]
+        flat = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        if sp.trim == 0 and sp.count == flat.size:
+            result[sp.tensor] = flat
+        else:
+            # copy so the layer slot never pins a boundary segment's
+            # over-decode (the slice would otherwise keep the whole
+            # segment's buffer alive for the slot's lifetime)
+            result[sp.tensor] = flat[sp.trim: sp.trim + sp.count].copy()
+    return result

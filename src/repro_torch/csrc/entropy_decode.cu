@@ -17,7 +17,10 @@
 // of the table_log-bit window at bitpos, and moves to
 // st = tab_base[st] + fresh, bitpos += nb.
 //
-// Both write int32 symbols and 0 past a stream's count.
+// Both write int32 symbols and 0 past a stream's count.  The window, the
+// two cursors, the table staging and the launch helper live in
+// entropy_common.cuh, shared with the fused kernels of
+// fused_decode_matmul.cu.
 //
 // What bounds them on an H100: not bytes.  A load-path call moves about
 // 2.5 MB (8 streams of 65,536 symbols: stream bytes in, int32 symbols out),
@@ -42,39 +45,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "entropy_common.cuh"
+
 namespace {
 
+using entropy::PrefixCursor;
+using entropy::TansCursor;
+using entropy::stage_tables;
+
 constexpr int kThreads = 128;
-constexpr size_t kMaxSmem = 227 * 1024;
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr int kTansHeaderBits = 16;
-
-// The big-endian 32-bit window starting at `byte` of a row of width B.
-__device__ __forceinline__ uint32_t window32(const uint8_t* row, int64_t B,
-                                             int64_t byte) {
-  if (byte + 3 < B) {
-    return (uint32_t(row[byte]) << 24) | (uint32_t(row[byte + 1]) << 16) |
-           (uint32_t(row[byte + 2]) << 8) | uint32_t(row[byte + 3]);
-  }
-  uint32_t w = 0;
-  for (int i = 0; i < 4; ++i) {
-    w = (w << 8) | (byte + i < B ? uint32_t(row[byte + i]) : 0u);
-  }
-  return w;
-}
-
-// Copies n_tabs tables of L int32 entries each into shared memory, one
-// after another, and returns where they start.
-__device__ __forceinline__ const int32_t* stage_tables(
-    int32_t* smem, const int32_t* const* tabs, int n_tabs, int L) {
-  for (int t = 0; t < n_tabs; ++t) {
-    for (int i = threadIdx.x; i < L; i += blockDim.x) {
-      smem[t * L + i] = tabs[t][i];
-    }
-  }
-  __syncthreads();
-  return smem;
-}
 
 template <bool kShared>
 __global__ void prefix_decode_kernel(const uint8_t* __restrict__ mat,
@@ -95,19 +74,11 @@ __global__ void prefix_decode_kernel(const uint8_t* __restrict__ mat,
   }
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
-  const uint8_t* row = mat + int64_t(s) * B;
   int32_t* o = out + int64_t(s) * max_count;
   const int n = min(counts[s], max_count);
-  const uint32_t mask = (1u << max_len) - 1u;
-  const int top = 32 - max_len;
-  int64_t bitpos = 0;
+  PrefixCursor cur(mat + int64_t(s) * B, B, lut_sym, lut_len, max_len);
   int k = 0;
-  for (; k < n; ++k) {
-    const uint32_t w = window32(row, B, bitpos >> 3);
-    const uint32_t peek = (w >> (top - int(bitpos & 7))) & mask;
-    o[k] = lut_sym[peek];
-    bitpos += lut_len[peek];
-  }
+  for (; k < n; ++k) o[k] = cur.next();
   for (; k < max_count; ++k) o[k] = 0;
 }
 
@@ -132,46 +103,23 @@ __global__ void tans_decode_kernel(const uint8_t* __restrict__ mat, int64_t B,
   }
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
-  const uint8_t* row = mat + int64_t(s) * B;
   int32_t* o = out + int64_t(s) * max_count;
   const int n = min(counts[s], max_count);
-  const uint32_t mask = uint32_t(L - 1);
-  const int top = 32 - table_log;
-  uint32_t st = (window32(row, B, 0) >> 16) & mask;
-  int64_t bitpos = kTansHeaderBits;
+  TansCursor cur(mat + int64_t(s) * B, B, tab_sym, tab_bits, tab_base,
+                 table_log);
   int k = 0;
-  for (; k < n; ++k) {
-    const int32_t nb = tab_bits[st];
-    o[k] = tab_sym[st];
-    const uint32_t w = window32(row, B, bitpos >> 3);
-    const uint32_t peek = (w >> (top - int(bitpos & 7))) & mask;
-    const uint32_t fresh = peek >> (table_log - nb);
-    st = uint32_t(tab_base[st] + int32_t(fresh)) & mask;
-    bitpos += nb;
-  }
+  for (; k < n; ++k) o[k] = cur.next();
   for (; k < max_count; ++k) o[k] = 0;
 }
 
-// Launches one thread per stream on `stream`: `shared_kernel` with `smem`
-// bytes of tables in dynamic shared memory when they fit a block (raising
-// the kernel's limit above the 48 KiB default), else `global_kernel`.
-// Returns cudaGetLastError().
+// One thread per stream, kThreads a block; the tables in dynamic shared
+// memory when they fit a block, else read from global memory.
 template <typename... P, typename... A>
-int launch(void (*shared_kernel)(P...), void (*global_kernel)(P...),
-           size_t smem, int S, cudaStream_t stream, A... args) {
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  if (smem <= kMaxSmem) {
-    if (smem > kDefaultSmem) {
-      cudaError_t e = cudaFuncSetAttribute(
-          shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          int(smem));
-      if (e != cudaSuccess) return int(e);
-    }
-    shared_kernel<<<grid, kThreads, smem, stream>>>(args...);
-  } else {
-    global_kernel<<<grid, kThreads, 0, stream>>>(args...);
-  }
-  return int(cudaGetLastError());
+int launch_decode(void (*shared_kernel)(P...), void (*global_kernel)(P...),
+                  size_t table_bytes, int S, cudaStream_t stream, A... args) {
+  return entropy::launch(shared_kernel, global_kernel, table_bytes, 0,
+                         dim3((S + kThreads - 1) / kThreads), dim3(kThreads),
+                         stream, args...);
 }
 
 }  // namespace
@@ -188,14 +136,14 @@ int prefix_decode(const void* mat, long long B, const void* counts,
                   const void* lut_sym, const void* lut_len, int lut_size,
                   int max_len, int S, int max_count, void* out,
                   void* stream) {
-  return launch(prefix_decode_kernel<true>, prefix_decode_kernel<false>,
-                size_t(2) * lut_size * sizeof(int32_t), S,
-                static_cast<cudaStream_t>(stream),
-                static_cast<const uint8_t*>(mat), int64_t(B),
-                static_cast<const int32_t*>(counts),
-                static_cast<const int32_t*>(lut_sym),
-                static_cast<const int32_t*>(lut_len), lut_size, max_len, S,
-                max_count, static_cast<int32_t*>(out));
+  return launch_decode(prefix_decode_kernel<true>, prefix_decode_kernel<false>,
+                       size_t(2) * lut_size * sizeof(int32_t), S,
+                       static_cast<cudaStream_t>(stream),
+                       static_cast<const uint8_t*>(mat), int64_t(B),
+                       static_cast<const int32_t*>(counts),
+                       static_cast<const int32_t*>(lut_sym),
+                       static_cast<const int32_t*>(lut_len), lut_size, max_len, S,
+                       max_count, static_cast<int32_t*>(out));
 }
 
 // mat (S, B) uint8 row-major; counts (S,) int32; tab_sym / tab_bits /
@@ -204,15 +152,15 @@ int tans_decode(const void* mat, long long B, const void* counts,
                 const void* tab_sym, const void* tab_bits,
                 const void* tab_base, int table_log, int S, int max_count,
                 void* out, void* stream) {
-  return launch(tans_decode_kernel<true>, tans_decode_kernel<false>,
-                size_t(3) * (size_t(1) << table_log) * sizeof(int32_t), S,
-                static_cast<cudaStream_t>(stream),
-                static_cast<const uint8_t*>(mat), int64_t(B),
-                static_cast<const int32_t*>(counts),
-                static_cast<const int32_t*>(tab_sym),
-                static_cast<const int32_t*>(tab_bits),
-                static_cast<const int32_t*>(tab_base), table_log, S,
-                max_count, static_cast<int32_t*>(out));
+  return launch_decode(tans_decode_kernel<true>, tans_decode_kernel<false>,
+                       size_t(3) * (size_t(1) << table_log) * sizeof(int32_t), S,
+                       static_cast<cudaStream_t>(stream),
+                       static_cast<const uint8_t*>(mat), int64_t(B),
+                       static_cast<const int32_t*>(counts),
+                       static_cast<const int32_t*>(tab_sym),
+                       static_cast<const int32_t*>(tab_bits),
+                       static_cast<const int32_t*>(tab_base), table_log, S,
+                       max_count, static_cast<int32_t*>(out));
 }
 
 }  // extern "C"

@@ -1,11 +1,15 @@
-"""Build and load the port's CUDA kernels (``repro_torch/csrc/entropy_decode.cu``).
+"""Build and load the port's CUDA kernels (every ``*.cu`` under
+``repro_torch/csrc/``: ``entropy_decode.cu`` and ``fused_decode_matmul.cu``,
+which share ``entropy_common.cuh``).
 
-The source compiles with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes`; no PyTorch header is
-included, so a build takes seconds.  The library lands in
+Each source compiles for ``sm_90a`` in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into one
+shared library with a plain C interface, loaded with :mod:`ctypes`; no
+PyTorch header is included, so a build takes seconds.  The library lands in
 ``<checkout>/build/kernels/`` (listed in ``.gitignore``) under a name that
-carries the hash of the source and the flags, so an edited source is rebuilt
-at its next use and an unchanged one is reused.
+carries the hash of every source and header under ``csrc/`` and of the
+flags, so an edited source or header is rebuilt at its next use and an
+unchanged one is reused.
 
 Nothing here runs at import: :func:`load` builds on first use (the smoke
 script calls :func:`build` up front to time it).  ``launches`` counts each
@@ -21,22 +25,31 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "entropy_decode.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
-# C entry points: (mat, B, counts, *tables, ...scalars, out, stream) -> error
+_p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points, each returning a cudaError_t:
+#   decode: (mat, B, counts, *tables, ...scalars, out, stream)
+#   fused:  (x, M, K, N, mat, B, S, seg, *tables, table scalars, scale,
+#            ssk, ssn, zero, szk, szn, tile, partial, out, stream)
+_AFFINE = [_p, _l, _l, _p, _l, _l, _i, _p, _p, _p]
 SIGNATURES = {
-    "prefix_decode": [_p, ctypes.c_longlong, _p, _p, _p, _i, _i, _i, _i, _p,
-                      _p],
-    "tans_decode": [_p, ctypes.c_longlong, _p, _p, _p, _p, _i, _i, _i, _p, _p],
+    "prefix_decode": [_p, _l, _p, _p, _p, _i, _i, _i, _i, _p, _p],
+    "tans_decode": [_p, _l, _p, _p, _p, _p, _i, _i, _i, _p, _p],
+    "fused_prefix_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _i, _i,
+                            *_AFFINE],
+    "fused_tans_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _p, _i,
+                          *_AFFINE],
 }
 
-launches: Dict[str, int] = {"huffman_decode": 0, "ans_decode": 0}
+launches: Dict[str, int] = {"huffman_decode": 0, "ans_decode": 0,
+                            "fused_prefix": 0, "fused_tans": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -50,8 +63,15 @@ def nvcc() -> str:
     return path
 
 
+def sources() -> List[Path]:
+    """The ``.cu`` files compiled into the library, in name order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def lib_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"libentropy_decode-{h.hexdigest()[:16]}.so"
 
 
@@ -63,15 +83,30 @@ def build() -> str:
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    report = ""
+    for proc in procs:
+        report += proc.communicate()[0]
+    failed = [p.returncode for p in procs if p.returncode != 0]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
+    if not failed:
+        link = subprocess.run([nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        report += link.stdout
+        failed = [link.returncode] if link.returncode != 0 else []
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         raise RuntimeError(f"CUDA kernel build failed: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
+                           f"{failed}\n{report}")
     os.replace(tmp, out)
-    return proc.stdout
+    return report
 
 
 def load() -> ctypes.CDLL:

@@ -10,11 +10,18 @@ quantized (QT) weights resident, dequantized at use:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --bits 8 --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
+``--resident compressed`` keeps the container entropy-coded and decodes
+each layer just before its matmuls; ``--fused`` adds the fused
+decode→dequant→matmul kernels for the tile-aligned tensors:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --resident compressed --fused [--device cpu]
+
 It serves the reduced variant of ``--arch`` (``registry.reduced``), like the
 JAX launcher; ``chip_smoke.py`` drives the full width.  Runs on the card
 unless ``--device cpu`` is given.  The JAX launcher's other serving modes
-(compressed residency, continuous batching, paged KV, fleets, meshes) are
-not ported yet and their flags exit with a message saying so.
+(continuous batching, paged KV, fleets, meshes) are not ported yet and their
+flags exit with a message saying so.
 """
 import argparse
 import sys
@@ -22,7 +29,7 @@ import time
 
 # flags of the JAX launcher whose serving modes the port does not have yet
 _NOT_PORTED_FLAGS = (
-    "--resident", "--fused", "--fused-impl", "--batch-slots", "--max-queue",
+    "--batch-slots", "--max-queue",
     "--prefill-chunk", "--traffic", "--kv-spec", "--kv-block",
     "--prefix-sharing", "--replicas", "--router", "--disaggregate", "--mesh",
     "--production", "--shape", "--multi-pod")
@@ -48,6 +55,22 @@ def main(argv=None):
     p.add_argument("--gen", type=int, default=16)
     p.add_argument("--no-quantized-serving", action="store_true",
                    help="dequantize to dense fp32 at load (baseline mode)")
+    p.add_argument("--resident", choices=("dense", "compressed"),
+                   default="dense",
+                   help="weight residency: 'dense' decodes the container "
+                        "into resident QT params at load; 'compressed' "
+                        "keeps the entropy-coded payload resident and "
+                        "decodes each layer just before its matmuls "
+                        "(bit-identical greedy outputs)")
+    p.add_argument("--fused", action="store_true",
+                   help="with --resident compressed: hand tile-aligned "
+                        "tensors to the fused decode→dequant→matmul kernel "
+                        "as payload handles; other tensors fall back "
+                        "per tensor to the per-layer decode path")
+    p.add_argument("--fused-impl", default=None,
+                   help="only 'auto' (the handle's device picks the CUDA "
+                        "kernel or its plain version); the JAX launcher's "
+                        "other choices are not ported")
     p.add_argument("--decode-backend", default=None,
                    help="decoder backend name (numpy / torch / cuda); "
                         "default: follow --device")
@@ -71,8 +94,23 @@ def main(argv=None):
         flag = arg.split("=", 1)[0]
         if flag in _NOT_PORTED_FLAGS:
             p.error(f"{flag} is not ported yet (the PyTorch port serves "
-                    f"lockstep batches with dense residency)")
+                    f"lockstep batches, dense or compressed resident)")
     args = p.parse_args(argv)
+    if args.fused_impl not in (None, "auto"):
+        p.error(f"--fused-impl {args.fused_impl} is not ported yet (the "
+                f"port picks the fused kernel by the tensor's device)")
+    if args.resident == "compressed":
+        if args.no_quantized_serving:
+            p.error("--resident compressed always serves QT weights "
+                    "(the per-layer slots hold quantized triples); "
+                    "drop --no-quantized-serving")
+        if args.no_stream:
+            p.error("--no-stream only applies to the load-time decode of "
+                    "--resident dense")
+    elif args.fused or args.fused_impl:
+        p.error("--fused/--fused-impl require --resident compressed (the "
+                "fused kernel consumes the entropy-coded payload handles "
+                "that mode keeps resident)")
 
     # validate names against the registries before any expensive work
     from repro_torch.core.codecs import codec_names
@@ -142,22 +180,57 @@ def main(argv=None):
     load_kw = {}
     if args.chunk_symbols is not None:
         load_kw["chunk_symbols"] = args.chunk_symbols
-    serve_params = engine.load_params_from_compressed(
-        cm, quantized=not args.no_quantized_serving,
-        backend=args.decode_backend, stream=not args.no_stream, device=dev,
-        metrics=load_metrics, **load_kw)
-    print(f"{'streamed' if not args.no_stream else 'monolithic'} decode + "
-          f"load [{load_metrics['decode_backend']}]: "
-          f"{load_metrics['decode_load_s']:.2f}s "
-          f"(first weight resident after "
-          f"{load_metrics['time_to_first_weight_s']*1e3:.0f}ms; "
-          f"quantized residency: {not args.no_quantized_serving})")
+    if args.resident == "compressed":
+        from repro_torch.serving.resident import CompressedResidentWeights
+        # absent --chunk-symbols: the JAX launcher's tighter 64k budget (the
+        # int32 scratch is part of the resident peak)
+        load_kw.setdefault("chunk_symbols", 64 * 1024)
+        t0 = time.perf_counter()
+        serve_params = CompressedResidentWeights(
+            cm, cfg, backend=args.decode_backend, fused=args.fused,
+            device=dev, **load_kw)
+        load_metrics["decode_load_s"] = time.perf_counter() - t0
+        load_metrics["decode_backend"] = serve_params.backend.name
+        if args.fused:
+            via = "cuda kernel" if dev.type == "cuda" else "plain torch"
+            print(f"  fused decode→dequant→matmul: "
+                  f"{len(serve_params._fused)} tensors "
+                  f"{sorted(serve_params._fused)} via {via}; "
+                  f"{len(serve_params.fused_fallback)} fall back "
+                  f"{serve_params.fused_fallback or ''}")
+        rb = serve_params.resident_bytes()
+        peak = serve_params.peak_resident_bytes()
+        print(f"compressed-resident load [{load_metrics['decode_backend']}]: "
+              f"{load_metrics['decode_load_s']:.2f}s (globals + carve-outs "
+              f"decoded; {len(serve_params.plan)} layers stay entropy-coded)")
+        print(f"  peak resident weights {peak/2**20:.2f} MiB "
+              f"(payload {rb['payload']/2**20:.2f} + tables/qmeta "
+              f"{(rb['tables']+rb['qmeta'])/2**20:.2f} + globals "
+              f"{(rb['globals']+rb['stacked'])/2**20:.2f} + 2x layer slot "
+              f"{rb['layer_slot']/2**20:.2f} + scratch "
+              f"{rb['scratch']/2**20:.2f}) vs dense-resident QT "
+              f"{serve_params.dense_resident_bytes()/2**20:.2f} MiB, "
+              f"dense bf16 {serve_params.dense_bf16_bytes()/2**20:.2f} MiB")
+    else:
+        serve_params = engine.load_params_from_compressed(
+            cm, quantized=not args.no_quantized_serving,
+            backend=args.decode_backend, stream=not args.no_stream,
+            device=dev, metrics=load_metrics, **load_kw)
+        print(f"{'streamed' if not args.no_stream else 'monolithic'} decode "
+              f"+ load [{load_metrics['decode_backend']}]: "
+              f"{load_metrics['decode_load_s']:.2f}s "
+              f"(first weight resident after "
+              f"{load_metrics['time_to_first_weight_s']*1e3:.0f}ms; "
+              f"quantized residency: {not args.no_quantized_serving})")
 
     sc = engine.ServeConfig(max_len=args.prompt_len + args.gen)
     rng = np.random.default_rng(0)
-    eng = engine.Engine(cfg, serve_params, sc, device=dev)
+    eng = engine.Engine(cfg, serve_params, sc, device=dev,
+                        resident=args.resident)
     prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
     out, metrics = eng.generate(prompt, args.gen, echo_metrics=True)
+    if args.resident == "compressed":
+        serve_params.close()
     ttft = load_metrics["decode_load_s"] + metrics["ttft_s"]
     print(f"generated {tuple(out.shape)} tokens: prefill "
           f"{metrics['prefill_s']:.2f}s, decode {metrics['decode_s']:.2f}s "

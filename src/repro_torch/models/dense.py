@@ -156,3 +156,53 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor, cache, pos: int):
                       cache=(cache["k"][l], cache["v"][l]), pos=pos)
     x = rms_norm(x, params["final_norm"])
     return logits_fn(cfg, params, x), cache
+
+
+# ------------------------------------------------- compressed-resident serving
+#
+# Per-layer weight-slot entry points: the same math as `prefill` /
+# `decode_step`, one layer at a time, with the layer's weights passed as a
+# slot dict (the keys `_layer` would produce) instead of sliced from the
+# stacked params.  `serving.engine.ServeSteps` loops the layers in execution
+# order so the entropy decode of layer l+1 can run beside layer l.  Each
+# function mirrors one iteration of its whole-tree twin op for op, so greedy
+# decode matches the dense-resident engine bit for bit.
+
+
+def embed_step(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding against the resident globals (the pre-loop line of
+    `forward` / `decode_step`).  tokens: (B, S) int."""
+    return take_rows(params["embed"], tokens)
+
+
+def head_step(cfg: ArchConfig, params, x: torch.Tensor, *,
+              last_only: bool = False) -> torch.Tensor:
+    """Final norm + logits (the post-loop lines of the step functions).
+    ``last_only`` reproduces `prefill`'s last-position slice."""
+    x = rms_norm(x, params["final_norm"])
+    if last_only:
+        x = x[:, -1:, :]
+    return logits_fn(cfg, params, x)
+
+
+def resident_prefill_block(cfg: ArchConfig, lp, x: torch.Tensor, *,
+                           positions: torch.Tensor):
+    """One `forward`-collect-cache iteration: full causal attention over the
+    prompt, returning the layer's (k, v) for the caller to write into the
+    cache at its layer row."""
+    return _block(cfg, lp, x, positions=positions)
+
+
+def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int,
+                   pos: int):
+    """One `decode_step` iteration against the layer-stacked cache: layer
+    ``l``'s rows of ``cache`` are updated in place.  ``pos`` is the position
+    shared by the whole batch (lockstep); S comes from ``x``.  ``lp`` values
+    may be tensors, QT / QT4 triples or FusedQT handles: every weight goes
+    through ``layers.matmul``, which decodes fused handles inside the
+    matmul."""
+    S = x.shape[1]
+    positions = pos + torch.arange(S, device=x.device)
+    x, _ = _block(cfg, lp, x, positions=positions,
+                  cache=(cache["k"][l], cache["v"][l]), pos=pos)
+    return x, cache

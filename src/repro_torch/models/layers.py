@@ -8,7 +8,10 @@ Weight tensors may be plain tensors OR :class:`QT` / :class:`QT4` triples
 (quantized symbols + scale + zero): ``matmul`` / ``take_rows`` dequantize at
 use, in bf16, exactly as the JAX package does before it hands the product to
 its compiler.  The products themselves are plain ``torch.matmul`` calls (the
-JAX package leaves them to XLA, not to a kernel of its own).
+JAX package leaves them to XLA, not to a kernel of its own).  A
+:class:`~repro_torch.kernels.fused_decode_matmul.FusedQT` weight (the
+compressed-resident mode's payload handle) goes to the fused
+decode→dequant→matmul kernel instead.
 
 Numerics follow the JAX package op for op: dequantize in bf16, attention
 scores from bf16 operands accumulated in float32, RMS norm statistics in
@@ -21,6 +24,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..kernels.fused_decode_matmul import FusedQT, fused_decode_matmul
 
 # --------------------------------------------------------------------------- schema
 
@@ -88,16 +93,17 @@ def _unpack4(q: torch.Tensor) -> torch.Tensor:
 
 
 def pack_qt(q: np.ndarray, scale: np.ndarray, zero: np.ndarray, *,
-            bits: int) -> "QT | QT4":
+            bits: int, pack_int4: bool = True) -> "QT | QT4":
     """Host ``(q, scale, zero)`` symbols -> the serving-resident triple (CPU
     tensors; the loader moves them to the device).
 
     4-bit symbols with an even last dim pack nibble pairs into :class:`QT4`
-    (0.5 bytes/param resident), everything else stays a :class:`QT` of uint8
-    symbols — the JAX package's rule, byte for byte.
+    (0.5 bytes/param resident) unless ``pack_int4`` is off, everything else
+    stays a :class:`QT` of uint8 symbols — the JAX package's rule, byte for
+    byte.  Both weight loaders (whole-model and per-layer resident) share it.
     """
     q = np.asarray(q)
-    if bits == 4 and q.shape[-1] % 2 == 0:
+    if bits == 4 and pack_int4 and q.shape[-1] % 2 == 0:
         packed = (q[..., 0::2] | (q[..., 1::2] << 4)).astype(np.uint8)
         return QT4(torch.from_numpy(packed), torch.from_numpy(np.asarray(scale)),
                    torch.from_numpy(np.asarray(zero)))
@@ -131,7 +137,11 @@ def deq(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ w with dequantization at use (bf16 for QT / QT4 weights)."""
+    """x @ w with dequantization at use (bf16 for QT / QT4 weights); a
+    :class:`FusedQT` weight decodes inside the fused kernel (plain ``x @ w``
+    only, as in the JAX package)."""
+    if isinstance(w, FusedQT):
+        return fused_decode_matmul(x, w)
     return x @ deq(w, x.dtype)
 
 
@@ -204,7 +214,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
-    scale = hd ** -0.5
+    # JAX rounds a Python scalar to the dtype of the array it meets (weak
+    # typing): hd**-0.5 becomes a bf16 value before it scales bf16 q
+    scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
     if G > 1:
         k = k[:, :, :, None, :].expand(B, T, KV, G, hd).reshape(B, T, H, hd)
         v = v[:, :, :, None, :].expand(B, T, KV, G, hd).reshape(B, T, H, hd)

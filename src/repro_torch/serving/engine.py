@@ -1,5 +1,5 @@
 """Lockstep serving engine with the EntroLLM weight path (PyTorch port of
-``repro/serving/engine.py``, dense residency only).
+``repro/serving/engine.py``: dense and compressed residency, lockstep).
 
 Pipeline (paper Alg. 1 EDGE DEVICE OPERATIONS):
 
@@ -14,6 +14,10 @@ Pipeline (paper Alg. 1 EDGE DEVICE OPERATIONS):
      zero as :class:`~repro_torch.models.layers.QT` triples, nibble-packed
      :class:`~repro_torch.models.layers.QT4` at 4 bits) in device memory and
      are dequantized in bf16 at each use.
+     With ``resident="compressed"`` the container stays entropy-coded
+     instead (:class:`~repro_torch.serving.resident.CompressedResidentWeights`)
+     and each layer's weights are decoded just before its matmuls, or inside
+     them through the fused kernels.
   3. **Serve**: ``prefill`` then repeated ``decode_step``; sampling is
      greedy or temperature-categorical through a ``torch.Generator``.
 
@@ -162,12 +166,36 @@ def sample(logits: torch.Tensor, temperature: float,
 
 class ServeSteps:
     """The per-architecture step functions every serving front end drives
-    (lockstep, dense residency in this port)."""
+    (lockstep in this port).
 
-    def __init__(self, cfg: ArchConfig, sc: ServeConfig):
+    ``resident="dense"`` (default) runs the whole-tree steps over a params
+    dict.  ``resident="compressed"`` builds per-layer step loops instead:
+    ``params`` must then be a
+    :class:`repro_torch.serving.resident.CompressedResidentWeights`, and each
+    step loops the layers in execution order, taking layer ``l``'s slot just
+    before its block while the worker thread decodes layer ``l+1``.  The
+    loops keep the step signatures, so :class:`Engine` drives either mode
+    unchanged, and greedy decode is bit-identical between the two (the
+    per-layer blocks mirror the loop bodies op for op).
+    """
+
+    def __init__(self, cfg: ArchConfig, sc: ServeConfig, *,
+                 resident: str = "dense"):
+        if resident not in ("dense", "compressed"):
+            raise ValueError(f"resident must be 'dense' or 'compressed', "
+                             f"got {resident!r}")
+        if resident == "compressed" and not api.supports_resident_serving(cfg):
+            raise NotImplementedError(
+                f"family {cfg.family!r} does not implement the per-layer "
+                f"weight-slot contract (embed_step / resident_block); "
+                f"supported today: dense")
         self.cfg = cfg
         self.sc = sc
         self.mod = api.build(cfg)
+        self.resident = resident
+        if resident == "compressed":
+            self.prefill_fn = self._resident_prefill
+            self.decode_fn = self._resident_step
 
     def prefill_fn(self, params, prompt: torch.Tensor):
         return self.mod.prefill(self.cfg, params, prompt,
@@ -176,18 +204,62 @@ class ServeSteps:
     def decode_fn(self, params, token: torch.Tensor, cache, pos: int):
         return self.mod.decode_step(self.cfg, params, token, cache, pos)
 
+    # ------------------------------------------------- compressed residency
+    def _resident_prefill(self, weights, prompt: torch.Tensor):
+        """Per-layer twin of ``prefill``: full causal attention per layer, each
+        layer's (k, v) written into the zero-padded cache row as it is
+        produced."""
+        B, S = prompt.shape
+        dev = prompt.device
+        x = self.mod.embed_step(self.cfg, weights.globals, prompt)
+        positions = torch.arange(S, device=dev)
+        cache = self.mod.init_cache(self.cfg, B, self.sc.max_len,
+                                    device=dev)
+        weights.prefetch(0)
+        for l in range(weights.n_layers):
+            with obs_trace.span("serve.layer", layer=l, phase="prefill"):
+                lp = weights.get(l)
+                weights.prefetch((l + 1) % weights.n_layers)
+                x, (k, v) = self.mod.resident_prefill_block(
+                    self.cfg, lp, x, positions=positions)
+                cache["k"][l, :, :S] = k
+                cache["v"][l, :, :S] = v
+                _fence(dev)
+        return self.mod.head_step(self.cfg, weights.globals, x,
+                                  last_only=True), cache
+
+    def _resident_step(self, weights, tokens: torch.Tensor, cache, pos: int):
+        """Per-layer twin of ``decode_step``: ``get(l)`` returns layer l's slot
+        (usually already decoded by the worker), ``prefetch(l+1)`` starts
+        the next layer's decode, and the wrap-around prefetch primes layer 0
+        for the next step."""
+        x = self.mod.embed_step(self.cfg, weights.globals, tokens)
+        weights.prefetch(0)
+        for l in range(weights.n_layers):
+            with obs_trace.span("serve.layer", layer=l, phase="step"):
+                lp = weights.get(l)
+                weights.prefetch((l + 1) % weights.n_layers)
+                x, cache = self.mod.resident_block(self.cfg, lp, x, cache, l,
+                                                   pos)
+                _fence(tokens.device)
+        return self.mod.head_step(self.cfg, weights.globals, x), cache
+
 
 class Engine:
     """Lockstep serving: one fixed-shape batch per ``generate`` call, on
-    ``device`` (``cuda`` unless the caller names the CPU)."""
+    ``device`` (``cuda`` unless the caller names the CPU).
 
-    def __init__(self, cfg: ArchConfig, params: Dict[str, Any],
-                 sc: ServeConfig, *, device=None):
+    ``resident="compressed"`` serves straight from the entropy-coded
+    container: pass a :class:`repro_torch.serving.resident.
+    CompressedResidentWeights` as ``params``."""
+
+    def __init__(self, cfg: ArchConfig, params: Any, sc: ServeConfig, *,
+                 device=None, resident: str = "dense"):
         self.cfg = cfg
         self.params = params
         self.sc = sc
         self.device = _device.resolve(device)
-        self.steps = ServeSteps(cfg, sc)
+        self.steps = ServeSteps(cfg, sc, resident=resident)
 
     @torch.inference_mode()
     def generate(self, prompt, steps: int, *, seed: int = 0,

@@ -10,13 +10,14 @@ JAX-written container.
 
 Tolerance.  Embedding rows, RMS norm, bf16 dequantization, the bf16
 projections, RoPE and SiLU are bitwise equal between the two packages on
-the CPU, so layer 0's K/V cache is asserted bitwise.  Attention is not: the
-score product ``q·k`` sums the exact bf16 products in float32 in another
-order than XLA's CPU dot, so about one score in twenty differs in its last
-float32 bit; after the bf16 rounding of the probabilities about 2% of the
-attention outputs differ by one bf16 step.  Those steps propagate through
-the later layers, so logits are held to ``ATOL`` = 2e-2 (about 5 bf16 steps
-at the logits' scale of ~1; the largest difference seen is 6e-3), and the
+the CPU, so layer 0's K/V cache is asserted bitwise.  Attention is bitwise
+when its score sums are exact (the last test below), but not on random
+inputs: the score product ``q·k`` sums the exact bf16 products in float32
+in another order than XLA's CPU dot, so a few scores in a hundred to about
+half of them (by shape) differ in their last float32 bit, and after the bf16
+rounding of the probabilities some attention outputs differ by one bf16
+step.  Those steps propagate through the later layers, so logits are held
+to ``ATOL`` = 2e-2 (about 5 bf16 steps at the logits' scale of ~1), and the
 greedy token of every step must agree unless the reference's best two
 logits are within ``NEAR_TIE_STEPS`` bf16 steps (bf16 logits tie often; a
 one-step difference flips such a choice).
@@ -175,3 +176,44 @@ def test_bitwise_building_blocks_match_reference():
     ]
     for i, (a, b) in enumerate(pairs):
         np.testing.assert_array_equal(_np(b), _np(a), err_msg=str(i))
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,q_offset,kv_len", [
+    (2, 8, 8, 4, 4, 32, True, 0, None),
+    (2, 16, 16, 4, 2, 128, True, 0, None),
+    (2, 32, 32, 4, 4, 128, True, 0, None),     # another CPU dot kernel
+    (2, 1, 32, 4, 2, 128, False, 20, 21),      # a decode step on a cache
+])
+def test_attention_bitwise_when_summation_order_cannot_matter(
+        B, S, T, H, KV, hd, causal, q_offset, kv_len):
+    """Attention of the port equals the JAX package's bitwise once the score
+    sums are exact in float32, so the order of summation (the one thing the
+    two CPU dots do differently) cannot change them.  q has magnitudes in
+    [1, 2), so ``q * hd**-0.5`` rounds to bf16 values of two binades; k and
+    v are small integers, k mostly zero.  Every product is then a multiple
+    of 2**-11 below 2**-1 and every partial sum below 2**7: 18 bits, exact
+    in float32's 24.  This pins the casts, the scale, the mask, the softmax
+    and ``p · v``; only the summation order of random inputs is left free
+    (queue 3 of ROADMAP.md)."""
+    from repro.models import layers as jl
+    rng = np.random.default_rng(hd + S)
+    q = (rng.choice([-1.0, 1.0], (B, S, H, hd))
+         * (1 + rng.integers(0, 128, (B, S, H, hd)) / 128))
+    k = rng.integers(-1, 2, (B, T, KV, hd)) * (rng.random((B, T, KV, hd))
+                                               < 0.125)
+    v = rng.integers(-2, 3, (B, T, KV, hd))
+    tq, tk, tv = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+                  for a in (q, k, v))
+    # the premise: the scores' float32 and float64 sums agree
+    qs = (tq * hd ** -0.5).to(torch.bfloat16)
+    kk = tk.repeat_interleave(H // KV, dim=2)
+    s32 = torch.einsum("bsnh,btnh->bnst", qs.float(), kk.float())
+    s64 = torch.einsum("bsnh,btnh->bnst", qs.double(), kk.double())
+    assert torch.equal(s32.double(), s64)
+    assert float(s64.abs().max()) > 0.5           # the scores are not trivial
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    got = tlayers.gqa_attention(tq, tk, tv, **kw)
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    want = jl.gqa_attention(jb(q), jb(k), jb(v), **kw)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, S, H, hd)
+    np.testing.assert_array_equal(_np(got), _np(want))

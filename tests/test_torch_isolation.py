@@ -52,7 +52,9 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.core.decode_backends, "
             "repro_torch.kernels.huffman_decode, "
-            "repro_torch.kernels.ans_decode, repro_torch.convert; "
+            "repro_torch.kernels.ans_decode, repro_torch.convert, "
+            "repro_torch.kernels.fused_decode_matmul, "
+            "repro_torch.serving.resident; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad; print('clean')")

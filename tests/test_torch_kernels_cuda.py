@@ -1,5 +1,8 @@
-"""The port's CUDA decode kernels on the card, against their plain PyTorch
-versions and the port's host decoders, bitwise.
+"""The port's CUDA kernels on the card: the decode kernels against their
+plain PyTorch versions and the port's host decoders, bitwise; the fused
+decode→dequant→matmul kernels against their plain version within 1e-2
+(both sum exact bf16 products in float32, in other orders), and bitwise on
+one-hot rows of x, which pick rows of the dequantized weight.
 
 Every test needs an NVIDIA card and ``nvcc`` (marker ``cuda``) and skips
 elsewhere.  The file imports neither ``jax`` nor the JAX package, so it runs
@@ -10,7 +13,11 @@ on a machine that has only the port:
 Cases cover both families at the load path's stream shape, a block of more
 than 128 lanes, zero-count and short lanes, and every table placement of
 the tANS kernel: static shared memory (``table_log`` 10, 12), the opt-in
-dynamic shared memory (14) and global memory (16).
+dynamic shared memory (14) and global memory (16).  The fused kernels run
+both families at M = 1, 4, 128 and N = 64, 1024, 2048, with tANS tables in
+shared and in global memory, lanes cut into column tiles, two launches
+compared bitwise (the lanes are summed in a fixed order), and the inputs
+the wrapper refuses.
 """
 import numpy as np
 import pytest
@@ -125,3 +132,112 @@ def test_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError, match="contiguous"):
         huffman_decode.decode_streams(m.t().contiguous().t(), c32, ls, ll,
                                       **kw)
+
+
+# ------------------------------------------------- fused decode -> matmul
+
+def _fused(codec, bits, K, N, seg, dev, *, table_log=None, per_row=False,
+           seed=0):
+    """A FusedQT on ``dev`` laid out as compressed-resident serving lays a
+    layer slice out (per-segment encode, one pow2 width), and its symbols."""
+    from repro_torch.kernels.fused_decode_matmul import build_fused_qt
+    rng = np.random.default_rng(seed)
+    hi = 1 << bits
+    sym = np.clip(np.rint(rng.normal(hi / 2, hi / 6, K * N)), 0,
+                  hi - 1).astype(np.uint8)
+    kw = {} if table_log is None else {"table_log": table_log}
+    table = get_codec(codec).build(np.bincount(sym, minlength=hi), bits,
+                                   max_code_len=12, **kw)
+    streams = [table.encode(sym[i:i + seg])[0]
+               for i in range(0, sym.size, seg)]
+    width = bitstream.pow2_bucket(max(bitstream.GUARD_BYTES,
+                                      max(s.size for s in streams)), 64)
+    mat, _ = bitstream.pack_streams(streams, min_width=width)
+    shape = (1, N) if per_row else (1, 1)
+    scale = (0.002 + rng.random(shape) * 0.01).astype(np.float32)
+    zero = (rng.random(shape) * 0.2 - 0.1).astype(np.float32)
+    fq = build_fused_qt(table, mat, scale, zero, seg_symbols=seg, K=K, N=N,
+                        bits=bits, device=dev)
+    return fq, sym.reshape(K, N)
+
+
+FUSED_ATOL = FUSED_RTOL = 1e-2      # the JAX package's kernel tolerance
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,bits", [("huffman", 8), ("rans", 4)])
+@pytest.mark.parametrize("K,N", [(512, 64), (128, 1024), (64, 2048)])
+def test_fused_kernel_close_to_plain_and_onehot_bitwise(card, codec, bits,
+                                                        K, N):
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    from repro_torch.models.layers import QT, deq
+    fq, sym = _fused(codec, bits, K, N, 4096, card, per_row=N == 1024)
+    name = "fused_prefix" if codec == "huffman" else "fused_tans"
+    w = deq(QT(torch.from_numpy(sym).to(card), fq.scale, fq.zero))
+    rng = np.random.default_rng(K)
+    for M in (1, 4, 128):
+        x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(
+            np.float32)).to(card, torch.bfloat16)
+        before = build.launches[name]
+        got = fdm.fused_decode_matmul(x, fq)
+        torch.cuda.synchronize()
+        assert build.launches[name] == before + 1
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, N)
+        ref = fdm.fused_decode_matmul_plain(x, fq)
+        torch.testing.assert_close(got.float(), ref.float(), atol=FUSED_ATOL,
+                                   rtol=FUSED_RTOL)
+        # a second launch sums the lanes in the same order: bitwise equal
+        assert torch.equal(got, fdm.fused_decode_matmul(x, fq))
+    # one-hot rows pick rows of the dequantized weight, exactly
+    rows = torch.tensor([0, K // 2, K - 1], device=card)
+    onehot = torch.zeros((3, K), dtype=torch.bfloat16, device=card)
+    onehot[torch.arange(3, device=card), rows] = 1
+    assert torch.equal(fdm.fused_decode_matmul(onehot, fq), w[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,bits", [("huffman", 8), ("rans", 4)])
+def test_fused_kernel_tiles_the_columns_of_long_lanes(card, codec, bits):
+    """Lanes of 96 rows x 1536 columns do not fit one block's 64 KiB, so
+    each lane is walked once per column tile (682, 682 and 172 wide)."""
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    from repro_torch.models.layers import QT, deq
+    K, N, seg = 192, 1536, 96 * 1536
+    fq, sym = _fused(codec, bits, K, N, seg, card, per_row=True)
+    assert fdm.SYM_TILE_BYTES // (seg // N) == 682
+    w = deq(QT(torch.from_numpy(sym).to(card), fq.scale, fq.zero))
+    rows = torch.tensor([0, 95, 96, K - 1], device=card)
+    onehot = torch.zeros((4, K), dtype=torch.bfloat16, device=card)
+    onehot[torch.arange(4, device=card), rows] = 1
+    assert torch.equal(fdm.fused_decode_matmul(onehot, fq), w[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_log", [10, 16])
+def test_fused_tans_tables_in_shared_and_global_memory(card, table_log):
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    fq, _ = _fused("rans", 8, 64, 256, 2048, card, table_log=table_log)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (4, 64)).astype(np.float32)).to(card, torch.bfloat16)
+    torch.testing.assert_close(fdm.fused_decode_matmul(x, fq).float(),
+                               fdm.fused_decode_matmul_plain(x, fq).float(),
+                               atol=FUSED_ATOL, rtol=FUSED_RTOL)
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_rejects_bad_inputs(card):
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    fq, _ = _fused("huffman", 8, 16, 64, 256, card)
+    x = torch.ones((2, 16), dtype=torch.bfloat16, device=card)
+    bad = fdm.FusedQT(fq.mat, fq.tabs, fq.scale, fq.zero, family=fq.family,
+                      tbits=fq.tbits, seg=fq.seg, K=fq.K, N=48, bits=8)
+    with pytest.raises(ValueError, match="misaligned"):
+        fdm.fused_decode_matmul(torch.ones((2, 16), dtype=torch.bfloat16,
+                                           device=card), bad)
+    cpu_fq, _ = _fused("huffman", 8, 16, 64, 256, "cpu")
+    with pytest.raises(ValueError, match="inputs on"):
+        fdm.fused_decode_matmul(x, cpu_fq)
+    with pytest.raises(ValueError, match="no fused decode matmul"):
+        fdm.fused_decode_matmul(x.cpu(), fq)
+    with pytest.raises(ValueError, match="bf16"):
+        fdm.fused_decode_matmul(x.float(), fq)

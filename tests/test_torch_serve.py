@@ -14,15 +14,16 @@ from then on the two sequences continue from different tokens.  So each
 row's tokens must be equal up to the first step where they differ, that
 step must be such a reference near-tie (the port's token within
 ``NEAR_TIE_STEPS`` bf16 steps of the reference's best logit), and the rest
-of the row is not compared.  With the seeds below the Huffman-8 case
-agrees on every token; in the mixed case row 1's third token is such a
-near-tie (reference 0.6875 against 0.68359375, one bf16 step; the port's
-logits tie the two and its argmax takes the lower index).
+of the row is not compared.  With the seeds below both cases agree on
+every token, now that the attention scale is rounded to bf16 as JAX rounds
+a Python scalar (before that fix the mixed case's row 1 diverged at its
+third token, a near-tie of 0.6875 against 0.68359375).
 
 Also: the port's launcher runs on the reduced config with ``--device cpu``
 and prints its three report lines, flags of serving modes not ported yet
-exit with a message, and every entry point called without ``device`` raises
-on this card-less host instead of running on the CPU.
+exit with a message (compressed residency and ``--fused`` are ported; see
+``tests/test_torch_resident.py``), and every entry point called without
+``device`` raises on this card-less host instead of running on the CPU.
 """
 import json
 import math
@@ -133,7 +134,7 @@ def test_port_greedy_tokens_equal_reference(reference, spec, tmp_path):
     assert got.dtype == torch.int32 and tuple(got.shape) == (B, GEN)
     compared = assert_tokens_equal_up_to_near_tie(got.numpy(), want,
                                                   ref_logits)
-    assert compared >= {"huffman8": 12, "rans4+huffman8": 9}[spec]
+    assert compared >= {"huffman8": 12, "rans4+huffman8": 12}[spec]
     for k in ("prefill_s", "decode_s", "ttft_s", "decode_tok_per_s",
               "e2e_tok_per_s"):
         assert met[k] > 0, k
@@ -188,7 +189,7 @@ def test_launcher_monolithic_numpy_dense_load(capsys):
     assert "quantized residency: False" in out
 
 
-@pytest.mark.parametrize("flag", ["--resident=compressed", "--fused",
+@pytest.mark.parametrize("flag", ["--fused-impl=pallas", "--kv-spec=bits=4",
                                   "--batch-slots=4", "--mesh=1x1"])
 def test_launcher_refuses_flags_not_ported_yet(flag, capsys):
     with pytest.raises(SystemExit) as e:
