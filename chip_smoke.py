@@ -10,9 +10,10 @@ Phases, each printing one JSON line:
 1. device  — the card's name and count; the next line is nvidia-smi's
    ``name, power.limit`` for the card.
 2. build   — compiles the CUDA kernels (every ``.cu`` under
-   ``src/repro_torch/csrc/``: the decode kernels and the fused
-   decode→dequant→matmul kernels) from the checkout's sources, one
-   ``nvcc`` per source started together, linked into one library.
+   ``src/repro_torch/csrc/``: the decode kernels, the fused
+   decode→dequant→matmul kernels and the dequant→matmul kernel) from the
+   checkout's sources, one ``nvcc`` per source started together, linked
+   into one library.
 3. serve   — the main path at full width: qwen3-1.7b (d_model 2048, 16 heads
    and 8 KV heads of 128, d_ff 6144, padded vocab 152064, qk-norm) with its
    depth cut from 28 to ``DEPTH`` layers and seeded random weights.  The
@@ -25,7 +26,18 @@ Phases, each printing one JSON line:
    load and read just after the generate.
    Then ``profile``: the same few decode steps timed without and then with
    ``torch.profiler``, and device time by operator under it.
-4. resident — the second path, on the same container: compressed-resident
+4. dequant_matmul — the third path: the weights the serve phase decoded
+   on the card through the decode kernels go through
+   ``kernels.ops.dequant_matmul`` (the port of the JAX package's
+   ``ops.dequant_matmul``): layer 0's seven quantized matrices (rANS-4 ones
+   re-packed along K, ``wo`` uint8) and ``lm_head`` (uint8, 2048 x
+   152064, 311 MB), plus ``w_down`` with a seeded per-channel affine, each
+   at M = 4 and 128.  Launch counts are zeroed just before those calls and
+   read just after.  Each case is then held within ``DQ_TOL`` of the plain
+   version and bitwise on one-hot rows, and timed with L2 flushed before
+   every launch, beside ``torch.matmul`` on the weight dequantized
+   beforehand (a floor, not the same function).
+5. resident — the second path, on the same container: compressed-resident
    serving with ``fused=True``.  ``wo`` (Huffman-8) goes through the fused
    prefix kernel, ``wq``, ``wk``, ``wv`` and ``w_down`` (rANS-4) through the
    fused tANS kernel, and ``w_gate`` / ``w_up`` (rows of 6144, which a
@@ -33,11 +45,11 @@ Phases, each printing one JSON line:
    through the ``cuda`` decode kernels on the worker thread.  Launch counts
    are zeroed just before the weights are built and read just after the
    generate; the prefill logits are held to the dense-resident engine's.
-5. reference — the reduced qwen3-1.7b served on the card and on the CPU
+6. reference — the reduced qwen3-1.7b served on the card and on the CPU
    through the same port, dense-resident and compressed-resident fused:
    decoded weights must be identical and prefill logits within
    ``REF_ATOL``; greedy token agreement is reported.
-6. kernels — each decode kernel on the first chunk the main path decoded
+7. kernels — each decode kernel on the first chunk the main path decoded
    with it, held bitwise against its plain PyTorch version on the card, with
    its time, the plain version's time, its bounds, and the time of the whole
    ``cuda`` backend call around it (host matrix in, host symbols out).
@@ -47,8 +59,6 @@ Phases, each printing one JSON line:
    fused kernel on layer 0's handle of the resident path (``wo`` prefix,
    ``wq`` tANS; 64 lanes of 65,536 symbols, K = N = 2048) at M = 4 and 128,
    within ``FUSED_TOL`` of its plain version and bitwise on one-hot rows.
-   Last, ``pending_kernel``: the bound of the one TPU kernel not ported yet
-   (``dequant_matmul``) at the shape the next slice will run it at.
 
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only),
 and as the last line
@@ -93,6 +103,15 @@ DEP_STEP_CYCLES = 63
 REF_ATOL = 5e-2
 TIMED_LAUNCHES = 10
 PROFILE_STEPS = 8
+# the dequant_matmul phase: layer 0's quantized matrices and lm_head, at a
+# decode step (batch 4) and a prefill (4 x 32 tokens); the kernel against
+# its plain version at the JAX package's kernel tolerance (both sum exact
+# bf16 products in float32, in other orders)
+DQ_TENSORS = ("layers/wq", "layers/wk", "layers/wv", "layers/wo",
+              "layers/w_gate", "layers/w_up", "layers/w_down", "lm_head")
+DQ_M = (BATCH, BATCH * PROMPT)
+DQ_TOL = 1e-2
+DQ_TIMED = 20
 
 
 def emit(phase, **kw):
@@ -323,8 +342,8 @@ def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
     launches, c1 = dict(build.launches), read()
     peak = torch.cuda.max_memory_allocated(dev)
     during = {k: launches[k] - before[k] for k in launches}
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("huffman_decode", "ans_decode", "fused_prefix", "fused_tans"):
+        if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on the resident path")
     for k in ("fused_prefix", "fused_tans", "ans_decode"):
         if during[k] <= 0:
@@ -638,24 +657,176 @@ def fused_kernel_rows(rw, launches, dev):
     return rows
 
 
-def pending_kernel_bound():
-    """The bound of the TPU kernel still to port, ``dequant_matmul``
-    (``src/repro/kernels/dequant_matmul.py:33``), at qwen3-1.7b's
-    ``w_down`` shape in prefill (M = 128, K = 6144, N = 2048, uint8
-    weights, (1, N) float32 scale and zero, bf16 x and out): the target of
-    the next slice, computed from shapes only."""
-    from repro_torch.configs import registry
-    cfg = registry.get("qwen3-1.7b")
-    M, K, N = BATCH * PROMPT, cfg.d_ff, cfg.d_model
-    nbytes = 2 * M * K + K * N + 2 * 4 * N + 2 * M * N
-    flops, deq_ops = 2 * M * K * N, 2 * K * N
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (flops / BF16_FLOPS_PER_S + deq_ops / SCALAR_OPS_PER_S) * 1e3
-    emit("pending_kernel", name="dequant_matmul",
-         replaces="src/repro/kernels/dequant_matmul.py:33",
-         shape=[M, K, N], bytes=nbytes, flops=flops, dequant_ops=deq_ops,
-         bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
-         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+def cuda_ms_cold(fn, n, flush):
+    """Mean device time of ``fn`` over ``n`` launches, each timed alone with
+    CUDA events after ``flush`` (a write larger than the 50 MB L2) has
+    evicted what the previous launch left in L2."""
+    import torch
+    pairs = []
+    for _ in range(n):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / n
+
+
+def dequant_operands(cm, params, dev):
+    """Layer 0's quantized matrices and ``lm_head`` as the serve phase
+    decoded them onto the card, in the kernel's layout: rANS-4 matrices
+    unpacked from QT4's packing along N and re-packed along K
+    (``ops.pack_nibbles``), Huffman-8 ones as uint8 symbols.  A layer
+    matrix's scale and zero are the container's (one pair a layer);
+    ``lm_head`` is quantized per row of K, which the kernel's per output
+    channel affine cannot hold, so it takes the mean of its rows' scale and
+    zero as scalars.  Last, ``w_down`` again with a seeded (N,) affine."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    cases = []
+    for name in DQ_TENSORS:
+        w = params[name]
+        lw = layers.layer_slice(w, 0) if name.startswith("layers/") else w
+        if isinstance(lw, layers.QT4):
+            sym = layers._unpack4(lw.q)
+            wq = torch.from_numpy(ops.pack_nibbles(sym.cpu().numpy())).to(dev)
+        else:
+            sym, wq = lw.q, lw.q.contiguous()
+        if lw.scale.numel() == 1:
+            affine = "per-tensor (container)"
+            scale, zero = lw.scale.reshape(()), lw.zero.reshape(())
+        else:
+            affine = "mean of the container's per-row pairs"
+            scale, zero = lw.scale.mean(), lw.zero.mean()
+        t = cm.table_for(name)
+        cases.append(dict(
+            tensor=f"{name}[0]" if name.startswith("layers/") else name,
+            codec=f"{t.codec_name}{t.bits}", wq=wq, sym=sym,
+            int4=isinstance(lw, layers.QT4), scale=scale.float(),
+            zero=zero.float(), affine=affine))
+    base = next(c for c in cases if c["tensor"] == "layers/w_down[0]")
+    N = base["sym"].shape[1]
+    rng = np.random.default_rng(3)
+    s0, z0 = float(base["scale"]), float(base["zero"])
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa
+    cases.append(dict(base, affine="per-channel (N,), seeded",
+                      scale=f32(s0 * rng.uniform(0.5, 1.5, N)),
+                      zero=f32(z0 + abs(z0) * rng.uniform(-0.5, 0.5, N))))
+    return cases
+
+
+def dequant_matmul_phase(cm, params, dev):
+    """Compress -> container -> CUDA decode (the serve phase) ->
+    ``ops.dequant_matmul`` on layer 0's matrices and ``lm_head`` at full
+    width, at a decode step (M = 4) and a prefill (M = 128).  Launch counts
+    are zeroed just before those calls and read just after; then each case
+    against its plain version on the card, one-hot rows bitwise, and
+    times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import dequant_matmul as dm
+
+    cases = dequant_operands(cm, params, dev)
+    runs = []
+    for c in cases:
+        K = c["sym"].shape[0]
+        for M in DQ_M:
+            x = torch.from_numpy(np.random.default_rng(M + K).normal(
+                0, 1, (M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+            runs.append((c, x))
+    torch.cuda.synchronize()
+    for k in build.launches:
+        build.launches[k] = 0
+    outs = [ops.dequant_matmul(x, c["wq"], c["scale"], c["zero"],
+                               int4=c["int4"]) for c, x in runs]
+    torch.cuda.synchronize()
+    launches = build.launches["dequant_matmul"]
+    if launches != len(runs):
+        raise AssertionError(f"dequant_matmul launched {launches} times for "
+                             f"{len(runs)} calls")
+
+    emit("dequant_matmul", calls=len(runs), launches=launches,
+         timing=f"ms and dense_bf16_matmul_ms: mean of {DQ_TIMED} launches, "
+         "each timed alone with CUDA events after a 256 MB write flushed L2",
+         dense_bf16_matmul_is="a floor, not the same function: torch.matmul "
+         "of bf16 x on the weight dequantized beforehand",
+         library_ms="none: no PyTorch call dequantizes an affine uint8 or "
+         "K-packed uint4 weight and multiplies")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    rows, worst = [], 0.0
+    for (c, x), got in zip(runs, outs):
+        M, K = x.shape
+        N = c["sym"].shape[1]
+        args = (x, c["wq"], c["scale"], c["zero"])
+        if tuple(got.shape) != (M, N) or not bool(
+                torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{c['tensor']} M={M}: output malformed")
+        plain_ms, ref = cuda_ms(
+            lambda: dm.dequant_matmul_plain(*args, int4=c["int4"]), 1)
+        err = float((got.float() - ref.float()).abs().max())
+        close = bool(torch.allclose(got.float(), ref.float(), atol=DQ_TOL,
+                                    rtol=DQ_TOL))
+        pick = torch.tensor([0, 1, K // 2, K - 1], device=dev)
+        onehot = torch.zeros((4, K), dtype=torch.bfloat16, device=dev)
+        onehot[torch.arange(4, device=dev), pick] = 1
+        w_rows = (c["sym"][pick].float() * c["scale"].reshape(1, -1)
+                  + c["zero"].reshape(1, -1)).to(torch.bfloat16)
+        onehot_equal = torch.equal(
+            dm.dequant_matmul(onehot, *args[1:], int4=c["int4"]), w_rows)
+        ms = cuda_ms_cold(lambda: dm.dequant_matmul(*args, int4=c["int4"]),
+                          DQ_TIMED, flush)
+        w_bf16 = (dm.unpack_k(c["wq"]) if c["int4"] else c["wq"]).float()
+        w_bf16 = (w_bf16 * c["scale"].reshape(1, -1)
+                  + c["zero"].reshape(1, -1)).to(torch.bfloat16)
+        dense_ms = cuda_ms_cold(lambda: torch.matmul(x, w_bf16), DQ_TIMED,
+                                flush)
+        del w_bf16
+        # each input read once (x, the weight at its stored width, scale
+        # and zero), the output written once; the MMA's bf16 FLOPs and the
+        # dequant's multiply and add per weight
+        nbytes = (2 * M * K + c["wq"].numel()
+                  + 4 * (c["scale"].numel() + c["zero"].numel()) + 2 * M * N)
+        flops, deq_ops = 2 * M * K * N, 2 * K * N
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (flops / BF16_FLOPS_PER_S + deq_ops / SCALAR_OPS_PER_S) * 1e3
+        row = dict(name="dequant_matmul", route="cuda",
+                   source="src/repro_torch/csrc/dequant_matmul.cu",
+                   replaces="src/repro/kernels/dequant_matmul.py:33",
+                   tensor=c["tensor"], codec=c["codec"],
+                   weight="uint4 packed along K" if c["int4"] else "uint8",
+                   affine=c["affine"], shape=[M, K, N], launches=launches,
+                   ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                   tolerance=DQ_TOL, allclose=close,
+                   onehot_bitwise=onehot_equal,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes=nbytes, flops=flops, dequant_ops=deq_ops,
+                   bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
+                   dense_bf16_matmul_ms=dense_ms)
+        emit("kernel", **row)
+        if not close:
+            raise AssertionError(f"dequant_matmul {c['tensor']} M={M} "
+                                 f"differs from its plain version by {err}")
+        if not onehot_equal:
+            raise AssertionError(f"dequant_matmul {c['tensor']} M={M}: "
+                                 f"one-hot rows are not the weight's rows")
+        worst = max(worst, err)
+        rows.append(row)
+    del flush
+    head = next(r for r in rows if r["tensor"] == "lm_head"
+                and r["shape"][0] == DQ_M[0])
+    return dict(
+        {k: head[k] for k in (
+            "name", "route", "source", "replaces", "launches", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "dense_bf16_matmul_ms", "tensor", "shape", "tolerance")},
+        max_abs_err=worst)
 
 
 def main():
@@ -689,6 +860,7 @@ def main():
         serve_main_path(dev)
     serve_s = time.perf_counter() - t0
     profile_decode(eng, prompt, dev)
+    dq_row = dequant_matmul_phase(cm, eng.params, dev)
     del eng
     t0 = time.perf_counter()
     rw, resident_launches = resident_phase(cm, prompt, dense_logits,
@@ -697,7 +869,7 @@ def main():
     reference_check(dev)
     rows = kernel_phase(cm, launches, clock_mhz, dev)
     rows += fused_kernel_rows(rw, resident_launches, dev)
-    pending_kernel_bound()
+    rows.append(dq_row)
     emit("done", serve_phase_s=serve_s, resident_phase_s=resident_s)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

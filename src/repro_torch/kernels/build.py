@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (every ``*.cu`` under
 ``repro_torch/csrc/``: ``entropy_decode.cu`` and ``fused_decode_matmul.cu``,
-which share ``entropy_common.cuh``).
+which share ``entropy_common.cuh``, and ``dequant_matmul.cu``).
 
 Each source compiles for ``sm_90a`` in its own ``nvcc`` process, all
 started together, and one more ``nvcc`` call links the objects into one
@@ -38,6 +38,8 @@ _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #   decode: (mat, B, counts, *tables, ...scalars, out, stream)
 #   fused:  (x, M, K, N, mat, B, S, seg, *tables, table scalars, scale,
 #            ssk, ssn, zero, szk, szn, tile, partial, out, stream)
+#   dequant_matmul: (x, M, K, N, wq, int4, scale, ssn, zero, szn, out,
+#            stream)
 _AFFINE = [_p, _l, _l, _p, _l, _l, _i, _p, _p, _p]
 SIGNATURES = {
     "prefix_decode": [_p, _l, _p, _p, _p, _i, _i, _i, _i, _p, _p],
@@ -46,10 +48,12 @@ SIGNATURES = {
                             *_AFFINE],
     "fused_tans_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _p, _i,
                           *_AFFINE],
+    "dequant_matmul": [_p, _i, _i, _i, _p, _i, _p, _l, _p, _l, _p, _p],
 }
 
 launches: Dict[str, int] = {"huffman_decode": 0, "ans_decode": 0,
-                            "fused_prefix": 0, "fused_tans": 0}
+                            "fused_prefix": 0, "fused_tans": 0,
+                            "dequant_matmul": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

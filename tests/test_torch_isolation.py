@@ -54,6 +54,7 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.kernels.huffman_decode, "
             "repro_torch.kernels.ans_decode, repro_torch.convert, "
             "repro_torch.kernels.fused_decode_matmul, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.serving.resident; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "

@@ -17,7 +17,12 @@ dynamic shared memory (14) and global memory (16).  The fused kernels run
 both families at M = 1, 4, 128 and N = 64, 1024, 2048, with tANS tables in
 shared and in global memory, lanes cut into column tiles, two launches
 compared bitwise (the lanes are summed in a fixed order), and the inputs
-the wrapper refuses.
+the wrapper refuses.  The dequant→matmul kernel runs the JAX package's
+test shapes (ragged ones among them) and both of its tile configurations
+(M up to 16, and above), uint8 and K-packed uint4, per-tensor and
+per-channel affine, within 1e-2 of its plain version; x = I gives the
+dequantized weight bitwise with an affine that a contracted multiply-add
+would round differently; two launches are bitwise equal.
 """
 import numpy as np
 import pytest
@@ -241,3 +246,98 @@ def test_fused_wrapper_rejects_bad_inputs(card):
         fdm.fused_decode_matmul(x.cpu(), fq)
     with pytest.raises(ValueError, match="bf16"):
         fdm.fused_decode_matmul(x.float(), fq)
+
+
+# ------------------------------------------------ dequant -> matmul
+
+DQ_ATOL = DQ_RTOL = 1e-2     # tests/test_kernels.py's tolerance: the kernel
+                             # and cuBLAS sum exact bf16 products in float32
+                             # in other orders
+
+
+def _dq_inputs(M, K, N, int4, per_channel, dev, seed=0):
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 16 if int4 else 256, size=(K, N)).astype(np.uint8)
+    wq = ops.pack_nibbles(q) if int4 else q
+    if per_channel:
+        scale = rng.uniform(1e-3, 1e-2, size=(N,)).astype(np.float32)
+        zero = rng.uniform(-1, 0, size=(N,)).astype(np.float32)
+    else:
+        scale, zero = np.float32(0.005), np.float32(-0.6)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    return x, torch.from_numpy(wq).to(dev), f32(scale), f32(zero)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,int4", [
+    (8, 128, 64, False), (64, 384, 200, False), (128, 512, 128, False),
+    (1, 1024, 96, False), (33, 257, 65, False), (16, 256, 128, True),
+    (8, 130, 48, True), (4, 2048, 1024, True), (128, 640, 2048, True)])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_dequant_matmul_close_to_plain(card, M, K, N, int4, per_channel):
+    from repro_torch.kernels import dequant_matmul as dm
+    args = _dq_inputs(M, K, N, int4, per_channel, card, seed=M + K + N)
+    before = build.launches["dequant_matmul"]
+    got = dm.dequant_matmul(*args, int4=int4)
+    torch.cuda.synchronize()
+    assert build.launches["dequant_matmul"] == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, N)
+    ref = dm.dequant_matmul_plain(*args, int4=int4)
+    torch.testing.assert_close(got.float(), ref.float(), atol=DQ_ATOL,
+                               rtol=DQ_RTOL)
+    # each output is one thread's in-order sum: a second launch is bitwise
+    assert torch.equal(got, dm.dequant_matmul(*args, int4=int4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_dequant_matmul_rounds_product_and_sum_separately(card, int4,
+                                                          per_channel):
+    """x = I gives the dequantized weight bitwise, with the affine chosen so
+    that a contracted multiply-add would move some weights by a bf16 step."""
+    import dequant_cases
+    from repro_torch.kernels import ops
+    K, N, qmax = 130, 48, 15 if int4 else 255
+    if per_channel:
+        q, scale, zero = dequant_cases.fma_pinning_case(5 + int4, K, N, qmax)
+    else:
+        s, z, qs = dequant_cases.fma_sensitive(7 + int4, 1, qmax)
+        scale, zero = s[0], z[0]
+        q = np.random.default_rng(5).integers(0, qmax + 1, size=(K, N)) \
+            .astype(np.uint8)
+        q[::7] = qs[0]
+    w = dequant_cases.dequant_two_roundings(q, scale, zero)
+    assert (w != dequant_cases.dequant_one_rounding(q, scale, zero)).any()
+    wq = torch.from_numpy(ops.pack_nibbles(q) if int4 else q).to(card)
+    for rows in (np.arange(K), np.array([0, 1, 64, K - 1])):
+        x = torch.zeros((len(rows), K), dtype=torch.bfloat16, device=card)
+        x[torch.arange(len(rows)), torch.from_numpy(rows)] = 1
+        got = ops.dequant_matmul(x, wq, scale, zero, int4=int4)
+        np.testing.assert_array_equal(got.float().cpu().numpy(), w[rows])
+
+
+@pytest.mark.cuda
+def test_dequant_matmul_wrapper_rejects_bad_inputs(card):
+    from repro_torch.kernels import dequant_matmul as dm
+    x, wq, s, z = _dq_inputs(4, 64, 32, False, True, card)
+    with pytest.raises(ValueError, match="inputs on"):
+        dm.dequant_matmul(x, wq.cpu(), s, z)
+    with pytest.raises(ValueError, match="inputs on"):
+        dm.dequant_matmul(x, wq, s.cpu(), z)
+    with pytest.raises(ValueError, match="bf16"):
+        dm.dequant_matmul(x.float(), wq, s, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        dm.dequant_matmul(x, wq.t().contiguous().t(), s, z)
+    with pytest.raises(ValueError, match="odd"):
+        dm.dequant_matmul(x[:, :63].contiguous(), wq[:31], s, z, int4=True)
+    with pytest.raises(ValueError, match="scale"):
+        dm.dequant_matmul(x, wq, s[:31], z)
+    before = build.launches["dequant_matmul"]
+    out = dm.dequant_matmul(x[:0], wq, s, z)
+    assert tuple(out.shape) == (0, 32)
+    assert build.launches["dequant_matmul"] == before
