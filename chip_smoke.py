@@ -51,12 +51,20 @@ Phases, each printing one JSON line:
    ``REF_ATOL``; greedy token agreement is reported.
 7. kernels — each decode kernel on the first chunk the main path decoded
    with it, held bitwise against its plain PyTorch version on the card, with
-   its time, the plain version's time, its bounds, and the time of the whole
-   ``cuda`` backend call around it (host matrix in, host symbols out).
-   The per-kernel line also carries two labelled estimates that no run
-   reads directly: the dependent-chain time at an assumed step latency, and
-   the host round trip as backend call time minus kernel time.  Then each
-   fused kernel on layer 0's handle of the resident path (``wo`` prefix,
+   its time (``ms``: launches paced by the host, as every row is timed),
+   its device time with the launches queued behind a spin kernel
+   (``device_queued_ms``), the plain version's time, its bounds, and the
+   time of the whole ``cuda`` backend call around it (host matrix in, host
+   symbols out).  Each row carries the SM cycles its longest block took in
+   the last timed launch, as the kernel read them (``clock64``), and those
+   over the chunk's largest count (``cycles_per_step``; for the tANS chain,
+   one dependent step); the prefix row also the sync passes the split
+   decode took (the largest of a stream).  Each line also carries a
+   labelled estimate that no run reads directly: the host round trip as
+   backend call time minus kernel time.
+   Then the raw codec's identity table through the prefix kernel, at 4 and
+   8 bits.  Then each fused kernel on layer 0's handle of the resident path
+   (``wo`` prefix,
    ``wq`` tANS; 64 lanes of 65,536 symbols, K = N = 2048) at M = 4 and 128,
    within ``FUSED_TOL`` of its plain version and bitwise on one-hot rows.
 
@@ -94,10 +102,6 @@ FALLBACK = "segment of 65536 symbols does not tile rows of width 6144"
 # products in float32, so outputs differ by rounding only (the JAX package
 # holds its own fused kernel to the same 1e-2)
 FUSED_TOL = 1e-2
-# assumed shortest dependent step of a decode lane, for an estimate only:
-# one L1-hit window load (~33 cycles) and one shared-memory table load (~30
-# cycles); ALU work ignored
-DEP_STEP_CYCLES = 63
 # card vs CPU bf16 logits of the reduced model: cuBLAS and the CPU sum the
 # products in other orders, so logits may move by a few bf16 steps
 REF_ATOL = 5e-2
@@ -129,6 +133,22 @@ def cuda_ms(fn, n):
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, res
+
+
+def cuda_ms_queued(fn, n, clock_mhz):
+    """Mean device time of ``fn`` over ``n`` launches queued behind a 20 ms
+    spin kernel: the host enqueues them all before the first runs, so its
+    launch cost does not space them out."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(20e3 * clock_mhz))
     start.record()
     for _ in range(n):
         res = fn()
@@ -496,7 +516,16 @@ def kernel_phase(cm, launches, clock_mhz, dev):
             replaces = "src/repro/kernels/ans_decode.py:34"
         fn(m, c, *tabs, **kw)                       # warm-up
         torch.cuda.synchronize()
+        queued_ms, _ = cuda_ms_queued(lambda: fn(m, c, *tabs, **kw),
+                                      TIMED_LAUNCHES, clock_mhz)
         ms, got = cuda_ms(lambda: fn(m, c, *tabs, **kw), TIMED_LAUNCHES)
+        # what the kernel counted in the last timed launch: the cycles of
+        # its longest block (for the tANS chain, one dependent step a
+        # symbol) and, for prefix, the sync passes
+        passes, cycles = huffman_decode.launch_stats(entry, dev)
+        measured = dict(block_cycles=cycles, cycles_per_step=cycles / mc)
+        if kernel == "prefix":
+            measured["sync_passes"] = passes
         plain_ms, ref = cuda_ms(lambda: plain(m, c, *tabs, **kw), 1)
         # the backend call the load path makes: host matrix in, host
         # symbols out (copy to the card, kernel, copy back, synchronised)
@@ -524,39 +553,43 @@ def kernel_phase(cm, launches, clock_mhz, dev):
                    tolerance="bitwise", codec=f"{table.codec_name}{table.bits}",
                    shape=[int(m.shape[0]), int(m.shape[1]), mc],
                    bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                   backend_call_ms=backend_ms)
-        # not measured: the chain at the assumed DEP_STEP_CYCLES a step, and
-        # the host round trip as a host-clock time less a device-event time
-        estimates = dict(
-            chain_ms=mc * DEP_STEP_CYCLES / (clock_mhz * 1e3),
-            chain_assumes_cycles_per_step=DEP_STEP_CYCLES,
-            host_round_trip_ms=backend_ms - ms)
-        emit("kernel", **row, estimates=estimates)
+                   device_queued_ms=queued_ms, backend_call_ms=backend_ms,
+                   **measured)
+        # not measured: the host round trip as a host-clock time less a
+        # device-event time
+        emit("kernel", **row,
+             estimates=dict(host_round_trip_ms=backend_ms - ms))
         if not equal:
             raise AssertionError(f"{mod} differs from its plain version")
         rows.append(row)
 
-    # the raw codec's identity LUT through the prefix kernel, small case
-    rng = np.random.default_rng(2)
-    syms = rng.integers(0, 16, (8, 4096)).astype(np.uint8)
-    raw = RawCodeTable(np.bincount(syms.ravel(), minlength=16), bits=4)
-    streams = [raw.encode(s)[0] for s in syms]
-    width = max(len(s) for s in streams)
-    mat = np.zeros((8, width), np.uint8)
-    for i, s in enumerate(streams):
-        mat[i, :len(s)] = s
-    args = [torch.from_numpy(mat).to(dev),
-            torch.full((8,), 4096, dtype=torch.int32, device=dev),
-            torch.from_numpy(raw.lut_sym).to(dev),
-            torch.from_numpy(raw.lut_len).to(dev)]
-    got = huffman_decode.decode_streams(*args, max_len=4, max_count=4096)
-    ref = huffman_decode.decode_streams_plain(*args, max_len=4,
-                                              max_count=4096)
-    ok = torch.equal(got, ref) and np.array_equal(got.cpu().numpy(), syms)
-    emit("kernel_raw", name="huffman_decode", codec="raw4",
-         shape=[8, width, 4096], bitwise_equal=ok)
-    if not ok:
-        raise AssertionError("raw identity-LUT decode differs")
+    # the raw codec's identity LUT through the prefix kernel, small case:
+    # subsequences start on codewords, so no sync pass is needed
+    for bits in (4, 8):
+        rng = np.random.default_rng(2)
+        syms = rng.integers(0, 1 << bits, (8, 4096)).astype(np.uint8)
+        raw = RawCodeTable(np.bincount(syms.ravel(), minlength=1 << bits),
+                           bits=bits)
+        streams = [raw.encode(s)[0] for s in syms]
+        width = max(len(s) for s in streams)
+        mat = np.zeros((8, width), np.uint8)
+        for i, s in enumerate(streams):
+            mat[i, :len(s)] = s
+        args = [torch.from_numpy(mat).to(dev),
+                torch.full((8,), 4096, dtype=torch.int32, device=dev),
+                torch.from_numpy(raw.lut_sym).to(dev),
+                torch.from_numpy(raw.lut_len).to(dev)]
+        got = huffman_decode.decode_streams(*args, max_len=bits,
+                                            max_count=4096)
+        passes = huffman_decode.sync_passes(dev)
+        ref = huffman_decode.decode_streams_plain(*args, max_len=bits,
+                                                  max_count=4096)
+        ok = torch.equal(got, ref) and np.array_equal(got.cpu().numpy(),
+                                                      syms)
+        emit("kernel_raw", name="huffman_decode", codec=f"raw{bits}",
+             shape=[8, width, 4096], bitwise_equal=ok, sync_passes=passes)
+        if not ok:
+            raise AssertionError(f"raw{bits} identity-LUT decode differs")
     return rows
 
 

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Time the port's two decode kernels at the load path's shape, 8 streams
+of 65,536 symbols, over the placements of their tables: tANS on rANS-4 and
+rANS-8 symbols at ``table_log`` 10, 12 and 14 (a block's shared memory), 15
+and 16 (a global-memory copy), and Huffman-8 through the prefix kernel.
+
+Each case is held bitwise against the symbols it encodes and prints one
+JSON line: ms a launch paced by the host (CUDA events around launches the
+host issues one after another, as ``chip_smoke.py`` times every kernel),
+ms a launch queued behind a spin kernel (device time only), and, where the
+kernels record them, the sync passes and the SM cycles of the longest block
+(over the largest count: cycles a step of the tANS chain).  The first line
+is the card's name and power limit.  Needs an NVIDIA card:
+
+    PYTHONPATH=src python3 scripts/time_decode_kernels.py
+    python3 scripts/time_decode_kernels.py --src OTHER/src --label parent
+
+``--src`` runs another checkout's port (an unpacked older commit, say)
+through the same cases, so two versions are compared on one card in one
+call; its kernels build under that checkout's ``build/``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CASES = [("rans", 4, log) for log in (10, 12, 14, 15, 16)] + \
+        [("rans", 8, log) for log in (12, 16)] + [("huffman", 8, None)]
+STREAMS, SYMBOLS, LAUNCHES = 8, 65536, 20
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch is timed")
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import numpy as np
+    import torch
+    from chip_smoke import cuda_ms, cuda_ms_queued, smi
+    import repro_torch
+    from repro_torch.core import bitstream
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.kernels import ans_decode, huffman_decode
+
+    if not torch.cuda.is_available():
+        sys.exit("needs an NVIDIA card")
+    dev = torch.device("cuda")
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    print(smi("name,power.limit"), flush=True)
+    rng = np.random.default_rng(args.seed)
+    for codec, bits, log in CASES:
+        hi = 1 << bits
+        sym = np.clip(np.rint(rng.normal(hi / 2, hi / 6, (STREAMS, SYMBOLS))),
+                      0, hi - 1).astype(np.uint8)
+        kw = {} if log is None else {"table_log": log}
+        table = get_codec(codec).build(np.bincount(sym.ravel(), minlength=hi),
+                                       bits, **kw)
+        mat, _ = bitstream.pack_streams([table.encode(s)[0] for s in sym])
+        a = table.decode_arrays()
+        m = torch.from_numpy(mat).to(dev)
+        c = torch.full((STREAMS,), SYMBOLS, dtype=torch.int32, device=dev)
+        if table.kernel == "prefix":
+            tabs = [torch.from_numpy(a[k].astype(np.int32)).to(dev)
+                    for k in ("lut_sym", "lut_len")]
+            entry, tlog = "prefix_decode", table.peek_bits
+
+            def fn():
+                return huffman_decode.decode_streams(
+                    m, c, *tabs, max_len=tlog, max_count=SYMBOLS)
+        else:
+            tabs = [torch.from_numpy(a[k].astype(np.int32)).to(dev)
+                    for k in ("tab_sym", "tab_bits", "tab_base")]
+            entry, tlog = "tans_decode", table.table_log
+
+            def fn():
+                return ans_decode.decode_streams_tans(
+                    m, c, *tabs, table_log=tlog, max_count=SYMBOLS)
+        got = fn()
+        torch.cuda.synchronize()
+        equal = np.array_equal(got.cpu().numpy(), sym)
+        queued_ms, _ = cuda_ms_queued(fn, LAUNCHES, clock_mhz)
+        ms, _ = cuda_ms(fn, LAUNCHES)
+        row = dict(label=args.label, src=str(Path(repro_torch.__file__)
+                                             .resolve().parents[1]),
+                   entry_point=entry, codec=f"{codec}{bits}", table_log=tlog,
+                   shape=[STREAMS, int(mat.shape[1]), SYMBOLS],
+                   bitwise_equal=equal, ms=ms, device_queued_ms=queued_ms,
+                   launches=LAUNCHES)
+        if hasattr(huffman_decode, "launch_stats"):
+            passes, cycles = huffman_decode.launch_stats(entry, dev)
+            row.update(block_cycles=cycles, cycles_per_step=cycles / SYMBOLS,
+                       sync_passes=passes)
+        print(json.dumps(row), flush=True)
+        if not equal:
+            sys.exit(f"{entry} at {codec}{bits} differs from its symbols")
+
+
+if __name__ == "__main__":
+    main()

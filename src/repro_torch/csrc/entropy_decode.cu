@@ -1,47 +1,93 @@
-// Multi-stream lock-step entropy decode: the two kernel families of the
-// load path, built into one shared library with a plain C interface.
+// Multi-stream entropy decode: the two kernel families of the load path,
+// built into one shared library with a plain C interface.
 //
 // prefix_decode (canonical Huffman / raw) replaces the TPU kernel
 // src/repro/kernels/huffman_decode.py:_decode_kernel (launched by
-// decode_streams_pallas).  Same arithmetic as
-// repro_torch.core.bitstream.decode_streams: a 32-bit big-endian window from
-// bytes bitpos>>3 .. +3, shifted right by 32-max_len-(bitpos&7), masked to
-// max_len bits, then sym = lut_sym[peek], bitpos += lut_len[peek].
+// decode_streams_pallas).  Same result as
+// repro_torch.core.bitstream.decode_streams: peek max_len bits at bitpos
+// (big-endian, bytes past the row read as 0), sym = lut_sym[peek],
+// bitpos += lut_len[peek].
 //
 // tans_decode replaces the TPU kernel
 // src/repro/kernels/ans_decode.py:_tans_kernel (launched by
-// decode_streams_tans_pallas).  Same arithmetic as
+// decode_streams_tans_pallas).  Same result as
 // repro_torch.core.bitstream.decode_streams_tans: the initial state is the
 // 16-bit header (b0 << 8) | b1 with bitpos = 16; each step emits
 // sym = tab_sym[st], reads nb = tab_bits[st] fresh bits as the top nb bits
 // of the table_log-bit window at bitpos, and moves to
 // st = tab_base[st] + fresh, bitpos += nb.
 //
-// Both write int32 symbols and 0 past a stream's count.  The window, the
-// two cursors, the table staging and the launch helper live in
-// entropy_common.cuh, shared with the fused kernels of
-// fused_decode_matmul.cu.
+// Both write int32 symbols and 0 past a stream's count, from rows (S, B) at
+// any address and any width B below 2^28 bytes.  Both read a stream through
+// BitReader and write symbols through emit_run (below); the shared window
+// and cursors of entropy_common.cuh stay with the fused kernels.
 //
-// What bounds them on an H100: not bytes.  A load-path call moves about
-// 2.5 MB (8 streams of 65,536 symbols: stream bytes in, int32 symbols out),
-// about a microsecond at 3.35 TB/s, but each stream is a chain of max_count
-// dependent steps (window load -> table load -> add), so the time is
-// max_count times the latency of one step, and only S threads of the card's
-// 132 SMs have work.
+// What bounds them on an H100: not bytes.  A load-path call (8 streams of
+// 65,536 symbols) moves about 2.5 MB, under a microsecond at 3.35 TB/s.
+// - tans_decode is bound by the latency of one step.  A tANS state is one
+//   chain per stream: each step's table index is the state the step before
+//   computed, so a stream's max_count steps run one after another.  The
+//   design makes the step short: the state is kept as the byte offset of
+//   its table entry, and the chain is one 64-bit shared-memory load of the
+//   interleaved entry (sym, base << 8 | (table_log - nb)), one funnel shift
+//   of the window and one shift-and-add to the next offset.  The bits come
+//   from BitReader's words in registers, whose loads are issued a word
+//   ahead, so none waits on the chain; the reader's own few ops (the next
+//   window, the move to the next word) are what the step costs beyond the
+//   chain, as one warp issues in order.  Symbols leave four at a time as
+//   16-byte stores (emit_run).  Each stream gets its own block, so the
+//   streams of a call do not share an SM's shared memory and L1; the
+//   block's other threads stage the table and write the zeros past the
+//   count.
+// - prefix_decode breaks the chain: canonical prefix codes resynchronise,
+//   so one block of up to 1024 threads decodes each stream with the
+//   self-synchronizing decode of Weissenberger & Schmidt ("Massively
+//   Parallel Huffman Decoding on GPUs", ICPP 2018).  The row's 8B bits are
+//   cut into n_sub <= 1024 subsequences of L bits, L a multiple of max_len
+//   (so a raw code's fixed-length codewords start where a subsequence
+//   starts).  Phase 1: thread j decodes from bit j*L until its position
+//   reaches (j+1)*L, and keeps where it left off (its exit) and how many
+//   symbols it decoded.  Phase 2, the sync passes: every thread whose start
+//   differs from its left neighbour's exit decodes again from that exit.
+//   Subsequence 0 starts exact; subsequence j is exact once every start up
+//   to j equals its left neighbour's exit, so the exact prefix grows by at
+//   least one subsequence a pass.  The passes stop when the exact prefix
+//   holds the stream's count symbols: the rows are zero-padded to a
+//   power-of-two width, and there an all-zero codeword can keep exits
+//   apart a subsequence a pass, so waiting for every subsequence to agree
+//   could take up to n_sub passes.  Phase 3: an exclusive block scan of the
+//   counts gives each exact subsequence its output offset, and its thread
+//   decodes it a third time, writing the symbols below the count.  What
+//   bounds it is the sync passes: a launch takes about (2 + passes) times L
+//   over the mean code length steps, plus the table staging and one block
+//   scan a pass.  Stream bytes are read from global memory, not staged in shared
+//   memory with a TMA bulk copy: a bulk copy needs 16-byte-aligned rows,
+//   and rows here start anywhere; a block's row (64 KiB at the load shape)
+//   stays in L1 and L2 after phase 1, so the passes that follow hit cache.
+//   Table lengths are clamped to [1, max_len] as they are staged, so a
+//   thread that starts out of step, and meets a window that is no codeword,
+//   still moves on; a well-formed stream decoded from its start never meets
+//   one, so its symbols do not change.
 //
-// Design: one thread per stream (the paper's thread-per-segment decode), 128
-// threads a block.  The block first copies its int32 tables into shared
-// memory (prefix: 2 * 4 * 2^max_len bytes, 32 KiB at max_len 12; tANS:
-// 3 * 4 * 2^table_log bytes, 12 KiB at the 4-bit default table_log 10, 48 KiB
-// at 12).  Above 48 KiB the dynamic-shared-memory limit is raised; tables
-// larger than a block's shared memory (tANS at table_log 15-16) are read from
-// global memory.  A thread's window bytes come from its own row, so after the
-// first touch they hit L1.  Reads past the row width return 0, like the zero
-// guard the numpy decoder appends, and the tANS state is masked to the table,
-// so a malformed stream cannot read out of bounds; for a well-formed stream
-// neither changes a value.  Rows lie B bytes apart, so neighbouring threads'
-// loads and stores are not coalesced; that and the few lanes per call are
-// what a faster design would change.
+// Stats: each launch sets stats[0] to the largest sync-pass count of a
+// stream (prefix_decode; 0 for tANS) and stats[1] to the most SM cycles a
+// block took, thread 0's clock64() from its first instruction to the end
+// of the block's work.  The wrapper keeps the two int64s on the card;
+// nothing on the main path reads them.
+//
+// Tables: both kernels interleave their tables into 8-byte entries, one
+// shared-memory load a step: 8 << max_len bytes for prefix (32 KiB at
+// max_len 12), 8 << table_log for tANS (32 KiB at table_log 12).  Up to
+// 2^14 entries (128 KiB) they are staged into dynamic shared memory by the
+// decoding block; larger ones (tANS at table_log 15-16, prefix above
+// max_len 14) do not fit a block, so the entry point first interleaves
+// them into the caller's `scratch` in global memory and the kernel reads
+// them there.  The staging clamps the tANS entries (see tans_entry) and
+// the initial state is masked to the table, so a malformed stream cannot
+// read out of bounds; for a well-formed table that changes nothing.
+// decode_table_fits_shared() is the one test of which placement a table
+// gets; the wrappers ask it whether to allocate `scratch`.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -49,77 +95,321 @@
 
 namespace {
 
-using entropy::PrefixCursor;
-using entropy::TansCursor;
-using entropy::stage_tables;
+constexpr int kSplitThreads = 1024;  // prefix: subsequences (threads) a row
+constexpr int kTansThreads = 256;    // tANS: table staging and zero fill
+constexpr int kMaxRowBytes = 1 << 28;
 
-constexpr int kThreads = 128;
+// BitReader: a row of B bytes at any address, read as a big-endian bit
+// stream from registers.  The 64 bits from the start of 4-byte-aligned word
+// wi are held as two byte-swapped words (hi, lo) with the bit offset o < 32
+// of the next bit in hi, and the word after them (n1) beside them; the word
+// after that waits as loaded (pend).  When a step leaves fewer than 32 bits
+// in hi:lo, the words move down and the load of the word three ahead is
+// issued, so every word is loaded a word's worth of steps before it is used
+// and no load sits on the dependent chain.  Words that hold no byte of the
+// row read as 0, and so do the bytes past the row in its last word: the
+// zero guard of the numpy decoder.  The bytes before the row in its first
+// word are loaded but never consumed.  Bit positions are 32-bit: the
+// callers keep B below 2^28.
+struct BitReader {
+  const uint32_t* words;  // the aligned word holding the row's first byte
+  uint32_t lead;          // bits of that word before the row: 0, 8, 16, 24
+  int wlim;               // words [0, wlim) hold a byte of the row
+  uint32_t tail_mask;     // keeps the row's bytes of word wlim - 1
+  uint32_t hi, lo, n1;    // words wi, wi + 1, wi + 2, byte-swapped
+  uint32_t pend;          // word wi + 3 as loaded
+  int wi;
+  int o;
 
-template <bool kShared>
-__global__ void prefix_decode_kernel(const uint8_t* __restrict__ mat,
-                                     int64_t B,
-                                     const int32_t* __restrict__ counts,
-                                     const int32_t* __restrict__ lut_sym_g,
-                                     const int32_t* __restrict__ lut_len_g,
-                                     int lut_size, int max_len, int S,
-                                     int max_count,
-                                     int32_t* __restrict__ out) {
-  extern __shared__ int32_t smem[];
-  const int32_t* lut_sym = lut_sym_g;
-  const int32_t* lut_len = lut_len_g;
-  if (kShared) {
-    const int32_t* tabs[2] = {lut_sym_g, lut_len_g};
-    lut_sym = stage_tables(smem, tabs, 2, lut_size);
-    lut_len = lut_sym + lut_size;
+  __device__ BitReader(const uint8_t* row, int B) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(row);
+    const int a = int(addr & 3);
+    words = reinterpret_cast<const uint32_t*>(addr - a);
+    lead = uint32_t(8 * a);
+    wlim = (B + a + 3) >> 2;
+    const int k = B + a - 4 * (wlim - 1);     // row bytes in the last word
+    tail_mask = 0xFFFFFFFFu << (8 * (4 - k));
   }
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  int32_t* o = out + int64_t(s) * max_count;
-  const int n = min(counts[s], max_count);
-  PrefixCursor cur(mat + int64_t(s) * B, B, lut_sym, lut_len, max_len);
+
+  __device__ __forceinline__ uint32_t raw(int w) const {
+    uint32_t v = 0;
+    if (w < wlim) v = __ldg(words + w);
+    return v;
+  }
+
+  __device__ __forceinline__ uint32_t swap(uint32_t v, int w) const {
+    v = __byte_perm(v, 0, 0x0123);
+    return w == wlim - 1 ? v & tail_mask : v;
+  }
+
+  // Moves to bit `pos` of the row.
+  __device__ __forceinline__ void seek(uint32_t pos) {
+    const uint32_t q = pos + lead;
+    wi = int(q >> 5);
+    o = int(q & 31);
+    hi = swap(raw(wi), wi);
+    lo = swap(raw(wi + 1), wi + 1);
+    n1 = swap(raw(wi + 2), wi + 2);
+    pend = raw(wi + 3);
+  }
+
+  // The next n bits (1 <= n <= 32) as an integer.
+  __device__ __forceinline__ uint32_t peek(int n) const {
+    return __funnelshift_l(lo, hi, o) >> (32 - n);
+  }
+
+  // Consumes n <= 32 bits.
+  __device__ __forceinline__ void skip(int n) {
+    o += n;
+    if (__builtin_expect(o >= 32, 0)) {
+      o -= 32;
+      hi = lo;
+      lo = n1;
+      n1 = swap(pend, wi + 3);
+      ++wi;
+      pend = raw(wi + 3);
+    }
+  }
+};
+
+// Writes m int32 symbols, the results of m calls of step(), to o[0..m):
+// one at a time up to a 16-byte boundary, then four at a time, held in
+// registers and stored as one 16-byte store, then the tail one at a time.
+template <typename Step>
+__device__ __forceinline__ void emit_run(int32_t* o, int m, Step step) {
   int k = 0;
-  for (; k < n; ++k) o[k] = cur.next();
-  for (; k < max_count; ++k) o[k] = 0;
+  for (; k < m && (reinterpret_cast<uintptr_t>(o + k) & 15); ++k) {
+    o[k] = step();
+  }
+  for (; k + 4 <= m; k += 4) {
+    const int32_t a = step();
+    const int32_t b = step();
+    const int32_t c = step();
+    const int32_t d = step();
+    *reinterpret_cast<int4*>(o + k) = make_int4(a, b, c, d);
+  }
+  for (; k < m; ++k) o[k] = step();
 }
 
-template <bool kShared>
-__global__ void tans_decode_kernel(const uint8_t* __restrict__ mat, int64_t B,
-                                   const int32_t* __restrict__ counts,
-                                   const int32_t* __restrict__ sym_g,
-                                   const int32_t* __restrict__ bits_g,
-                                   const int32_t* __restrict__ base_g,
-                                   int table_log, int S, int max_count,
-                                   int32_t* __restrict__ out) {
-  extern __shared__ int32_t smem[];
-  const int L = 1 << table_log;
-  const int32_t* tab_sym = sym_g;
-  const int32_t* tab_bits = bits_g;
-  const int32_t* tab_base = base_g;
-  if (kShared) {
-    const int32_t* tabs[3] = {sym_g, bits_g, base_g};
-    tab_sym = stage_tables(smem, tabs, 3, L);
-    tab_bits = tab_sym + L;
-    tab_base = tab_sym + 2 * L;
-  }
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  int32_t* o = out + int64_t(s) * max_count;
-  const int n = min(counts[s], max_count);
-  TansCursor cur(mat + int64_t(s) * B, B, tab_sym, tab_bits, tab_base,
-                 table_log);
-  int k = 0;
-  for (; k < n; ++k) o[k] = cur.next();
-  for (; k < max_count; ++k) o[k] = 0;
+__device__ __forceinline__ int2 prefix_entry(const int32_t* sym,
+                                             const int32_t* len, int i,
+                                             int max_len) {
+  return make_int2(sym[i], min(max(len[i], 1), max_len));
 }
 
-// One thread per stream, kThreads a block; the tables in dynamic shared
-// memory when they fit a block, else read from global memory.
-template <typename... P, typename... A>
-int launch_decode(void (*shared_kernel)(P...), void (*global_kernel)(P...),
-                  size_t table_bytes, int S, cudaStream_t stream, A... args) {
-  return entropy::launch(shared_kernel, global_kernel, table_bytes, 0,
-                         dim3((S + kThreads - 1) / kThreads), dim3(kThreads),
-                         stream, args...);
+// (sym, base << 8 | (table_log - nb)): base << 8 >> 5 is the byte offset
+// of entry `base`, and a funnel shift by the whole word shifts by its low 5
+// bits, table_log - nb.  nb is clamped to [0, table_log] and base to
+// [0, 2^table_log - 2^nb], so base + fresh (fresh < 2^nb) indexes the table
+// whatever the stream holds; a well-formed table has no other values.
+__device__ __forceinline__ int2 tans_entry(const int32_t* sym,
+                                           const int32_t* bits,
+                                           const int32_t* base, int i,
+                                           int table_log) {
+  const int nb = min(max(bits[i], 0), table_log);
+  const int b = min(max(base[i], 0), (1 << table_log) - (1 << nb));
+  return make_int2(sym[i], (b << 8) | (table_log - nb));
+}
+
+__global__ void interleave_prefix(const int32_t* __restrict__ sym,
+                                  const int32_t* __restrict__ len, int n,
+                                  int max_len, int2* __restrict__ dst) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    dst[i] = prefix_entry(sym, len, i, max_len);
+  }
+}
+
+__global__ void interleave_tans(const int32_t* __restrict__ sym,
+                                const int32_t* __restrict__ bits,
+                                const int32_t* __restrict__ base, int n,
+                                int table_log, int2* __restrict__ dst) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    dst[i] = tans_entry(sym, bits, base, i, table_log);
+  }
+}
+
+// Decodes from bit `pos` until the position reaches `end`; returns the
+// position reached and sets n to the symbols decoded.
+__device__ __forceinline__ uint32_t decode_span(BitReader& br,
+                                                const int2* tab, int max_len,
+                                                uint32_t pos, uint32_t end,
+                                                int& n) {
+  br.seek(pos);
+  int k = 0;
+  while (pos < end) {
+    const int len = tab[br.peek(max_len)].y;
+    br.skip(len);
+    pos += uint32_t(len);
+    ++k;
+  }
+  n = k;
+  return pos;
+}
+
+// One pass's block-wide sums: the exclusive scan of v over the threads, its
+// total, and the lowest thread index whose flag is set (blockDim.x if
+// none).  Two calls need a barrier between them: a call writes the shared
+// sums that the one before read.
+__device__ __forceinline__ void block_scan(int v, bool flag, int& excl,
+                                           int& total, int& first) {
+  __shared__ int s_sum[32];
+  __shared__ int s_min[32];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int incl = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  const unsigned b = __ballot_sync(0xFFFFFFFFu, flag);
+  if (lane == 31) s_sum[w] = incl;
+  if (lane == 0) s_min[w] = b ? w * 32 + __ffs(int(b)) - 1 : INT_MAX;
+  __syncthreads();
+  if (w == 0) {
+    int x = lane < nw ? s_sum[lane] : 0;
+    const int m = __reduce_min_sync(0xFFFFFFFFu,
+                                    lane < nw ? s_min[lane] : INT_MAX);
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xFFFFFFFFu, x, d);
+      if (lane >= d) x += t;
+    }
+    s_sum[lane] = x;
+    if (lane == 0) s_min[0] = min(m, int(blockDim.x));
+  }
+  __syncthreads();
+  excl = (w > 0 ? s_sum[w - 1] : 0) + incl - v;
+  total = s_sum[nw - 1];
+  first = s_min[0];
+}
+
+// One block per stream, blockDim.x >= n_sub threads (a multiple of 32).
+template <bool kShared>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+    prefix_decode_kernel(const uint8_t* __restrict__ mat, int B,
+                         const int32_t* __restrict__ counts,
+                         const int32_t* __restrict__ lut_sym,
+                         const int32_t* __restrict__ lut_len,
+                         const int2* __restrict__ tab_g, int max_len, int L,
+                         int n_sub, int max_count, int32_t* __restrict__ out,
+                         long long* __restrict__ stats) {
+  const long long t0 = clock64();
+  extern __shared__ int2 dyn_tab[];
+  __shared__ uint32_t s_exit[kSplitThreads];
+  __shared__ int s_covered;
+  const int s = blockIdx.x;
+  const int j = threadIdx.x;
+  const int2* tab = tab_g;
+  if (kShared) {
+    for (int i = j; i < (1 << max_len); i += blockDim.x) {
+      dyn_tab[i] = prefix_entry(lut_sym, lut_len, i, max_len);
+    }
+    tab = dyn_tab;
+  }
+  const int cnt = max(0, min(counts[s], max_count));
+  int32_t* o = out + int64_t(s) * max_count;
+  BitReader br(mat + int64_t(s) * B, B);
+  const bool live = j < n_sub && cnt > 0;
+  uint32_t start = uint32_t(j) * uint32_t(L);
+  const uint32_t end = start + uint32_t(L);
+  int n = 0;
+  __syncthreads();                                  // table staged
+  // phase 1
+  s_exit[j] = live ? decode_span(br, tab, max_len, start, end, n) : end;
+  // phase 2
+  int passes = 0;
+  int excl, total, first, covered;
+  for (;;) {
+    __syncthreads();                                // exits written
+    const uint32_t from = j > 0 ? s_exit[j - 1] : 0u;
+    const bool behind = live && j > 0 && start != from;
+    block_scan(n, behind, excl, total, first);
+    if (j == first) s_covered = excl;
+    __syncthreads();
+    covered = first >= n_sub ? total : s_covered;
+    if (covered >= cnt || first >= n_sub) break;
+    if (behind) {
+      start = from;
+      s_exit[j] = decode_span(br, tab, max_len, start, end, n);
+    }
+    ++passes;
+  }
+  // phase 3
+  if (live && excl < cnt) {
+    const int m = min(n, cnt - excl);
+    br.seek(start);
+    emit_run(o + excl, m, [&] {
+      const int2 e = tab[br.peek(max_len)];
+      br.skip(e.y);
+      return e.x;
+    });
+  }
+  for (int i = min(cnt, covered) + j; i < max_count; i += blockDim.x) {
+    o[i] = 0;
+  }
+  __syncthreads();                                  // the block's work done
+  if (j == 0) {
+    atomicMax(&stats[0], (long long)passes);
+    atomicMax(&stats[1], clock64() - t0);
+  }
+}
+
+// One block per stream: every thread stages the table and writes the zeros
+// past the count, then thread 0 decodes the stream.
+template <bool kShared>
+__global__ void __launch_bounds__(kTansThreads)
+    tans_decode_kernel(const uint8_t* __restrict__ mat, int B,
+                       const int32_t* __restrict__ counts,
+                       const int32_t* __restrict__ tab_sym,
+                       const int32_t* __restrict__ tab_bits,
+                       const int32_t* __restrict__ tab_base,
+                       const int2* __restrict__ tab_g, int table_log,
+                       int max_count, int32_t* __restrict__ out,
+                       long long* __restrict__ stats) {
+  const long long t0 = clock64();
+  extern __shared__ int2 dyn_tab[];
+  const int s = blockIdx.x;
+  const int2* tab = tab_g;
+  if (kShared) {
+    for (int i = threadIdx.x; i < (1 << table_log); i += blockDim.x) {
+      dyn_tab[i] = tans_entry(tab_sym, tab_bits, tab_base, i, table_log);
+    }
+    tab = dyn_tab;
+  }
+  const int cnt = max(0, min(counts[s], max_count));
+  int32_t* o = out + int64_t(s) * max_count;
+  for (int i = cnt + threadIdx.x; i < max_count; i += blockDim.x) o[i] = 0;
+  __syncthreads();                                  // table staged
+  if (threadIdx.x != 0 || cnt == 0) return;
+  BitReader br(mat + int64_t(s) * B, B);
+  br.seek(0);
+  // the state as the byte offset of its entry
+  const char* base = reinterpret_cast<const char*>(tab);
+  uint32_t off = (br.peek(entropy::kTansHeaderBits) &
+                  ((1u << table_log) - 1u)) << 3;
+  br.skip(entropy::kTansHeaderBits);
+  uint32_t window = br.peek(table_log);
+  // on the chain: the entry's load, a funnel shift, a shift and an add;
+  // the window for the next step is cut beside it
+  emit_run(o, cnt, [&] {
+    const int2 e = *reinterpret_cast<const int2*>(base + off);
+    const uint32_t y = uint32_t(e.y);
+    off = (y >> 5) + (__funnelshift_r(window, 0u, y) << 3);
+    br.skip(table_log - int(y & 31u));
+    window = br.peek(table_log);
+    return e.x;
+  });
+  atomicMax(&stats[1], clock64() - t0);
+}
+
+bool fits_shared(int log) {
+  return (size_t(8) << log) <= entropy::kMaxSmem;
+}
+
+int grid_for(long long n) {
+  return int(n < 1024 * 256 ? (n + 255) / 256 : 1024);
 }
 
 }  // namespace
@@ -130,37 +420,82 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// mat (S, B) uint8 row-major; counts (S,) int32; lut_sym / lut_len
-// (lut_size,) int32 with lut_size >= 2^max_len; out (S, max_count) int32.
+// 1 when a table of 2^log interleaved 8-byte entries is staged into a
+// block's shared memory, 0 when the entry point needs `scratch` for it.
+int decode_table_fits_shared(int log) { return fits_shared(log) ? 1 : 0; }
+
+// mat (S, B) uint8 row-major at any address; counts (S,) int32; lut_sym /
+// lut_len int32 with at least 2^max_len entries; out (S, max_count) int32;
+// scratch 2^max_len int2 unless decode_table_fits_shared(max_len), else
+// unused; stats two int64 (see Stats above).
 int prefix_decode(const void* mat, long long B, const void* counts,
-                  const void* lut_sym, const void* lut_len, int lut_size,
-                  int max_len, int S, int max_count, void* out,
-                  void* stream) {
-  return launch_decode(prefix_decode_kernel<true>, prefix_decode_kernel<false>,
-                       size_t(2) * lut_size * sizeof(int32_t), S,
-                       static_cast<cudaStream_t>(stream),
-                       static_cast<const uint8_t*>(mat), int64_t(B),
-                       static_cast<const int32_t*>(counts),
-                       static_cast<const int32_t*>(lut_sym),
-                       static_cast<const int32_t*>(lut_len), lut_size, max_len, S,
-                       max_count, static_cast<int32_t*>(out));
+                  const void* lut_sym, const void* lut_len, int max_len,
+                  int S, int max_count, void* out, void* scratch,
+                  void* stats, void* stream) {
+  if (B < 0 || B >= kMaxRowBytes || max_len < 1 || max_len > 24) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t table_bytes = size_t(8) << max_len;
+  if (!fits_shared(max_len)) {
+    if (scratch == nullptr) return int(cudaErrorInvalidValue);
+    interleave_prefix<<<grid_for(1LL << max_len), 256, 0, st>>>(
+        static_cast<const int32_t*>(lut_sym),
+        static_cast<const int32_t*>(lut_len), 1 << max_len, max_len,
+        static_cast<int2*>(scratch));
+  }
+  cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(long long), st);
+  if (e != cudaSuccess) return int(e);
+  // L: the least multiple of max_len that cuts the row's bits into at most
+  // kSplitThreads subsequences
+  const long long bits = 8 * B;
+  const long long per = (bits + kSplitThreads - 1) / kSplitThreads;
+  const long long L = max_len * ((per + max_len - 1) / max_len + (per == 0));
+  const int n_sub = int((bits + L - 1) / L) + (bits == 0);
+  const int threads = (n_sub + 31) / 32 * 32;
+  return entropy::launch(
+      prefix_decode_kernel<true>, prefix_decode_kernel<false>, table_bytes, 0,
+      dim3(S), dim3(threads), st, static_cast<const uint8_t*>(mat), int(B),
+      static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(lut_sym),
+      static_cast<const int32_t*>(lut_len),
+      static_cast<const int2*>(scratch), max_len, int(L), n_sub, max_count,
+      static_cast<int32_t*>(out), static_cast<long long*>(stats));
 }
 
-// mat (S, B) uint8 row-major; counts (S,) int32; tab_sym / tab_bits /
-// tab_base (2^table_log,) int32; out (S, max_count) int32.
+// mat (S, B) uint8 row-major at any address; counts (S,) int32; tab_sym /
+// tab_bits / tab_base (2^table_log,) int32; out (S, max_count) int32;
+// scratch 2^table_log int2 unless decode_table_fits_shared(table_log), else
+// unused; stats two int64 (see Stats above).
 int tans_decode(const void* mat, long long B, const void* counts,
                 const void* tab_sym, const void* tab_bits,
                 const void* tab_base, int table_log, int S, int max_count,
-                void* out, void* stream) {
-  return launch_decode(tans_decode_kernel<true>, tans_decode_kernel<false>,
-                       size_t(3) * (size_t(1) << table_log) * sizeof(int32_t), S,
-                       static_cast<cudaStream_t>(stream),
-                       static_cast<const uint8_t*>(mat), int64_t(B),
-                       static_cast<const int32_t*>(counts),
-                       static_cast<const int32_t*>(tab_sym),
-                       static_cast<const int32_t*>(tab_bits),
-                       static_cast<const int32_t*>(tab_base), table_log, S,
-                       max_count, static_cast<int32_t*>(out));
+                void* out, void* scratch, void* stats, void* stream) {
+  if (B < 0 || B >= kMaxRowBytes || table_log < 1 ||
+      table_log > entropy::kTansHeaderBits) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t table_bytes = size_t(8) << table_log;
+  if (!fits_shared(table_log)) {
+    if (scratch == nullptr) return int(cudaErrorInvalidValue);
+    interleave_tans<<<grid_for(1LL << table_log), 256, 0, st>>>(
+        static_cast<const int32_t*>(tab_sym),
+        static_cast<const int32_t*>(tab_bits),
+        static_cast<const int32_t*>(tab_base), 1 << table_log, table_log,
+        static_cast<int2*>(scratch));
+  }
+  cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(long long), st);
+  if (e != cudaSuccess) return int(e);
+  return entropy::launch(
+      tans_decode_kernel<true>, tans_decode_kernel<false>, table_bytes, 0,
+      dim3(S), dim3(kTansThreads), st, static_cast<const uint8_t*>(mat),
+      int(B), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(tab_sym),
+      static_cast<const int32_t*>(tab_bits),
+      static_cast<const int32_t*>(tab_base),
+      static_cast<const int2*>(scratch), table_log, max_count,
+      static_cast<int32_t*>(out), static_cast<long long*>(stats));
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@
 Port of the TPU kernel ``src/repro/kernels/ans_decode.py`` (``_tans_kernel``
 / ``decode_streams_tans_pallas``): the ``tans`` twin of
 :mod:`repro_torch.kernels.huffman_decode`, where a carried per-lane ANS
-state indexes the (symbol, nbits, base) tables::
+state indexes the (symbol, nbits, base) tables (the CUDA kernel runs each
+stream's chain in a block of its own)::
 
     sym   = tab_sym[state]
     nb    = tab_bits[state]
@@ -15,7 +16,9 @@ Streams begin with the 16-bit initial-state header
 (``bitstream.TANS_STATE_HEADER_BITS``).  :func:`decode_streams_tans`
 launches the kernel on a CUDA tensor (or raises) and runs
 :func:`decode_streams_tans_plain` on a CPU tensor;
-``build.launches["ans_decode"]`` counts kernel launches only.
+``build.launches["ans_decode"]`` counts kernel launches only, and
+``huffman_decode.launch_stats("tans_decode", device)`` reads the cycles the
+last launch's longest block took.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import torch
 
 from ..core.bitstream import TANS_STATE_HEADER_BITS
 from . import build
-from .huffman_decode import byte_windows, check_inputs
+from .huffman_decode import (byte_windows, check_inputs, stats_buffer,
+                             table_scratch)
 
 def decode_streams_tans_plain(mat: torch.Tensor, counts: torch.Tensor,
                               tab_sym: torch.Tensor, tab_bits: torch.Tensor,
@@ -98,12 +102,16 @@ def decode_streams_tans(mat: torch.Tensor, counts: torch.Tensor,
     if S == 0 or max_count == 0:
         return out
     lib = build.load()
+    scratch = table_scratch(lib, table_log, mat.device)
+    stats = stats_buffer("tans_decode", mat.device)
     with torch.cuda.device(mat.device):
         stream = torch.cuda.current_stream(mat.device).cuda_stream
         err = lib.tans_decode(
             mat.data_ptr(), B, counts.data_ptr(), tab_sym.data_ptr(),
             tab_bits.data_ptr(), tab_base.data_ptr(), table_log, S,
-            max_count, out.data_ptr(), stream)
+            max_count, out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            stats.data_ptr(), stream)
     build.check(err, "tans_decode")
     build.count_launch("ans_decode")
     return out

@@ -35,15 +35,17 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points, each returning a cudaError_t:
-#   decode: (mat, B, counts, *tables, ...scalars, out, stream)
+#   decode: (mat, B, counts, *tables, ...scalars, out, scratch, stats,
+#            stream); decode_table_fits_shared: (log)
 #   fused:  (x, M, K, N, mat, B, S, seg, *tables, table scalars, scale,
 #            ssk, ssn, zero, szk, szn, tile, partial, out, stream)
 #   dequant_matmul: (x, M, K, N, wq, int4, scale, ssn, zero, szn, out,
 #            stream)
 _AFFINE = [_p, _l, _l, _p, _l, _l, _i, _p, _p, _p]
 SIGNATURES = {
-    "prefix_decode": [_p, _l, _p, _p, _p, _i, _i, _i, _i, _p, _p],
-    "tans_decode": [_p, _l, _p, _p, _p, _p, _i, _i, _i, _p, _p],
+    "prefix_decode": [_p, _l, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p],
+    "tans_decode": [_p, _l, _p, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p],
+    "decode_table_fits_shared": [_i],
     "fused_prefix_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _i, _i,
                             *_AFFINE],
     "fused_tans_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _p, _i,

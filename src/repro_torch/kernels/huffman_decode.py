@@ -6,13 +6,20 @@ Port of the TPU kernel ``src/repro/kernels/huffman_decode.py``
 segment) advances one symbol per step by peeking ``max_len`` bits and
 gathering ``(symbol, length)`` from the canonical-code lookup table.  The
 ``raw`` codec rides the same loop with a ``2**bits``-entry identity table.
+The CUDA kernel gives each stream a block and splits it into subsequences
+that resynchronise (the source's header says how); the symbols are the
+same.
 
 :func:`decode_streams` is the one entry point.  On a CUDA tensor it launches
 the kernel (or raises); on a CPU tensor it runs :func:`decode_streams_plain`,
 the vectorised lock-step loop over lanes with the kernel's arithmetic.
-``build.launches["huffman_decode"]`` counts kernel launches only.
+``build.launches["huffman_decode"]`` counts kernel launches only;
+:func:`sync_passes` and :func:`launch_stats` read what the kernel recorded
+of its last launch.
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
@@ -20,6 +27,13 @@ from ..core.bitstream import GUARD_BYTES
 from . import build
 
 MAX_PEEK_BITS = 24      # 32-bit window minus the 7-bit intra-byte offset
+# the kernels take bit positions as 32-bit integers
+MAX_ROW_BYTES = 1 << 28
+
+# per (C entry point, device): two int64s that entry point's kernel sets at
+# each launch, the largest sync-pass count of a stream and the most SM
+# cycles a block took
+_stats: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 def byte_windows(mat: torch.Tensor) -> torch.Tensor:
     """(S, B) uint8 -> (S, B + 1) int64: the big-endian 32-bit window that
@@ -84,6 +98,27 @@ def check_inputs(mat, counts, tables, max_count):
                              f"{t.dtype} {tuple(t.shape)}")
     if max_count < 0:
         raise ValueError(f"max_count must be >= 0, got {max_count}")
+    if mat.shape[1] >= MAX_ROW_BYTES:
+        raise ValueError(f"rows of {mat.shape[1]} bytes: the kernels take "
+                         f"rows under {MAX_ROW_BYTES} bytes")
+
+
+def table_scratch(lib, log: int, device) -> "torch.Tensor | None":
+    """The global-memory copy of a table of ``2**log`` 8-byte entries when
+    the kernel library says it does not fit a block's shared memory, else
+    None (the kernel stages the table itself)."""
+    if lib.decode_table_fits_shared(log):
+        return None
+    return torch.empty(2 << log, dtype=torch.int32, device=device)
+
+
+def stats_buffer(entry: str, device) -> torch.Tensor:
+    """The two int64s the kernel of C entry point ``entry`` sets on
+    ``device`` at each launch."""
+    key = (entry, device)
+    if key not in _stats:
+        _stats[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _stats[key]
 
 
 def decode_streams(mat: torch.Tensor, counts: torch.Tensor,
@@ -114,12 +149,33 @@ def decode_streams(mat: torch.Tensor, counts: torch.Tensor,
     if S == 0 or max_count == 0:
         return out
     lib = build.load()
+    scratch = table_scratch(lib, max_len, mat.device)
+    stats = stats_buffer("prefix_decode", mat.device)
     with torch.cuda.device(mat.device):
         stream = torch.cuda.current_stream(mat.device).cuda_stream
         err = lib.prefix_decode(
             mat.data_ptr(), B, counts.data_ptr(), lut_sym.data_ptr(),
-            lut_len.data_ptr(), lut_sym.numel(), max_len, S, max_count,
-            out.data_ptr(), stream)
+            lut_len.data_ptr(), max_len, S, max_count, out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            stats.data_ptr(), stream)
     build.check(err, "prefix_decode")
     build.count_launch("huffman_decode")
     return out
+
+
+def launch_stats(entry: str, device) -> Tuple[int, int]:
+    """(sync passes, SM cycles): the largest number of sync passes a stream
+    took and the most cycles a block took, in the last launch of the kernel
+    of C entry point ``entry`` (``prefix_decode`` or ``tans_decode``) on
+    ``device``.  Synchronises with that launch."""
+    d = torch.device(device)
+    if d.index is None:
+        d = torch.device(d.type, torch.cuda.current_device())
+    passes, cycles = _stats[(entry, d)].tolist()
+    return passes, cycles
+
+
+def sync_passes(device) -> int:
+    """The largest number of sync passes a stream of the last
+    ``prefix_decode`` launch on ``device`` took."""
+    return launch_stats("prefix_decode", device)[0]

@@ -12,8 +12,16 @@ on a machine that has only the port:
 
 Cases cover both families at the load path's stream shape, a block of more
 than 128 lanes, zero-count and short lanes, and every table placement of
-the tANS kernel: static shared memory (``table_log`` 10, 12), the opt-in
-dynamic shared memory (14) and global memory (16).  The fused kernels run
+the tANS kernel: shared memory (``table_log`` 10, 12, 14) and a global
+scratch copy (16).  The prefix kernel's split decode runs every code width
+of ``huffman`` and ``raw`` (1 to 8 bits), rows whose width is no multiple
+of 4 in a buffer that starts one byte into its allocation (S = 1, 8, 300,
+both families), counts that end inside the first subsequence, a table in
+global memory (``max_len`` 16), and reports its sync passes (at least one
+for Huffman-8 at the load shape, none for raw); both decode kernels report
+their longest block's SM cycles, and the library alone decides which tables
+go to a global scratch copy; every case also compares two launches
+bitwise.  The fused kernels run
 both families at M = 1, 4, 128 and N = 64, 1024, 2048, with tANS tables in
 shared and in global memory, lanes cut into column tiles, two launches
 compared bitwise (the lanes are summed in a fixed order), and the inputs
@@ -45,25 +53,44 @@ def card():
     return torch.device("cuda")
 
 
-def _case(codec, bits, table_log, n_streams, count, seed):
+def _rows(codec, bits, counts, seed, *, min_width=0, max_len=12,
+          table_log=None, max_count=None):
+    """One table, built from ``max_count`` (default the largest count)
+    seeded symbols a stream, and its streams at the given counts, packed at
+    ``min_width``."""
+    counts = np.asarray(counts, np.int64)
     rng = np.random.default_rng(seed)
     hi = 1 << bits
-    sym = np.clip(np.rint(rng.normal(hi / 2, hi / 6, (n_streams, count))),
+    n = int(counts.max()) if max_count is None else max_count
+    sym = np.clip(np.rint(rng.normal(hi / 2, hi / 6, (len(counts), n))),
                   0, hi - 1).astype(np.uint8)
-    freqs = np.bincount(sym.ravel(), minlength=hi).astype(np.int64)
     kw = {} if table_log is None else {"table_log": table_log}
-    table = get_codec(codec).build(freqs, bits, max_code_len=12, **kw)
-    counts = np.full(n_streams, count, np.int64)
-    counts[0] = count // 3                      # a short lane
-    counts[2 % n_streams] = 0                   # an empty lane
-    streams = [table.encode(sym[i, :counts[i]])[0] for i in range(n_streams)]
-    mat, _ = bitstream.pack_streams(streams)
+    table = get_codec(codec).build(np.bincount(sym.ravel(), minlength=hi),
+                                   bits, max_code_len=max_len, **kw)
+    streams = [table.encode(sym[i, :c])[0] for i, c in enumerate(counts)]
+    mat, _ = bitstream.pack_streams(streams, min_width=min_width)
     return table, mat, counts
 
 
-def _run(table, mat, counts, dev, plain=False):
+def _on_card(mat, dev, offset):
+    """``mat`` on the card as a contiguous view that starts ``offset`` bytes
+    into a larger buffer."""
+    buf = torch.zeros(offset + mat.size, dtype=torch.uint8, device=dev)
+    buf[offset:] = torch.from_numpy(mat.ravel()).to(dev)
+    return buf[offset:].view(mat.shape)
+
+
+def _case(codec, bits, table_log, n_streams, count, seed):
+    counts = np.full(n_streams, count, np.int64)
+    counts[0] = count // 3                      # a short lane
+    counts[2 % n_streams] = 0                   # an empty lane
+    return _rows(codec, bits, counts, seed, table_log=table_log,
+                 max_count=count)
+
+
+def _run(table, mat, counts, dev, plain=False, offset=0):
     a = table.decode_arrays()
-    m = torch.from_numpy(mat).to(dev)
+    m = _on_card(mat, dev, offset)
     c = torch.from_numpy(counts.astype(np.int32)).to(dev)
     mc = int(counts.max())
     if table.kernel == "prefix":
@@ -137,6 +164,123 @@ def test_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError, match="contiguous"):
         huffman_decode.decode_streams(m.t().contiguous().t(), c32, ls, ll,
                                       **kw)
+    # the kernels count bits in 32-bit integers
+    wide = torch.zeros((1, huffman_decode.MAX_ROW_BYTES), dtype=torch.uint8,
+                       device=card)
+    with pytest.raises(ValueError, match="rows of"):
+        huffman_decode.decode_streams(wide, c32[:1], ls, ll, **kw)
+
+
+# ---------------------------------- split prefix decode, tANS chain per block
+
+def _assert_exact(table, mat, counts, dev, offset=0, plain=True):
+    """Two kernel launches bitwise equal to each other, to the host decoder
+    and (unless ``plain`` is False: its loop takes seconds at 65,536
+    symbols) to the plain version on the same card inputs."""
+    got = _run(table, mat, counts, dev, offset=offset)
+    again = _run(table, mat, counts, dev, offset=offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if plain:
+        assert torch.equal(got, _run(table, mat, counts, dev, plain=True,
+                                     offset=offset))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _host(table, mat, counts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("codec", ["huffman", "raw"])
+def test_prefix_kernel_every_code_width(card, codec, bits):
+    table, mat, counts = _rows(codec, bits, [4096, 1365, 0, 4096, 7],
+                               seed=bits)
+    _assert_exact(table, mat, counts, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 8, 300])
+@pytest.mark.parametrize("codec,bits", [("huffman", 8), ("rans", 4)])
+def test_decode_kernels_take_rows_at_any_width_and_address(card, codec, bits,
+                                                           S):
+    """Rows of a width that is no multiple of 4, in a buffer that starts one
+    byte into its allocation: every row at another alignment."""
+    rng = np.random.default_rng(S)
+    counts = rng.integers(0, 3000, S)
+    counts[0] = 3000
+    table, mat, counts = _rows(codec, bits, counts, seed=S,
+                               min_width=2 * 3000 + 3)
+    assert mat.shape[1] % 4 == 3
+    _assert_exact(table, mat, counts, card, offset=1)
+
+
+@pytest.mark.cuda
+def test_prefix_kernel_count_inside_first_subsequence(card):
+    """A 65,536-symbol row cut into 516-bit subsequences, beside a stream of
+    5 symbols and one of 1: their counts end inside subsequence 0 (against
+    the host decoder)."""
+    table, mat, counts = _rows("huffman", 8, [5, 65536, 1], seed=4,
+                               min_width=65536)
+    assert mat.shape[1] == 65536
+    _assert_exact(table, mat, counts, card, offset=2, plain=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_log", [10, 12, 14, 16])
+def test_tans_kernel_tables_in_shared_and_global_memory(card, table_log):
+    """Up to 2^14 entries the interleaved table is staged in shared memory;
+    at 2^16 it is built in a global scratch buffer."""
+    table, mat, counts = _rows("rans", 8, [5000, 17, 0, 5000], seed=table_log,
+                               table_log=table_log)
+    _assert_exact(table, mat, counts, card, offset=3)
+
+
+@pytest.mark.cuda
+def test_prefix_kernel_table_in_global_memory(card):
+    """max_len 16: 2^16 8-byte entries do not fit a block, so the kernel
+    reads them from the scratch copy."""
+    table, mat, counts = _rows("huffman", 8, [3000, 1000, 3000], seed=16,
+                               max_len=16)
+    assert table.peek_bits == 16
+    _assert_exact(table, mat, counts, card, offset=1)
+
+
+@pytest.mark.cuda
+def test_prefix_kernel_reports_sync_passes(card):
+    """At the load shape a Huffman-8 launch needs at least one sync pass; a
+    raw code's subsequences start on codewords and need none."""
+    for codec, passes in (("huffman", range(1, 1025)), ("raw", [0])):
+        table, mat, counts = _rows(codec, 8, [65536] * 8, seed=5)
+        _assert_exact(table, mat, counts, card, plain=False)
+        assert huffman_decode.sync_passes(card) in passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,bits,entry", [("huffman", 8, "prefix_decode"),
+                                              ("rans", 4, "tans_decode")])
+def test_decode_kernels_report_block_cycles(card, codec, bits, entry):
+    """Each launch records the SM cycles of its longest block: at least one
+    a symbol of the longest stream (a tANS block decodes its stream one
+    symbol a step), and no sync pass for tANS."""
+    table, mat, counts = _rows(codec, bits, [20000, 3, 0], seed=6)
+    _run(table, mat, counts, card)
+    passes, cycles = huffman_decode.launch_stats(entry, card)
+    assert cycles >= 20000
+    if entry == "tans_decode":
+        assert passes == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log,fits", [(12, True), (14, True), (15, False),
+                                      (16, False)])
+def test_table_placement_asked_of_the_library(card, log, fits):
+    """The wrappers allocate a global scratch table exactly when the
+    library says 2^log 8-byte entries do not fit a block."""
+    lib = build.load()
+    assert bool(lib.decode_table_fits_shared(log)) == fits
+    scratch = huffman_decode.table_scratch(lib, log, card)
+    assert (scratch is None) == fits
+    if not fits:
+        assert scratch.numel() * 4 == 8 << log
 
 
 # ------------------------------------------------- fused decode -> matmul
