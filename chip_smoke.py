@@ -44,7 +44,12 @@ Phases, each printing one JSON line:
    65,536-symbol segment does not tile) fall back to the per-layer decode
    through the ``cuda`` decode kernels on the worker thread.  Launch counts
    are zeroed just before the weights are built and read just after the
-   generate; the prefill logits are held to the dense-resident engine's.
+   generate, once the worker has finished the prefetch the last forward
+   left in flight; each count must equal what the code gives (the fused
+   kernels once a forward for each fused matrix of each layer, the
+   fallback's ``ans_decode`` calls once a layer and forward plus the last
+   prefetch's), and the prefill logits are held to the dense-resident
+   engine's.
 6. reference — the reduced qwen3-1.7b served on the card and on the CPU
    through the same port, dense-resident and compressed-resident fused:
    decoded weights must be identical and prefill logits within
@@ -63,10 +68,13 @@ Phases, each printing one JSON line:
    labelled estimate that no run reads directly: the host round trip as
    backend call time minus kernel time.
    Then the raw codec's identity table through the prefix kernel, at 4 and
-   8 bits.  Then each fused kernel on layer 0's handle of the resident path
-   (``wo`` prefix,
-   ``wq`` tANS; 64 lanes of 65,536 symbols, K = N = 2048) at M = 4 and 128,
-   within ``FUSED_TOL`` of its plain version and bitwise on one-hot rows.
+   8 bits.  Then the fused kernels on layer 0's handles of the resident
+   path at M = 4 and 128: ``wo`` (prefix) and ``wq`` (tANS; 64 lanes of
+   65,536 symbols, K = N = 2048) within ``FUSED_TOL`` of the plain
+   version, ``wk`` (K = 2048, N = 1024) and ``w_down`` (K = 6144, 192
+   lanes) within it of ``x @ deq(symbols)``; all bitwise on one-hot rows
+   and over two launches, with the kernel's sync passes or cycles a step,
+   the partial buffer's bytes and a dense bf16 matmul floor.
 
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only),
 and as the last line
@@ -102,6 +110,13 @@ FALLBACK = "segment of 65536 symbols does not tile rows of width 6144"
 # products in float32, so outputs differ by rounding only (the JAX package
 # holds its own fused kernel to the same 1e-2)
 FUSED_TOL = 1e-2
+# the fused kernel rows: layer 0's handles at the resident path's four
+# shapes, and whether each is held against the plain version
+FUSED_ROWS = (("wo", True), ("wq", True), ("wk", False), ("w_down", False))
+FUSED_M = (BATCH, BATCH * PROMPT)
+FUSED_REPLACES = {
+    "prefix": "src/repro/kernels/fused_decode_matmul.py:193",
+    "tans": "src/repro/kernels/fused_decode_matmul.py:234"}
 # card vs CPU bf16 logits of the reduced model: cuBLAS and the CPU sum the
 # products in other orders, so logits may move by a few bf16 steps
 REF_ATOL = 5e-2
@@ -327,6 +342,7 @@ def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
     after the generate."""
     import torch
     from repro_torch.configs import registry
+    from repro_torch.core.scheduler import iter_seg_runs
     from repro_torch.kernels import build
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.serving import engine
@@ -345,6 +361,7 @@ def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
     rw = CompressedResidentWeights(cm, cfg, backend="cuda", fused=True,
                                    device=dev)
     build_s = time.perf_counter() - t0
+    built = dict(build.launches)
     fused = {n: rw._fused_slots[0][n.split("/", 1)[1]].family
              for n in rw._fused}
     if fused != FUSED:
@@ -359,15 +376,40 @@ def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
     first_generate_s = time.perf_counter() - t0
     before, c0 = dict(build.launches), read()
     out, met = eng.generate(prompt, GEN, echo_metrics=True)
+    # the last forward's prefetch of layer 0 may still be decoding: wait for
+    # it, so that the counts no longer depend on the worker's timing
+    speculative = rw.wait_prefetches()
     launches, c1 = dict(build.launches), read()
     peak = torch.cuda.max_memory_allocated(dev)
-    during = {k: launches[k] - before[k] for k in launches}
     for k in ("huffman_decode", "ans_decode", "fused_prefix", "fused_tans"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on the resident path")
-    for k in ("fused_prefix", "fused_tans", "ans_decode"):
-        if during[k] <= 0:
-            raise AssertionError(f"{k} did not launch during generate")
+    # the engine's thread launches the fused kernels: a forward runs every
+    # layer's fused matmuls once
+    during = {k: launches[k] - before[k] for k in ("fused_prefix",
+                                                   "fused_tans")}
+    per_forward = {f"fused_{fam}": sum(
+        rw._fused_slots[0][n.split("/", 1)[1]].family == fam
+        for n in rw._fused) * rw.n_layers for fam in ("prefix", "tans")}
+    if during != {k: GEN * v for k, v in per_forward.items()}:
+        raise AssertionError(f"fused launches in generate {during}, "
+                             f"expected {GEN} x {per_forward}")
+    # the worker launches tans_decode: one call per budgeted run of each
+    # fallback step of a layer, each layer decoded once a forward, plus the
+    # last forward's prefetch of layer 0 for a next forward
+    per_layer = [sum(len(list(iter_seg_runs(step.segs, rw.chunk_symbols)))
+                     for step in rw.plan[layer]
+                     if rw.model.tables[step.table_id].kernel == "tans")
+                 for layer in range(rw.n_layers)]
+    forwards = 2 + GEN               # both generates: prefill + steps
+    ans = dict(at_build=built["ans_decode"], per_forward=sum(per_layer),
+               forwards=forwards, speculative_prefetches=speculative,
+               per_prefetch=per_layer[0])
+    ans["expected"] = (ans["at_build"] + forwards * ans["per_forward"]
+                       + speculative * per_layer[0])
+    if launches["ans_decode"] != ans["expected"]:
+        raise AssertionError(f"ans_decode launched {launches['ans_decode']} "
+                             f"times, expected {ans}")
     with torch.inference_mode():
         logits, _ = eng.steps.prefill_fn(rw, torch.as_tensor(prompt,
                                                              device=dev))
@@ -376,7 +418,6 @@ def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
     rb = rw.resident_bytes()
     peak_resident, bf16 = rw.peak_resident_bytes(), rw.dense_bf16_bytes()
     rw.close()
-    forwards = GEN                   # the prefill and GEN - 1 decode steps
     emit("resident", arch=cfg.name, fused=fused, fallback=rw.fused_fallback,
          weights_build_s=build_s, first_generate_s=first_generate_s,
          ttft_s=met["ttft_s"], prefill_s=met["prefill_s"],
@@ -385,9 +426,8 @@ def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
          resident_bytes=rb, peak_resident_bytes=peak_resident,
          dense_resident_bytes=rw.dense_resident_bytes(),
          dense_bf16_bytes=bf16, launches=launches,
-         launches_in_generate=during,
-         fused_launches_per_forward={
-             k: during[k] / forwards for k in ("fused_prefix", "fused_tans")},
+         launches_in_generate=during, fused_launches_per_forward=per_forward,
+         ans_decode_launches=ans,
          prefetch_hits=c1["resident.prefetch_hit"]
          - c0["resident.prefetch_hit"],
          prefetch_waits=c1["resident.prefetch_wait"]
@@ -593,9 +633,15 @@ def kernel_phase(cm, launches, clock_mhz, dev):
     return rows
 
 
-def fused_kernel_rows(rw, launches, dev):
-    """Each fused kernel on layer 0's handle of the resident path, at the
-    path's two row counts, against its plain version on the same inputs."""
+def fused_kernel_rows(rw, launches, clock_mhz, dev):
+    """Each fused kernel on layer 0's handles of the resident path (``wo``
+    prefix; ``wq``, ``wk``, ``w_down`` tANS), at the path's two row counts.
+    ``wo`` and ``wq`` are held against the plain version; ``wk`` and
+    ``w_down`` against ``x @ deq(symbols)``, the symbols from the decode
+    kernel (the plain version's Python loop would cost the script a minute
+    more a case): the plain version's own arithmetic on exact symbols.  Two
+    launches must be bitwise equal, and one-hot rows of x bitwise the
+    dequantized weight's rows."""
     import numpy as np
     import torch
     from repro_torch.core.scheduler import plan_fused_spans
@@ -603,13 +649,12 @@ def fused_kernel_rows(rw, launches, dev):
     from repro_torch.kernels import fused_decode_matmul as fdm
     from repro_torch.models.layers import QT, deq
 
-    rows = []
-    for short, name, replaces in (
-            ("wo", "fused_prefix",
-             "src/repro/kernels/fused_decode_matmul.py:193"),
-            ("wq", "fused_tans",
-             "src/repro/kernels/fused_decode_matmul.py:234")):
+    heads, worst = {}, {}
+    for short, plain_checked in FUSED_ROWS:
         fq = rw._fused_slots[0][short]
+        name = f"fused_{fq.family}"
+        entry = f"{name}_matmul"
+        replaces = FUSED_REPLACES[fq.family]
         S, K, N = fq.mat.shape[0], fq.K, fq.N
         # the expected dequantized weight, through the decode kernel (held
         # bitwise against its own plain version in the rows above)
@@ -627,15 +672,32 @@ def fused_kernel_rows(rw, launches, dev):
                                 [f"layers/{short}"])[f"layers/{short}"][0]
         stream_bytes = sum(int(s.nbytes) for s in span.segs)
         per_m = {}
-        for M in (4, 128):
+        for M in FUSED_M:
             x = torch.from_numpy(np.random.default_rng(M).normal(
                 0, 1, (M, K)).astype(np.float32)).to(dev, torch.bfloat16)
-            fdm.fused_decode_matmul(x, fq)                   # warm-up
+            first = fdm.fused_decode_matmul(x, fq)           # warm-up
             torch.cuda.synchronize()
+            queued_ms, _ = cuda_ms_queued(
+                lambda: fdm.fused_decode_matmul(x, fq), TIMED_LAUNCHES,
+                clock_mhz)
             ms, got = cuda_ms(lambda: fdm.fused_decode_matmul(x, fq),
                               TIMED_LAUNCHES)
-            plain_ms, ref = cuda_ms(
-                lambda: fdm.fused_decode_matmul_plain(x, fq), 1)
+            # what the kernel counted in the last timed launch
+            passes, cycles = fdm.launch_stats(entry, dev)
+            measured = dict(block_cycles=cycles)
+            if fq.family == "prefix":
+                measured["sync_passes"] = passes
+            else:
+                measured["cycles_per_step"] = cycles / fq.seg
+            deterministic = torch.equal(first, got)
+            dense_ms, dense = cuda_ms(lambda: x @ w, TIMED_LAUNCHES)
+            if plain_checked:
+                plain_ms, ref = cuda_ms(
+                    lambda: fdm.fused_decode_matmul_plain(x, fq), 1)
+                against = "plain version"
+            else:
+                plain_ms, ref = None, dense
+                against = "x @ deq(decode kernel's symbols)"
             err = float((got.float() - ref.float()).abs().max())
             close = bool(torch.allclose(got.float(), ref.float(),
                                         atol=FUSED_TOL, rtol=FUSED_TOL))
@@ -655,36 +717,52 @@ def fused_kernel_rows(rw, launches, dev):
             ops_ms = (int_ops / SCALAR_OPS_PER_S
                       + flops / BF16_FLOPS_PER_S) * 1e3
             per_m[M] = dict(
-                ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                ms=ms, device_queued_ms=queued_ms, plain_ms=plain_ms,
+                max_abs_err=err, against=against,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 allclose=close, onehot_bitwise=onehot_equal,
-                shape=[M, K, N], lanes=S, seg=fq.seg, bytes=nbytes,
+                deterministic=deterministic,
+                shape=[M, K, N], lanes=S, seg=fq.seg,
+                lane_bytes=int(fq.mat.shape[1]), bytes=nbytes,
                 int_ops=int_ops, flops=flops, bytes_ms=bytes_ms,
-                ops_ms=ops_ms,
-                partial_bytes=4 * S * M * N)
+                ops_ms=ops_ms, partial_bytes=4 * S * M * N,
+                dense_bf16_matmul_ms=dense_ms, **measured)
             emit("kernel", name=name, route="cuda",
                  source="src/repro_torch/csrc/fused_decode_matmul.cu",
                  replaces=replaces, tensor=f"layers/{short}[0]",
                  codec=f"{fq.family}{fq.bits}", tolerance=FUSED_TOL,
-                 library_ms=None, launches=launches[name], **per_m[M])
+                 library_ms=None, launches=launches[name],
+                 dense_bf16_matmul_is="a floor, not the same function: "
+                 "torch.matmul of x on the weight dequantized beforehand",
+                 **per_m[M])
+            worst[name] = max(worst.get(name, 0.0), err)
             if not close:
-                raise AssertionError(f"{name} M={M} differs from its plain "
-                                     f"version by {err}")
+                raise AssertionError(f"{name} {short} M={M} differs from "
+                                     f"the {against} by {err}")
             if not onehot_equal:
-                raise AssertionError(f"{name} one-hot rows are not the "
-                                     f"dequantized weight's rows")
-        head = per_m[4]
+                raise AssertionError(f"{name} {short}: one-hot rows are not "
+                                     f"the dequantized weight's rows")
+            if not deterministic:
+                raise AssertionError(f"{name} {short} M={M}: two launches "
+                                     f"differ")
+        if plain_checked:
+            heads[name] = (short, replaces, per_m)
+    # one summary row a kernel, from its plain-checked tensor; the error is
+    # the worst over all its shapes
+    rows = []
+    for name, (short, replaces, per_m) in heads.items():
+        head, m128 = per_m[FUSED_M[0]], per_m[FUSED_M[1]]
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/fused_decode_matmul.cu",
             replaces=replaces, launches=launches[name],
-            max_abs_err=head["max_abs_err"], ms=head["ms"],
+            max_abs_err=worst[name], ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-            bound_by=head["bound_by"], library_ms=None,
-            tolerance=FUSED_TOL, shape=head["shape"],
+            bound_by=head["bound_by"], library_ms=None, tolerance=FUSED_TOL,
+            tensor=f"layers/{short}[0]", shape=head["shape"],
             onehot_bitwise=head["onehot_bitwise"],
-            m128={k: per_m[128][k] for k in (
+            m128={k: m128[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                 "onehot_bitwise")}))
     return rows
@@ -901,7 +979,7 @@ def main():
     resident_s = time.perf_counter() - t0
     reference_check(dev)
     rows = kernel_phase(cm, launches, clock_mhz, dev)
-    rows += fused_kernel_rows(rw, resident_launches, dev)
+    rows += fused_kernel_rows(rw, resident_launches, clock_mhz, dev)
     rows.append(dq_row)
     emit("done", serve_phase_s=serve_s, resident_phase_s=resident_s)
     print(smi_line, flush=True)

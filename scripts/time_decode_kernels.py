@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Time the port's two decode kernels at the load path's shape, 8 streams
-of 65,536 symbols, over the placements of their tables: tANS on rANS-4 and
-rANS-8 symbols at ``table_log`` 10, 12 and 14 (a block's shared memory), 15
-and 16 (a global-memory copy), and Huffman-8 through the prefix kernel.
+"""Time the port's decode kernels and fused decode→dequant→matmul kernels.
 
-Each case is held bitwise against the symbols it encodes and prints one
-JSON line: ms a launch paced by the host (CUDA events around launches the
-host issues one after another, as ``chip_smoke.py`` times every kernel),
-ms a launch queued behind a spin kernel (device time only), and, where the
-kernels record them, the sync passes and the SM cycles of the longest block
-(over the largest count: cycles a step of the tANS chain).  The first line
-is the card's name and power limit.  Needs an NVIDIA card:
+Decode: the load path's shape, 8 streams of 65,536 symbols, over the
+placements of the tables: tANS on rANS-4 and rANS-8 symbols at
+``table_log`` 10, 12 and 14 (a block's shared memory), 15 and 16 (a
+global-memory copy), and Huffman-8 through the prefix kernel; each case is
+held bitwise against the symbols it encodes.
+
+Fused: qwen3-1.7b's four fused layer matrices as compressed-resident
+serving lays them out, 65,536-symbol lanes packed to a power-of-two width:
+``wo`` Huffman-8 2048 x 2048 (the prefix kernel), ``wq`` 2048 x 2048,
+``wk`` 2048 x 1024 and ``w_down`` 6144 x 2048 rANS-4 (the tANS kernel), at
+M = 4 and 128 rows of x; each held within 1e-2 of x @ deq(symbols).
+
+Each case prints one JSON line: ms a launch paced by the host (CUDA events
+around launches the host issues one after another, as ``chip_smoke.py``
+times every kernel), ms a launch queued behind a spin kernel (device time
+only), and, where the kernels record them, the sync passes and the SM
+cycles of the longest block (over the symbols of a stream or lane: cycles a
+step of the tANS chain).  The first line is the card's name and power
+limit.  Needs an NVIDIA card:
 
     PYTHONPATH=src python3 scripts/time_decode_kernels.py
     python3 scripts/time_decode_kernels.py --src OTHER/src --label parent
@@ -30,6 +39,9 @@ ROOT = Path(__file__).resolve().parents[1]
 CASES = [("rans", 4, log) for log in (10, 12, 14, 15, 16)] + \
         [("rans", 8, log) for log in (12, 16)] + [("huffman", 8, None)]
 STREAMS, SYMBOLS, LAUNCHES = 8, 65536, 20
+FUSED = [("wo", "huffman", 8, 2048, 2048), ("wq", "rans", 4, 2048, 2048),
+         ("wk", "rans", 4, 2048, 1024), ("w_down", "rans", 4, 6144, 2048)]
+FUSED_M, FUSED_TOL = (4, 128), 1e-2
 
 
 def main():
@@ -100,6 +112,64 @@ def main():
         print(json.dumps(row), flush=True)
         if not equal:
             sys.exit(f"{entry} at {codec}{bits} differs from its symbols")
+    for tensor, codec, bits, K, N in FUSED:
+        time_fused(args, dev, clock_mhz, rng, tensor, codec, bits, K, N)
+
+
+def time_fused(args, dev, clock_mhz, rng, tensor, codec, bits, K, N):
+    """One fused layer matrix at each M of ``FUSED_M``."""
+    import numpy as np
+    import torch
+    from chip_smoke import cuda_ms, cuda_ms_queued
+    import repro_torch
+    from repro_torch.core import bitstream
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    from repro_torch.models.layers import QT, deq
+
+    hi = 1 << bits
+    sym = np.clip(np.rint(rng.normal(hi / 2, hi / 6, K * N)), 0,
+                  hi - 1).astype(np.uint8)
+    table = get_codec(codec).build(np.bincount(sym, minlength=hi), bits)
+    streams = [table.encode(sym[i:i + SYMBOLS])[0]
+               for i in range(0, sym.size, SYMBOLS)]
+    width = bitstream.pow2_bucket(max(s.size for s in streams), 64)
+    mat, _ = bitstream.pack_streams(streams, min_width=width)
+    scale = np.float32(0.004 + 0.004 * rng.random())
+    zero = np.float32(-0.03)
+    fq = fdm.build_fused_qt(table, mat, scale, zero, seg_symbols=SYMBOLS,
+                            K=K, N=N, bits=bits, device=dev)
+    w = deq(QT(torch.from_numpy(sym.reshape(K, N)).to(dev), fq.scale,
+               fq.zero))
+    entry = f"fused_{fq.family}_matmul"
+    for M in FUSED_M:
+        x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+        def fn():
+            return fdm.fused_decode_matmul(x, fq)
+        got = fn()
+        torch.cuda.synchronize()
+        err = float((got.float() - (x @ w).float()).abs().max())
+        close = bool(torch.allclose(got.float(), (x @ w).float(),
+                                    atol=FUSED_TOL, rtol=FUSED_TOL))
+        queued_ms, _ = cuda_ms_queued(fn, LAUNCHES, clock_mhz)
+        ms, _ = cuda_ms(fn, LAUNCHES)
+        row = dict(label=args.label, src=str(Path(repro_torch.__file__)
+                                             .resolve().parents[1]),
+                   entry_point=entry, tensor=tensor, codec=f"{codec}{bits}",
+                   table_bits=fq.tbits, shape=[M, K, N],
+                   lanes=int(fq.mat.shape[0]), lane_bytes=int(width),
+                   max_abs_err=err, allclose=close, ms=ms,
+                   device_queued_ms=queued_ms, launches=LAUNCHES)
+        if hasattr(fdm, "launch_stats"):
+            passes, cycles = fdm.launch_stats(entry, dev)
+            row.update(block_cycles=cycles, cycles_per_step=cycles / SYMBOLS,
+                       sync_passes=passes)
+        print(json.dumps(row), flush=True)
+        if not close:
+            sys.exit(f"{entry} at {tensor} M={M} differs from x @ deq by "
+                     f"{err}")
 
 
 if __name__ == "__main__":

@@ -49,6 +49,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kBK = 64;           // K per step
@@ -65,16 +67,6 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
 __device__ __forceinline__ __nv_bfloat16 dequant(uint32_t q, float s,
                                                  float z) {
   return __float2bfloat16_rn(__fadd_rn(__fmul_rn(float(q), s), z));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // BM x BN output tile, WARPS_M x WARPS_N warps, each a (BM / WARPS_M) x

@@ -19,8 +19,9 @@
 //
 // Both write int32 symbols and 0 past a stream's count, from rows (S, B) at
 // any address and any width B below 2^28 bytes.  Both read a stream through
-// BitReader and write symbols through emit_run (below); the shared window
-// and cursors of entropy_common.cuh stay with the fused kernels.
+// BitReader and write symbols through emit_run; these, the table entries,
+// the split decode's phases 1 and 2 and the placement test live in
+// entropy_common.cuh, which the fused kernels share.
 //
 // What bounds them on an H100: not bytes.  A load-path call (8 streams of
 // 65,536 symbols) moves about 2.5 MB, under a microsecond at 3.35 TB/s.
@@ -87,7 +88,6 @@
 // read out of bounds; for a well-formed table that changes nothing.
 // decode_table_fits_shared() is the one test of which placement a table
 // gets; the wrappers ask it whether to allocate `scratch`.
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -95,195 +95,11 @@
 
 namespace {
 
-constexpr int kSplitThreads = 1024;  // prefix: subsequences (threads) a row
+using entropy::BitReader;
+using entropy::emit_run;
+using entropy::kSplitThreads;
+
 constexpr int kTansThreads = 256;    // tANS: table staging and zero fill
-constexpr int kMaxRowBytes = 1 << 28;
-
-// BitReader: a row of B bytes at any address, read as a big-endian bit
-// stream from registers.  The 64 bits from the start of 4-byte-aligned word
-// wi are held as two byte-swapped words (hi, lo) with the bit offset o < 32
-// of the next bit in hi, and the word after them (n1) beside them; the word
-// after that waits as loaded (pend).  When a step leaves fewer than 32 bits
-// in hi:lo, the words move down and the load of the word three ahead is
-// issued, so every word is loaded a word's worth of steps before it is used
-// and no load sits on the dependent chain.  Words that hold no byte of the
-// row read as 0, and so do the bytes past the row in its last word: the
-// zero guard of the numpy decoder.  The bytes before the row in its first
-// word are loaded but never consumed.  Bit positions are 32-bit: the
-// callers keep B below 2^28.
-struct BitReader {
-  const uint32_t* words;  // the aligned word holding the row's first byte
-  uint32_t lead;          // bits of that word before the row: 0, 8, 16, 24
-  int wlim;               // words [0, wlim) hold a byte of the row
-  uint32_t tail_mask;     // keeps the row's bytes of word wlim - 1
-  uint32_t hi, lo, n1;    // words wi, wi + 1, wi + 2, byte-swapped
-  uint32_t pend;          // word wi + 3 as loaded
-  int wi;
-  int o;
-
-  __device__ BitReader(const uint8_t* row, int B) {
-    const uintptr_t addr = reinterpret_cast<uintptr_t>(row);
-    const int a = int(addr & 3);
-    words = reinterpret_cast<const uint32_t*>(addr - a);
-    lead = uint32_t(8 * a);
-    wlim = (B + a + 3) >> 2;
-    const int k = B + a - 4 * (wlim - 1);     // row bytes in the last word
-    tail_mask = 0xFFFFFFFFu << (8 * (4 - k));
-  }
-
-  __device__ __forceinline__ uint32_t raw(int w) const {
-    uint32_t v = 0;
-    if (w < wlim) v = __ldg(words + w);
-    return v;
-  }
-
-  __device__ __forceinline__ uint32_t swap(uint32_t v, int w) const {
-    v = __byte_perm(v, 0, 0x0123);
-    return w == wlim - 1 ? v & tail_mask : v;
-  }
-
-  // Moves to bit `pos` of the row.
-  __device__ __forceinline__ void seek(uint32_t pos) {
-    const uint32_t q = pos + lead;
-    wi = int(q >> 5);
-    o = int(q & 31);
-    hi = swap(raw(wi), wi);
-    lo = swap(raw(wi + 1), wi + 1);
-    n1 = swap(raw(wi + 2), wi + 2);
-    pend = raw(wi + 3);
-  }
-
-  // The next n bits (1 <= n <= 32) as an integer.
-  __device__ __forceinline__ uint32_t peek(int n) const {
-    return __funnelshift_l(lo, hi, o) >> (32 - n);
-  }
-
-  // Consumes n <= 32 bits.
-  __device__ __forceinline__ void skip(int n) {
-    o += n;
-    if (__builtin_expect(o >= 32, 0)) {
-      o -= 32;
-      hi = lo;
-      lo = n1;
-      n1 = swap(pend, wi + 3);
-      ++wi;
-      pend = raw(wi + 3);
-    }
-  }
-};
-
-// Writes m int32 symbols, the results of m calls of step(), to o[0..m):
-// one at a time up to a 16-byte boundary, then four at a time, held in
-// registers and stored as one 16-byte store, then the tail one at a time.
-template <typename Step>
-__device__ __forceinline__ void emit_run(int32_t* o, int m, Step step) {
-  int k = 0;
-  for (; k < m && (reinterpret_cast<uintptr_t>(o + k) & 15); ++k) {
-    o[k] = step();
-  }
-  for (; k + 4 <= m; k += 4) {
-    const int32_t a = step();
-    const int32_t b = step();
-    const int32_t c = step();
-    const int32_t d = step();
-    *reinterpret_cast<int4*>(o + k) = make_int4(a, b, c, d);
-  }
-  for (; k < m; ++k) o[k] = step();
-}
-
-__device__ __forceinline__ int2 prefix_entry(const int32_t* sym,
-                                             const int32_t* len, int i,
-                                             int max_len) {
-  return make_int2(sym[i], min(max(len[i], 1), max_len));
-}
-
-// (sym, base << 8 | (table_log - nb)): base << 8 >> 5 is the byte offset
-// of entry `base`, and a funnel shift by the whole word shifts by its low 5
-// bits, table_log - nb.  nb is clamped to [0, table_log] and base to
-// [0, 2^table_log - 2^nb], so base + fresh (fresh < 2^nb) indexes the table
-// whatever the stream holds; a well-formed table has no other values.
-__device__ __forceinline__ int2 tans_entry(const int32_t* sym,
-                                           const int32_t* bits,
-                                           const int32_t* base, int i,
-                                           int table_log) {
-  const int nb = min(max(bits[i], 0), table_log);
-  const int b = min(max(base[i], 0), (1 << table_log) - (1 << nb));
-  return make_int2(sym[i], (b << 8) | (table_log - nb));
-}
-
-__global__ void interleave_prefix(const int32_t* __restrict__ sym,
-                                  const int32_t* __restrict__ len, int n,
-                                  int max_len, int2* __restrict__ dst) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    dst[i] = prefix_entry(sym, len, i, max_len);
-  }
-}
-
-__global__ void interleave_tans(const int32_t* __restrict__ sym,
-                                const int32_t* __restrict__ bits,
-                                const int32_t* __restrict__ base, int n,
-                                int table_log, int2* __restrict__ dst) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    dst[i] = tans_entry(sym, bits, base, i, table_log);
-  }
-}
-
-// Decodes from bit `pos` until the position reaches `end`; returns the
-// position reached and sets n to the symbols decoded.
-__device__ __forceinline__ uint32_t decode_span(BitReader& br,
-                                                const int2* tab, int max_len,
-                                                uint32_t pos, uint32_t end,
-                                                int& n) {
-  br.seek(pos);
-  int k = 0;
-  while (pos < end) {
-    const int len = tab[br.peek(max_len)].y;
-    br.skip(len);
-    pos += uint32_t(len);
-    ++k;
-  }
-  n = k;
-  return pos;
-}
-
-// One pass's block-wide sums: the exclusive scan of v over the threads, its
-// total, and the lowest thread index whose flag is set (blockDim.x if
-// none).  Two calls need a barrier between them: a call writes the shared
-// sums that the one before read.
-__device__ __forceinline__ void block_scan(int v, bool flag, int& excl,
-                                           int& total, int& first) {
-  __shared__ int s_sum[32];
-  __shared__ int s_min[32];
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int incl = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-    if (lane >= d) incl += t;
-  }
-  const unsigned b = __ballot_sync(0xFFFFFFFFu, flag);
-  if (lane == 31) s_sum[w] = incl;
-  if (lane == 0) s_min[w] = b ? w * 32 + __ffs(int(b)) - 1 : INT_MAX;
-  __syncthreads();
-  if (w == 0) {
-    int x = lane < nw ? s_sum[lane] : 0;
-    const int m = __reduce_min_sync(0xFFFFFFFFu,
-                                    lane < nw ? s_min[lane] : INT_MAX);
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xFFFFFFFFu, x, d);
-      if (lane >= d) x += t;
-    }
-    s_sum[lane] = x;
-    if (lane == 0) s_min[0] = min(m, int(blockDim.x));
-  }
-  __syncthreads();
-  excl = (w > 0 ? s_sum[w - 1] : 0) + incl - v;
-  total = s_sum[nw - 1];
-  first = s_min[0];
-}
 
 // One block per stream, blockDim.x >= n_sub threads (a multiple of 32).
 template <bool kShared>
@@ -297,61 +113,37 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
                          long long* __restrict__ stats) {
   const long long t0 = clock64();
   extern __shared__ int2 dyn_tab[];
-  __shared__ uint32_t s_exit[kSplitThreads];
-  __shared__ int s_covered;
   const int s = blockIdx.x;
   const int j = threadIdx.x;
   const int2* tab = tab_g;
   if (kShared) {
     for (int i = j; i < (1 << max_len); i += blockDim.x) {
-      dyn_tab[i] = prefix_entry(lut_sym, lut_len, i, max_len);
+      dyn_tab[i] = entropy::prefix_entry(lut_sym, lut_len, i, max_len);
     }
     tab = dyn_tab;
   }
   const int cnt = max(0, min(counts[s], max_count));
   int32_t* o = out + int64_t(s) * max_count;
   BitReader br(mat + int64_t(s) * B, B);
-  const bool live = j < n_sub && cnt > 0;
-  uint32_t start = uint32_t(j) * uint32_t(L);
-  const uint32_t end = start + uint32_t(L);
-  int n = 0;
   __syncthreads();                                  // table staged
-  // phase 1
-  s_exit[j] = live ? decode_span(br, tab, max_len, start, end, n) : end;
-  // phase 2
-  int passes = 0;
-  int excl, total, first, covered;
-  for (;;) {
-    __syncthreads();                                // exits written
-    const uint32_t from = j > 0 ? s_exit[j - 1] : 0u;
-    const bool behind = live && j > 0 && start != from;
-    block_scan(n, behind, excl, total, first);
-    if (j == first) s_covered = excl;
-    __syncthreads();
-    covered = first >= n_sub ? total : s_covered;
-    if (covered >= cnt || first >= n_sub) break;
-    if (behind) {
-      start = from;
-      s_exit[j] = decode_span(br, tab, max_len, start, end, n);
-    }
-    ++passes;
-  }
+  const entropy::Split sp =                         // phases 1 and 2
+      entropy::split_sync(br, tab, max_len, L, n_sub, cnt);
   // phase 3
-  if (live && excl < cnt) {
-    const int m = min(n, cnt - excl);
-    br.seek(start);
-    emit_run(o + excl, m, [&] {
+  if (j < n_sub && sp.excl < cnt) {
+    const int m = min(sp.n, cnt - sp.excl);
+    br.seek(sp.start);
+    emit_run(o + sp.excl, m, [&] {
       const int2 e = tab[br.peek(max_len)];
       br.skip(e.y);
       return e.x;
     });
   }
-  for (int i = min(cnt, covered) + j; i < max_count; i += blockDim.x) {
+  for (int i = min(cnt, sp.covered) + j; i < max_count; i += blockDim.x) {
     o[i] = 0;
   }
   __syncthreads();                                  // the block's work done
   if (j == 0) {
-    atomicMax(&stats[0], (long long)passes);
+    atomicMax(&stats[0], (long long)sp.passes);
     atomicMax(&stats[1], clock64() - t0);
   }
 }
@@ -374,7 +166,8 @@ __global__ void __launch_bounds__(kTansThreads)
   const int2* tab = tab_g;
   if (kShared) {
     for (int i = threadIdx.x; i < (1 << table_log); i += blockDim.x) {
-      dyn_tab[i] = tans_entry(tab_sym, tab_bits, tab_base, i, table_log);
+      dyn_tab[i] =
+          entropy::tans_entry(tab_sym, tab_bits, tab_base, i, table_log);
     }
     tab = dyn_tab;
   }
@@ -404,12 +197,10 @@ __global__ void __launch_bounds__(kTansThreads)
   atomicMax(&stats[1], clock64() - t0);
 }
 
+// The table placement of both decode kernels (the prefix kernel's static
+// shared memory counted for both).
 bool fits_shared(int log) {
-  return (size_t(8) << log) <= entropy::kMaxSmem;
-}
-
-int grid_for(long long n) {
-  return int(n < 1024 * 256 ? (n + 255) / 256 : 1024);
+  return entropy::table_fits_shared(log, entropy::kSplitStaticSmem);
 }
 
 }  // namespace
@@ -432,30 +223,28 @@ int prefix_decode(const void* mat, long long B, const void* counts,
                   const void* lut_sym, const void* lut_len, int max_len,
                   int S, int max_count, void* out, void* scratch,
                   void* stats, void* stream) {
-  if (B < 0 || B >= kMaxRowBytes || max_len < 1 || max_len > 24) {
+  if (B < 0 || B >= entropy::kMaxRowBytes || max_len < 1 || max_len > 24) {
     return int(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t table_bytes = size_t(8) << max_len;
-  if (!fits_shared(max_len)) {
+  const bool shared = fits_shared(max_len);
+  if (!shared) {
     if (scratch == nullptr) return int(cudaErrorInvalidValue);
-    interleave_prefix<<<grid_for(1LL << max_len), 256, 0, st>>>(
+    entropy::interleave_prefix<<<entropy::grid_for(1LL << max_len), 256, 0,
+                                 st>>>(
         static_cast<const int32_t*>(lut_sym),
         static_cast<const int32_t*>(lut_len), 1 << max_len, max_len,
         static_cast<int2*>(scratch));
   }
   cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(long long), st);
   if (e != cudaSuccess) return int(e);
-  // L: the least multiple of max_len that cuts the row's bits into at most
-  // kSplitThreads subsequences
-  const long long bits = 8 * B;
-  const long long per = (bits + kSplitThreads - 1) / kSplitThreads;
-  const long long L = max_len * ((per + max_len - 1) / max_len + (per == 0));
-  const int n_sub = int((bits + L - 1) / L) + (bits == 0);
+  int n_sub;
+  const long long L = entropy::split_length(B, max_len, n_sub);
   const int threads = (n_sub + 31) / 32 * 32;
   return entropy::launch(
-      prefix_decode_kernel<true>, prefix_decode_kernel<false>, table_bytes, 0,
-      dim3(S), dim3(threads), st, static_cast<const uint8_t*>(mat), int(B),
+      shared ? prefix_decode_kernel<true> : prefix_decode_kernel<false>,
+      shared ? size_t(8) << max_len : 0, dim3(S), dim3(threads), st,
+      static_cast<const uint8_t*>(mat), int(B),
       static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(lut_sym),
       static_cast<const int32_t*>(lut_len),
@@ -471,15 +260,16 @@ int tans_decode(const void* mat, long long B, const void* counts,
                 const void* tab_sym, const void* tab_bits,
                 const void* tab_base, int table_log, int S, int max_count,
                 void* out, void* scratch, void* stats, void* stream) {
-  if (B < 0 || B >= kMaxRowBytes || table_log < 1 ||
+  if (B < 0 || B >= entropy::kMaxRowBytes || table_log < 1 ||
       table_log > entropy::kTansHeaderBits) {
     return int(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t table_bytes = size_t(8) << table_log;
-  if (!fits_shared(table_log)) {
+  const bool shared = fits_shared(table_log);
+  if (!shared) {
     if (scratch == nullptr) return int(cudaErrorInvalidValue);
-    interleave_tans<<<grid_for(1LL << table_log), 256, 0, st>>>(
+    entropy::interleave_tans<<<entropy::grid_for(1LL << table_log), 256, 0,
+                               st>>>(
         static_cast<const int32_t*>(tab_sym),
         static_cast<const int32_t*>(tab_bits),
         static_cast<const int32_t*>(tab_base), 1 << table_log, table_log,
@@ -488,9 +278,10 @@ int tans_decode(const void* mat, long long B, const void* counts,
   cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(long long), st);
   if (e != cudaSuccess) return int(e);
   return entropy::launch(
-      tans_decode_kernel<true>, tans_decode_kernel<false>, table_bytes, 0,
-      dim3(S), dim3(kTansThreads), st, static_cast<const uint8_t*>(mat),
-      int(B), static_cast<const int32_t*>(counts),
+      shared ? tans_decode_kernel<true> : tans_decode_kernel<false>,
+      shared ? size_t(8) << table_log : 0, dim3(S), dim3(kTansThreads), st,
+      static_cast<const uint8_t*>(mat), int(B),
+      static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(tab_sym),
       static_cast<const int32_t*>(tab_bits),
       static_cast<const int32_t*>(tab_base),

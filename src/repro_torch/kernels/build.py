@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (every ``*.cu`` under
 ``repro_torch/csrc/``: ``entropy_decode.cu`` and ``fused_decode_matmul.cu``,
-which share ``entropy_common.cuh``, and ``dequant_matmul.cu``).
+which share ``entropy_common.cuh``, and ``dequant_matmul.cu``, which shares
+``mma_bf16.cuh`` with the fused kernels).
 
 Each source compiles for ``sm_90a`` in its own ``nvcc`` process, all
 started together, and one more ``nvcc`` call links the objects into one
@@ -37,19 +38,21 @@ _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points, each returning a cudaError_t:
 #   decode: (mat, B, counts, *tables, ...scalars, out, scratch, stats,
 #            stream); decode_table_fits_shared: (log)
-#   fused:  (x, M, K, N, mat, B, S, seg, *tables, table scalars, scale,
-#            ssk, ssn, zero, szk, szn, tile, partial, out, stream)
+#   fused:  (x, M, K, N, mat, B, S, seg, *tables, table_bits, scale,
+#            ssk, ssn, zero, szk, szn, tile, partial, out, scratch, stats,
+#            stream); fused_table_fits_shared: (log, symbol tile bytes)
 #   dequant_matmul: (x, M, K, N, wq, int4, scale, ssn, zero, szn, out,
 #            stream)
-_AFFINE = [_p, _l, _l, _p, _l, _l, _i, _p, _p, _p]
+_AFFINE = [_p, _l, _l, _p, _l, _l, _i, _p, _p, _p, _p, _p]
 SIGNATURES = {
     "prefix_decode": [_p, _l, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p],
     "tans_decode": [_p, _l, _p, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p],
     "decode_table_fits_shared": [_i],
-    "fused_prefix_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _i, _i,
+    "fused_prefix_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _i,
                             *_AFFINE],
     "fused_tans_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _p, _i,
                           *_AFFINE],
+    "fused_table_fits_shared": [_i, _l],
     "dequant_matmul": [_p, _i, _i, _i, _p, _i, _p, _l, _p, _l, _p, _p],
 }
 

@@ -20,16 +20,19 @@ launches the kernel of the handle's family (or raises); on CPU tensors it
 runs :func:`fused_decode_matmul_plain`: decode every lane with the plain
 decoders, reshape to (K, N) uint8, then exactly ``layers.deq`` and ``@``
 (bf16 dequant, the unfused QT slot's arithmetic).  ``build.launches``
-counts kernel launches only, under ``fused_prefix`` and ``fused_tans``.
+counts kernel launches only, under ``fused_prefix`` and ``fused_tans``;
+:func:`launch_stats` reads what the kernel recorded of its last launch (the
+prefix kernel's sync passes, a block's SM cycles).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import build
+from .huffman_decode import MAX_ROW_BYTES, launch_stats, stats_buffer
 
 LANES = 128             # the TPU kernel's lane cap per program instance
 # bytes of decoded symbols one CUDA block stages in shared memory: a lane's
@@ -167,6 +170,9 @@ def _check(x: torch.Tensor, fq: FusedQT) -> None:
             or S * fq.seg != fq.K * fq.N or fq.seg % fq.N:
         raise ValueError(f"misaligned {fq!r}: {S} lanes of {fq.seg} symbols "
                          f"do not tile whole rows of ({fq.K}, {fq.N})")
+    if fq.mat.shape[1] >= MAX_ROW_BYTES:
+        raise ValueError(f"lanes of {fq.mat.shape[1]} bytes: the kernels take "
+                         f"rows under {MAX_ROW_BYTES} bytes")
     for t in fq.tabs:
         if t.dtype != torch.int32 or t.dim() != 1:
             raise ValueError("decode tables must be 1-D int32")
@@ -198,6 +204,17 @@ def _strides(t: torch.Tensor, K: int, N: int) -> Tuple[int, int]:
     return tuple(int(v) for v in t.expand(K, N).stride())
 
 
+def table_scratch(lib, fq: FusedQT, sym_bytes: int,
+                  device) -> Optional[torch.Tensor]:
+    """The global-memory copy of ``fq``'s table (``2**tbits`` 8-byte
+    entries) when the kernel library says it does not fit a block's shared
+    memory beside a symbol tile of ``sym_bytes``, else None (the kernel
+    stages the table itself)."""
+    if lib.fused_table_fits_shared(fq.tbits, sym_bytes):
+        return None
+    return torch.empty(2 << fq.tbits, dtype=torch.int32, device=device)
+
+
 def fused_decode_matmul(x: torch.Tensor, fq: FusedQT) -> torch.Tensor:
     """``x @ deq(decode(fq))`` without the dense weight in device memory.
 
@@ -226,24 +243,19 @@ def fused_decode_matmul(x: torch.Tensor, fq: FusedQT) -> torch.Tensor:
         return out.reshape(*lead, fq.N)
     partial = torch.empty((S, M, fq.N), dtype=torch.float32, device=x.device)
     ss, sz = _strides(fq.scale, fq.K, fq.N), _strides(fq.zero, fq.K, fq.N)
+    entry = f"fused_{fq.family}_matmul"
     lib = build.load()
+    scratch = table_scratch(lib, fq, R * nt, x.device)
+    stats = stats_buffer(entry, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        common = (x2.data_ptr(), M, fq.K, fq.N, fq.mat.data_ptr(),
-                  fq.mat.shape[1], S, fq.seg)
-        affine = (fq.scale.data_ptr(), ss[0], ss[1], fq.zero.data_ptr(),
-                  sz[0], sz[1], nt, partial.data_ptr(), out.data_ptr(),
-                  stream)
-        if fq.family == "prefix":
-            err = lib.fused_prefix_matmul(
-                *common, fq.tabs[0].data_ptr(), fq.tabs[1].data_ptr(),
-                fq.tabs[0].numel(), fq.tbits, *affine)
-            name = "fused_prefix"
-        else:
-            err = lib.fused_tans_matmul(
-                *common, fq.tabs[0].data_ptr(), fq.tabs[1].data_ptr(),
-                fq.tabs[2].data_ptr(), fq.tbits, *affine)
-            name = "fused_tans"
-    build.check(err, f"{name}_matmul")
-    build.count_launch(name)
+        err = getattr(lib, entry)(
+            x2.data_ptr(), M, fq.K, fq.N, fq.mat.data_ptr(), fq.mat.shape[1],
+            S, fq.seg, *(t.data_ptr() for t in fq.tabs), fq.tbits,
+            fq.scale.data_ptr(), ss[0], ss[1], fq.zero.data_ptr(), sz[0],
+            sz[1], nt, partial.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            stats.data_ptr(), stream)
+    build.check(err, entry)
+    build.count_launch(f"fused_{fq.family}")
     return out.reshape(*lead, fq.N)

@@ -31,8 +31,8 @@ MAX_PEEK_BITS = 24      # 32-bit window minus the 7-bit intra-byte offset
 MAX_ROW_BYTES = 1 << 28
 
 # per (C entry point, device): two int64s that entry point's kernel sets at
-# each launch, the largest sync-pass count of a stream and the most SM
-# cycles a block took
+# each launch, the largest sync-pass count of a stream (or fused lane) and
+# the most SM cycles a block took
 _stats: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 def byte_windows(mat: torch.Tensor) -> torch.Tensor:
@@ -165,8 +165,9 @@ def decode_streams(mat: torch.Tensor, counts: torch.Tensor,
 
 def launch_stats(entry: str, device) -> Tuple[int, int]:
     """(sync passes, SM cycles): the largest number of sync passes a stream
-    took and the most cycles a block took, in the last launch of the kernel
-    of C entry point ``entry`` (``prefix_decode`` or ``tans_decode``) on
+    (or fused lane) took and the most cycles a block took, in the last
+    launch of the kernel of C entry point ``entry`` (``prefix_decode``,
+    ``tans_decode``, ``fused_prefix_matmul`` or ``fused_tans_matmul``) on
     ``device``.  Synchronises with that launch."""
     d = torch.device(device)
     if d.index is None:

@@ -333,6 +333,15 @@ class CompressedResidentWeights:
             obs_metrics.counter("resident.consume_wait_s").inc(
                 time.perf_counter() - t0)
 
+    def wait_prefetches(self) -> int:
+        """Wait until every prefetch in flight has decoded (each stays
+        queued for its :meth:`get`); returns how many there were."""
+        with self._lock:
+            futs = list(self._pending.values())
+        for fut in futs:
+            fut.result()
+        return len(futs)
+
     def close(self) -> None:
         """Stop the worker thread (waits for a decode in flight)."""
         if self._exec is not None:

@@ -12,6 +12,12 @@ a row at any address.  It lives
 here and not in the package: the kernel runs only on a card, and this is
 how its algorithm is tested without one.
 
+The fused kernel ``fused_prefix_matmul`` (``csrc/fused_decode_matmul.cu``)
+runs the same decode on each lane of a layer slice, its count the lane's
+symbols, and writes the lane's row-major uint8 column tile; the model does
+that too, over lane matrices packed as compressed-resident serving packs
+them, held bitwise to the JAX package's and the port's lane decoders.
+
 The same model runs speculatively on rANS-4 (tANS) streams as a probe:
 every subsequence but the first starts at a guessed (bit position, state).
 It is exact by construction; its pass count says whether ``tans_decode``
@@ -154,14 +160,30 @@ def decode_spans(codec, rd, idx, pos, st, end):
 
 
 def split_decode(codec, flat, off, B, count, threads, *, until="count",
-                 L=None):
+                 L=None, tile=None):
     """One row as one block of the kernel decodes it.  Returns the (count,)
     symbols and the number of sync passes.  ``until="count"`` ends the
     passes as the kernel does, once the exact prefix holds ``count``
     symbols; ``until="all"`` waits until every subsequence agrees.  ``L``
-    overrides the kernel's subsequence length."""
+    overrides the kernel's subsequence length.  ``tile=(N, n0, width)``
+    makes phase 3 write as the fused kernel does: symbol i of the lane to
+    row i // N, column i % N - n0 of an (count // N, width) uint8 tile,
+    which is returned in place of the symbols."""
+    if tile is None:
+        out = np.zeros(count, np.int32)
+
+        def put(i, sym):
+            out[i] = sym
+    else:
+        N, n0, width = tile
+        out = np.zeros((count // N, width), np.uint8)
+
+        def put(i, sym):
+            r, c = i // N, i % N - n0
+            keep = (c >= 0) & (c < width)
+            out[r[keep], c[keep]] = sym[keep]
     if count == 0:
-        return np.zeros(0, np.int32), 0
+        return out, 0
     if L is None:
         L, n_sub = split(8 * B, threads, codec.unit)
     else:
@@ -187,15 +209,14 @@ def split_decode(codec, flat, off, B, count, threads, *, until="count",
         ext[b], est[b], n[b] = decode_spans(codec, rd, b, start[b], sst[b],
                                             end[b])
         passes += 1
-    out = np.zeros(count, np.int32)                                 # phase 3
-    m = np.clip(np.minimum(n, count - excl), 0, None)
+    m = np.clip(np.minimum(n, count - excl), 0, None)              # phase 3
     rd.seek(lanes, start)
     st = sst.copy()
     for k in range(int(m.max())):
         act = k < m
         sym, nb, st[act] = codec.step(rd, lanes[act], st[act])
         rd.skip(lanes[act], nb)
-        out[excl[act] + k] = sym
+        put(excl[act] + k, sym)
     return out, passes
 
 
@@ -350,6 +371,76 @@ def test_speculative_tans_split_is_exact(threads):
     np.testing.assert_array_equal(got, expect)
     if threads == 1:
         assert passes == [0] * len(counts)
+
+
+# ------------------------------------------- fused_prefix_matmul's decode
+
+def _fused_lanes(codec, bits, max_len, K, N, seg, seed):
+    """Layer 0's lane matrix as compressed-resident serving packs a fused
+    tensor: each ``seg``-symbol segment of two layers' (K, N) symbols
+    encoded alone, every lane of both layers packed to one power-of-two
+    width, the larger layer's; layer 0's symbols spread less, so its lanes
+    end in zero padding.  Returns the port's table, the JAX package's table
+    built from the same histogram, layer 0's matrix and its symbols."""
+    from repro.core.codecs import get_codec as jget_codec
+    rng = np.random.default_rng(seed)
+    hi = 1 << bits
+    layers = [np.clip(np.rint(rng.normal(hi / 2, hi / spread, K * N)), 0,
+                      hi - 1).astype(np.uint8) for spread in (12, 4)]
+    freqs = np.bincount(np.concatenate(layers), minlength=hi)
+    table = get_codec(codec).build(freqs, bits, max_code_len=max_len)
+    jtable = jget_codec(codec).build(freqs, bits, max_code_len=max_len)
+    streams = [[table.encode(sym[i:i + seg])[0]
+                for i in range(0, sym.size, seg)] for sym in layers]
+    width = tbits.pow2_bucket(max(tbits.GUARD_BYTES, max(
+        st.size for lay in streams for st in lay)), 64)
+    mat, _ = tbits.pack_streams(streams[0], min_width=width)
+    return table, jtable, mat, layers[0].reshape(K, N)
+
+
+FUSED_CASES = [
+    pytest.param("huffman", 8, 12, 128, 64, 4096, None, id="huffman8-N64"),
+    pytest.param("huffman", 8, 12, 4, 2048, 4096, None, id="huffman8-N2048"),
+    pytest.param("raw", 4, 4, 128, 64, 4096, None, id="raw4-N64"),
+    pytest.param("raw", 4, 4, 4, 2048, 4096, None, id="raw4-N2048"),
+    pytest.param("huffman", 8, 12, 16, 512, 4096, (170, 171),
+                 id="huffman8-column-tile"),
+    pytest.param("huffman", 8, 12, 32, 2048, 65536, None,
+                 id="huffman8-65536-symbol-lane"),
+]
+
+
+@pytest.mark.parametrize("codec,bits,max_len,K,N,seg,cols", FUSED_CASES)
+def test_fused_prefix_tile_equals_lane_decoders(codec, bits, max_len, K, N,
+                                                seg, cols):
+    """The fused prefix kernel's decode of each lane, count seg, phase 3
+    writing the row-major uint8 column tile: bitwise the JAX package's
+    in-graph lane decode (``_decode_lanes_jax``) and the port's plain one
+    (``decode_lanes_plain``), sliced to the lane's rows and the tile's
+    columns."""
+    from repro.kernels import fused_decode_matmul as jfused
+    from repro_torch.kernels import fused_decode_matmul as tfused
+    table, jtable, mat, sym = _fused_lanes(codec, bits, max_len, K, N, seg,
+                                           seed=K + N + seg)
+    S, B = mat.shape
+    assert B > max(np.flatnonzero(row)[-1] for row in mat) + 1  # padded
+    one = (np.float32(0.01), np.float32(0.0))
+    jq = np.asarray(jfused._decode_lanes_jax(jfused.build_fused_qt(
+        jtable, mat, *one, seg_symbols=seg, K=K, N=N, bits=bits,
+        impl="jax")))
+    tq = tfused.decode_lanes_plain(tfused.build_fused_qt(
+        table, mat, *one, seg_symbols=seg, K=K, N=N, bits=bits,
+        device="cpu")).numpy()
+    np.testing.assert_array_equal(jq, sym)
+    np.testing.assert_array_equal(tq, sym)
+    n0, width = cols if cols else (0, N)
+    R = seg // N
+    flat, offs = _flat(mat, 1)
+    for lane in range(S):
+        tile, _ = split_decode(Prefix(table), flat, int(offs[lane]), B, seg,
+                               THREADS, tile=(N, n0, width))
+        np.testing.assert_array_equal(
+            tile, jq[lane * R:(lane + 1) * R, n0:n0 + width])
 
 
 def main():

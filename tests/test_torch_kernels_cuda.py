@@ -22,9 +22,15 @@ for Huffman-8 at the load shape, none for raw); both decode kernels report
 their longest block's SM cycles, and the library alone decides which tables
 go to a global scratch copy; every case also compares two launches
 bitwise.  The fused kernels run
-both families at M = 1, 4, 128 and N = 64, 1024, 2048, with tANS tables in
-shared and in global memory, lanes cut into column tiles, two launches
-compared bitwise (the lanes are summed in a fixed order), and the inputs
+both families at M = 1, 4, 128 and N = 64, 1024, 2048, and at the main
+path's four shapes with 65,536-symbol lanes (``wo`` Huffman-8 2048 x 2048;
+``wq``, ``wk``, ``w_down`` rANS-4 2048 x 2048, 2048 x 1024, 6144 x 2048) at
+M = 1, 4, 17, 128, within 1e-2 of x @ deq(the decode kernel's symbols);
+with lanes packed four times wider than they need, tANS tables at
+``table_log`` 10 and 14 (shared memory) and 15 and 16 (global), a prefix
+table at ``max_len`` 15 (global), an affine along K, lanes cut into column
+tiles, two launches compared bitwise (the lanes are summed in a fixed
+order), the library's placement test, the kernels' stats, and the inputs
 the wrapper refuses.  The dequant→matmul kernel runs the JAX package's
 test shapes (ragged ones among them) and both of its tile configurations
 (M up to 16, and above), uint8 and K-packed uint4, per-tensor and
@@ -286,9 +292,12 @@ def test_table_placement_asked_of_the_library(card, log, fits):
 # ------------------------------------------------- fused decode -> matmul
 
 def _fused(codec, bits, K, N, seg, dev, *, table_log=None, per_row=False,
-           seed=0):
+           seed=0, max_len=12, pad=1, k_affine=False):
     """A FusedQT on ``dev`` laid out as compressed-resident serving lays a
-    layer slice out (per-segment encode, one pow2 width), and its symbols."""
+    layer slice out (per-segment encode, one pow2 width, ``pad`` times wider
+    when the width comes from a larger layer), and its symbols.  The affine
+    is one pair, a (1, N) row of pairs (``per_row``), or a (K, 1) scale
+    beside a (1, N) zero (``k_affine``: strides along K)."""
     from repro_torch.kernels.fused_decode_matmul import build_fused_qt
     rng = np.random.default_rng(seed)
     hi = 1 << bits
@@ -296,15 +305,18 @@ def _fused(codec, bits, K, N, seg, dev, *, table_log=None, per_row=False,
                   hi - 1).astype(np.uint8)
     kw = {} if table_log is None else {"table_log": table_log}
     table = get_codec(codec).build(np.bincount(sym, minlength=hi), bits,
-                                   max_code_len=12, **kw)
+                                   max_code_len=max_len, **kw)
     streams = [table.encode(sym[i:i + seg])[0]
                for i in range(0, sym.size, seg)]
-    width = bitstream.pow2_bucket(max(bitstream.GUARD_BYTES,
-                                      max(s.size for s in streams)), 64)
+    width = pad * bitstream.pow2_bucket(
+        max(bitstream.GUARD_BYTES, max(s.size for s in streams)), 64)
     mat, _ = bitstream.pack_streams(streams, min_width=width)
     shape = (1, N) if per_row else (1, 1)
     scale = (0.002 + rng.random(shape) * 0.01).astype(np.float32)
     zero = (rng.random(shape) * 0.2 - 0.1).astype(np.float32)
+    if k_affine:
+        scale = (0.002 + rng.random((K, 1)) * 0.01).astype(np.float32)
+        zero = (rng.random((1, N)) * 0.2 - 0.1).astype(np.float32)
     fq = build_fused_qt(table, mat, scale, zero, seg_symbols=seg, K=K, N=N,
                         bits=bits, device=dev)
     return fq, sym.reshape(K, N)
@@ -362,8 +374,10 @@ def test_fused_kernel_tiles_the_columns_of_long_lanes(card, codec, bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("table_log", [10, 16])
+@pytest.mark.parametrize("table_log", [10, 14, 15, 16])
 def test_fused_tans_tables_in_shared_and_global_memory(card, table_log):
+    """Up to 2^14 entries the table sits in shared memory beside the symbol
+    tile; at 2^15 and 2^16 it is read from a global scratch copy."""
     from repro_torch.kernels import fused_decode_matmul as fdm
     fq, _ = _fused("rans", 8, 64, 256, 2048, card, table_log=table_log)
     x = torch.from_numpy(np.random.default_rng(1).normal(
@@ -371,6 +385,128 @@ def test_fused_tans_tables_in_shared_and_global_memory(card, table_log):
     torch.testing.assert_close(fdm.fused_decode_matmul(x, fq).float(),
                                fdm.fused_decode_matmul_plain(x, fq).float(),
                                atol=FUSED_ATOL, rtol=FUSED_RTOL)
+
+
+@pytest.mark.cuda
+def test_fused_prefix_table_in_global_memory(card):
+    """max_len 15: 2^15 8-byte entries and a symbol tile do not fit a
+    block, so the kernel reads the table from the scratch copy."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    fq, _ = _fused("huffman", 8, 64, 256, 4096, card, max_len=15)
+    assert fq.tbits == 15
+    R = fq.seg // fq.N
+    assert fdm.table_scratch(build.load(), fq, R * fq.N, card) is not None
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (17, 64)).astype(np.float32)).to(card, torch.bfloat16)
+    torch.testing.assert_close(fdm.fused_decode_matmul(x, fq).float(),
+                               fdm.fused_decode_matmul_plain(x, fq).float(),
+                               atol=FUSED_ATOL, rtol=FUSED_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log,sym_bytes,fits", [
+    (10, 65536, True), (12, 65536, True), (14, 65536, True),
+    (15, 65536, False), (15, 0, False), (16, 4096, False)])
+def test_fused_table_placement_asked_of_the_library(card, log, sym_bytes,
+                                                     fits):
+    """The library counts the symbol tile beside the table; the wrapper
+    allocates a scratch table exactly when the library says so."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    assert bool(lib.fused_table_fits_shared(log, sym_bytes)) == fits
+
+
+def _main_shape_check(fq, sym, dev, rows_m):
+    """The fused kernel on ``fq`` at each M of ``rows_m``: within 1e-2 of
+    x @ deq(symbols the decode kernel gives), two launches bitwise equal,
+    one-hot rows bitwise the dequantized weight's rows, and the kernel's
+    stats of its last launch."""
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    from repro_torch.models.layers import QT, deq
+    S, K, N = fq.mat.shape[0], fq.K, fq.N
+    counts = torch.full((S,), fq.seg, dtype=torch.int32, device=dev)
+    if fq.family == "prefix":
+        q = huffman_decode.decode_streams(fq.mat, counts, *fq.tabs,
+                                          max_len=fq.tbits, max_count=fq.seg)
+    else:
+        q = ans_decode.decode_streams_tans(fq.mat, counts, *fq.tabs,
+                                           table_log=fq.tbits,
+                                           max_count=fq.seg)
+    q = q.reshape(K, N).to(torch.uint8)
+    assert np.array_equal(q.cpu().numpy(), sym)
+    w = deq(QT(q, fq.scale, fq.zero))
+    name = f"fused_{fq.family}"
+    rng = np.random.default_rng(K + N)
+    for M in rows_m:
+        x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        before = build.launches[name]
+        got = fdm.fused_decode_matmul(x, fq)
+        torch.cuda.synchronize()
+        assert build.launches[name] == before + 1
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, N)
+        torch.testing.assert_close(got.float(), (x @ w).float(),
+                                   atol=FUSED_ATOL, rtol=FUSED_RTOL)
+        assert torch.equal(got, fdm.fused_decode_matmul(x, fq))
+    passes, cycles = fdm.launch_stats(f"{name}_matmul", dev)
+    assert cycles > 0 and passes >= 0
+    if fq.family == "tans":
+        assert passes == 0 and cycles >= fq.seg
+    rows = torch.tensor([0, 1, K // 2, K - 1], device=dev)
+    onehot = torch.zeros((4, K), dtype=torch.bfloat16, device=dev)
+    onehot[torch.arange(4, device=dev), rows] = 1
+    assert torch.equal(fdm.fused_decode_matmul(onehot, fq), w[rows])
+
+
+MAIN_FUSED = [("huffman", 8, 2048, 2048), ("rans", 4, 2048, 2048),
+              ("rans", 4, 2048, 1024), ("rans", 4, 6144, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,bits,K,N", MAIN_FUSED,
+                         ids=["wo", "wq", "wk", "w_down"])
+def test_fused_kernels_at_the_main_path_shapes(card, codec, bits, K, N):
+    """qwen3-1.7b's layer matrices as the resident path fuses them, 65,536-
+    symbol lanes: wo Huffman-8, wq, wk (64 rows a lane) and w_down (192
+    lanes) rANS-4, at a decode step, a ragged row count and a prefill."""
+    fq, sym = _fused(codec, bits, K, N, 65536, card, per_row=True, seed=K)
+    _main_shape_check(fq, sym, card, (1, 4, 17, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,bits", [("huffman", 8), ("rans", 4)])
+def test_fused_kernels_on_zero_padded_lanes(card, codec, bits):
+    """Lanes packed four times wider than their streams need, as one pow2
+    width across layers packs a small layer's lanes: the prefix kernel's
+    sync passes end once the exact prefix holds the lane's symbols, not
+    when the padding agrees."""
+    fq, sym = _fused(codec, bits, 256, 2048, 65536, card, pad=4, seed=1)
+    assert fq.mat.shape[1] >= 4 * 32768
+    _main_shape_check(fq, sym, card, (4, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,bits", [("huffman", 8), ("rans", 4)])
+def test_fused_kernels_take_an_affine_along_k(card, codec, bits):
+    """A (K, 1) scale beside a (1, N) zero: every weight reads its own
+    pair, within 1e-2 of the plain version, one-hot rows bitwise."""
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    from repro_torch.models.layers import QT, deq
+    K, N = 256, 512
+    fq, sym = _fused(codec, bits, K, N, 8192, card, k_affine=True, seed=3)
+    w = deq(QT(torch.from_numpy(sym).to(card), fq.scale, fq.zero))
+    for M in (4, 128):
+        x = torch.from_numpy(np.random.default_rng(M).normal(
+            0, 1, (M, K)).astype(np.float32)).to(card, torch.bfloat16)
+        torch.testing.assert_close(
+            fdm.fused_decode_matmul(x, fq).float(),
+            fdm.fused_decode_matmul_plain(x, fq).float(), atol=FUSED_ATOL,
+            rtol=FUSED_RTOL)
+    rows = torch.tensor([0, 31, 32, K - 1], device=card)
+    onehot = torch.zeros((4, K), dtype=torch.bfloat16, device=card)
+    onehot[torch.arange(4, device=card), rows] = 1
+    assert torch.equal(fdm.fused_decode_matmul(onehot, fq), w[rows])
 
 
 @pytest.mark.cuda

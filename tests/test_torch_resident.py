@@ -305,6 +305,30 @@ def test_decode_goes_into_the_preallocated_buffer(harness):
                               out=np.zeros((2, 8), np.int32))
 
 
+def test_wait_prefetches_leaves_each_for_its_get(harness):
+    """``wait_prefetches`` returns once every decode in flight is done and
+    leaves each queued, so a count read after it does not race the worker
+    and the next ``get`` is a hit."""
+    from repro_torch.obs import metrics as obs_metrics
+    w = CompressedResidentWeights(harness["tcm"], harness["tcfg"],
+                                  chunk_symbols=CHUNK, device="cpu")
+    assert w.wait_prefetches() == 0
+    w.prefetch(1)
+    w.prefetch(1)                          # already in flight: no-op
+    assert w.wait_prefetches() == 1
+    hits = obs_metrics.counter("resident.prefetch_hit")
+    before = hits.total()
+    slot = w.get(1)
+    assert hits.total() == before + 1
+    assert w.wait_prefetches() == 0
+    for name, want in w._decode_layer(1).items():
+        got = slot[name]
+        for a, b in zip(got, want) if isinstance(got, tuple) else [(got,
+                                                                    want)]:
+            assert torch.equal(a, b), name
+    w.close()
+
+
 # ------------------------------------------------------------- guardrails
 
 def test_resident_mode_guardrails(harness):
