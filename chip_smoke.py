@@ -35,8 +35,12 @@ Phases, each printing one JSON line:
    at M = 4 and 128.  Launch counts are zeroed just before those calls and
    read just after.  Each case is then held within ``DQ_TOL`` of the plain
    version and bitwise on one-hot rows, and timed with L2 flushed before
-   every launch, beside ``torch.matmul`` on the weight dequantized
-   beforehand (a floor, not the same function).
+   every launch, host-paced as every other row (and the median of
+   launches queued behind a spin kernel, the device's time alone), beside
+   ``torch.matmul`` on the weight dequantized beforehand (a floor, not the
+   same function); each row names the launch plan that ran, as the wrapper
+   recorded it at the main path's call (the kernel's variant, rows a tile,
+   splits of K and workspace bytes).
 5. resident — the second path, on the same container: compressed-resident
    serving with ``fused=True``.  ``wo`` (Huffman-8) goes through the fused
    prefix kernel, ``wq``, ``wk``, ``wv`` and ``w_down`` (rANS-4) through the
@@ -786,6 +790,26 @@ def cuda_ms_cold(fn, n, flush):
     return sum(a.elapsed_time(b) for a, b in pairs) / n
 
 
+def queued_launch_ms(fn, n, clock_mhz, flush=None):
+    """Device times of ``n`` launches of ``fn`` (sorted, ms), each between
+    its own pair of CUDA events, all queued behind a 20 ms spin kernel: the
+    host enqueues them before the first runs, so its launch path adds no
+    gap between an event and its launch.  Cold when ``flush`` (a write
+    larger than the 50 MB L2) is written before each launch."""
+    import torch
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda._sleep(int(20e3 * clock_mhz))
+    for start, end in pairs:
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in pairs)
+
+
 def dequant_operands(cm, params, dev):
     """Layer 0's quantized matrices and ``lm_head`` as the serve phase
     decoded them onto the card, in the kernel's layout: rANS-4 matrices
@@ -831,13 +855,14 @@ def dequant_operands(cm, params, dev):
     return cases
 
 
-def dequant_matmul_phase(cm, params, dev):
+def dequant_matmul_phase(cm, params, clock_mhz, dev):
     """Compress -> container -> CUDA decode (the serve phase) ->
     ``ops.dequant_matmul`` on layer 0's matrices and ``lm_head`` at full
     width, at a decode step (M = 4) and a prefill (M = 128).  Launch counts
-    are zeroed just before those calls and read just after; then each case
-    against its plain version on the card, one-hot rows bitwise, and
-    times."""
+    are zeroed just before those calls and read just after, and the plan
+    each call launched (variant, rows a tile, splits, workspace) is read
+    from the wrapper after it; then each case against its plain version on
+    the card, one-hot rows bitwise, and times."""
     import numpy as np
     import torch
     from repro_torch.kernels import build, ops
@@ -854,8 +879,11 @@ def dequant_matmul_phase(cm, params, dev):
     torch.cuda.synchronize()
     for k in build.launches:
         build.launches[k] = 0
-    outs = [ops.dequant_matmul(x, c["wq"], c["scale"], c["zero"],
-                               int4=c["int4"]) for c, x in runs]
+    outs, plans = [], []
+    for c, x in runs:
+        outs.append(ops.dequant_matmul(x, c["wq"], c["scale"], c["zero"],
+                                       int4=c["int4"]))
+        plans.append(dm.launch_plan(dev))
     torch.cuda.synchronize()
     launches = build.launches["dequant_matmul"]
     if launches != len(runs):
@@ -864,14 +892,17 @@ def dequant_matmul_phase(cm, params, dev):
 
     emit("dequant_matmul", calls=len(runs), launches=launches,
          timing=f"ms and dense_bf16_matmul_ms: mean of {DQ_TIMED} launches, "
-         "each timed alone with CUDA events after a 256 MB write flushed L2",
+         "each timed alone with CUDA events after a 256 MB write flushed "
+         "L2; cold_queued_ms and dense_bf16_cold_queued_ms: the median of "
+         f"{DQ_TIMED} such launches all queued behind a spin kernel "
+         "(cold_queued_range: least and most)",
          dense_bf16_matmul_is="a floor, not the same function: torch.matmul "
          "of bf16 x on the weight dequantized beforehand",
          library_ms="none: no PyTorch call dequantizes an affine uint8 or "
          "K-packed uint4 weight and multiplies")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     rows, worst = [], 0.0
-    for (c, x), got in zip(runs, outs):
+    for (c, x), got, plan in zip(runs, outs, plans):
         M, K = x.shape
         N = c["sym"].shape[1]
         args = (x, c["wq"], c["scale"], c["zero"])
@@ -890,13 +921,19 @@ def dequant_matmul_phase(cm, params, dev):
                   + c["zero"].reshape(1, -1)).to(torch.bfloat16)
         onehot_equal = torch.equal(
             dm.dequant_matmul(onehot, *args[1:], int4=c["int4"]), w_rows)
-        ms = cuda_ms_cold(lambda: dm.dequant_matmul(*args, int4=c["int4"]),
-                          DQ_TIMED, flush)
+
+        def fn():
+            return dm.dequant_matmul(*args, int4=c["int4"])
+        ms = cuda_ms_cold(fn, DQ_TIMED, flush)
+        queued = queued_launch_ms(fn, DQ_TIMED, clock_mhz, flush)
         w_bf16 = (dm.unpack_k(c["wq"]) if c["int4"] else c["wq"]).float()
         w_bf16 = (w_bf16 * c["scale"].reshape(1, -1)
                   + c["zero"].reshape(1, -1)).to(torch.bfloat16)
-        dense_ms = cuda_ms_cold(lambda: torch.matmul(x, w_bf16), DQ_TIMED,
-                                flush)
+
+        def dense():
+            return torch.matmul(x, w_bf16)
+        dense_ms = cuda_ms_cold(dense, DQ_TIMED, flush)
+        dense_queued = queued_launch_ms(dense, DQ_TIMED, clock_mhz, flush)
         del w_bf16
         # each input read once (x, the weight at its stored width, scale
         # and zero), the output written once; the MMA's bf16 FLOPs and the
@@ -912,14 +949,21 @@ def dequant_matmul_phase(cm, params, dev):
                    tensor=c["tensor"], codec=c["codec"],
                    weight="uint4 packed along K" if c["int4"] else "uint8",
                    affine=c["affine"], shape=[M, K, N], launches=launches,
-                   ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                   variant=plan.variant, bm=plan.bm, splits=plan.splits,
+                   k_per_split=plan.k_per_split, blocks=plan.blocks,
+                   workspace_bytes=plan.workspace_bytes,
+                   ms=ms, cold_queued_ms=queued[len(queued) // 2],
+                   cold_queued_range=[queued[0], queued[-1]],
+                   plain_ms=plain_ms, max_abs_err=err,
                    tolerance=DQ_TOL, allclose=close,
                    onehot_bitwise=onehot_equal,
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    bytes=nbytes, flops=flops, dequant_ops=deq_ops,
                    bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
-                   dense_bf16_matmul_ms=dense_ms)
+                   dense_bf16_matmul_ms=dense_ms,
+                   dense_bf16_cold_queued_ms=dense_queued[
+                       len(dense_queued) // 2])
         emit("kernel", **row)
         if not close:
             raise AssertionError(f"dequant_matmul {c['tensor']} M={M} "
@@ -936,7 +980,8 @@ def dequant_matmul_phase(cm, params, dev):
         {k: head[k] for k in (
             "name", "route", "source", "replaces", "launches", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "dense_bf16_matmul_ms", "tensor", "shape", "tolerance")},
+            "dense_bf16_matmul_ms", "tensor", "shape", "variant", "splits",
+            "workspace_bytes", "tolerance")},
         max_abs_err=worst)
 
 
@@ -971,7 +1016,7 @@ def main():
         serve_main_path(dev)
     serve_s = time.perf_counter() - t0
     profile_decode(eng, prompt, dev)
-    dq_row = dequant_matmul_phase(cm, eng.params, dev)
+    dq_row = dequant_matmul_phase(cm, eng.params, clock_mhz, dev)
     del eng
     t0 = time.perf_counter()
     rw, resident_launches = resident_phase(cm, prompt, dense_logits,

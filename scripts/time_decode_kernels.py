@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's decode kernels and fused decode→dequant→matmul kernels.
+"""Time the port's decode kernels, fused decode→dequant→matmul kernels and
+dequant→matmul kernel.
 
 Decode: the load path's shape, 8 streams of 65,536 symbols, over the
 placements of the tables: tANS on rANS-4 and rANS-8 symbols at
@@ -13,16 +14,32 @@ serving lays them out, 65,536-symbol lanes packed to a power-of-two width:
 ``wk`` 2048 x 1024 and ``w_down`` 6144 x 2048 rANS-4 (the tANS kernel), at
 M = 4 and 128 rows of x; each held within 1e-2 of x @ deq(symbols).
 
-Each case prints one JSON line: ms a launch paced by the host (CUDA events
-around launches the host issues one after another, as ``chip_smoke.py``
-times every kernel), ms a launch queued behind a spin kernel (device time
-only), and, where the kernels record them, the sync passes and the SM
-cycles of the longest block (over the symbols of a stream or lane: cycles a
-step of the tANS chain).  The first line is the card's name and power
-limit.  Needs an NVIDIA card:
+Dequant: ``kernels.dequant_matmul`` at the 18 (case, M) pairs of
+``chip_smoke.py``'s ``dequant_matmul`` phase, on synthetic symbols: layer
+0's seven matrices (uint4 packed along K, ``wo`` uint8), ``lm_head``
+(uint8, 2048 x 152064) and ``w_down`` again with a per-channel affine, at
+M = 4 and 128; each held within 1e-2 of the plain version.  A row gives
+the plan the launch ran (variant, rows a tile, splits, as the wrapper
+recorded it), the mean of ``DQ_LAUNCHES`` cold launches paced by the host
+(L2 flushed by a 256 MB write before each, ``cold_paced_ms``: the ``ms``
+of ``chip_smoke.py``'s rows), and its time cold (``cold_ms``) and warm
+(``queued_ms``) with each launch timed alone and all queued behind a spin
+kernel (the host's launch path excluded), each as the median, mean, least
+and most of ``DQ_LAUNCHES`` launches, and the same queued cold statistics
+of ``torch.matmul`` on the weight dequantized to bf16 beforehand (a
+floor, not the same function).
+
+Each decode or fused case prints one JSON line: ms a launch paced by the
+host (CUDA events around launches the host issues one after another, as
+``chip_smoke.py`` times every kernel), ms a launch queued behind a spin
+kernel (device time only), and, where the kernels record them, the sync
+passes and the SM cycles of the longest block (over the symbols of a
+stream or lane: cycles a step of the tANS chain).  The first line is the
+card's name and power limit.  Needs an NVIDIA card:
 
     PYTHONPATH=src python3 scripts/time_decode_kernels.py
     python3 scripts/time_decode_kernels.py --src OTHER/src --label parent
+    python3 scripts/time_decode_kernels.py --only dequant
 
 ``--src`` runs another checkout's port (an unpacked older commit, say)
 through the same cases, so two versions are compared on one card in one
@@ -42,6 +59,17 @@ STREAMS, SYMBOLS, LAUNCHES = 8, 65536, 20
 FUSED = [("wo", "huffman", 8, 2048, 2048), ("wq", "rans", 4, 2048, 2048),
          ("wk", "rans", 4, 2048, 1024), ("w_down", "rans", 4, 6144, 2048)]
 FUSED_M, FUSED_TOL = (4, 128), 1e-2
+# (tensor, K, N, int4, per-channel affine): chip_smoke.py's dequant cases
+DQ = [("layers/wq", 2048, 2048, True, False),
+      ("layers/wk", 2048, 1024, True, False),
+      ("layers/wv", 2048, 1024, True, False),
+      ("layers/wo", 2048, 2048, False, False),
+      ("layers/w_gate", 2048, 6144, True, False),
+      ("layers/w_up", 2048, 6144, True, False),
+      ("layers/w_down", 6144, 2048, True, False),
+      ("lm_head", 2048, 152064, False, False),
+      ("layers/w_down", 6144, 2048, True, True)]
+DQ_M, DQ_TOL, DQ_LAUNCHES = (4, 128), 1e-2, 25
 
 
 def main():
@@ -50,16 +78,14 @@ def main():
                     help="the src directory whose repro_torch is timed")
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("decode", "fused", "dequant"),
+                    help="time only this family")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(Path(args.src).resolve()))
     import numpy as np
     import torch
-    from chip_smoke import cuda_ms, cuda_ms_queued, smi
-    import repro_torch
-    from repro_torch.core import bitstream
-    from repro_torch.core.codecs import get_codec
-    from repro_torch.kernels import ans_decode, huffman_decode
+    from chip_smoke import smi
 
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
@@ -67,6 +93,25 @@ def main():
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     print(smi("name,power.limit"), flush=True)
     rng = np.random.default_rng(args.seed)
+    if args.only in (None, "decode"):
+        time_decode(args, dev, clock_mhz, rng)
+    if args.only in (None, "fused"):
+        for tensor, codec, bits, K, N in FUSED:
+            time_fused(args, dev, clock_mhz, rng, tensor, codec, bits, K, N)
+    if args.only in (None, "dequant"):
+        time_dequant(args, dev, clock_mhz, rng)
+
+
+def time_decode(args, dev, clock_mhz, rng):
+    """Both decode kernels over the table placements of ``CASES``."""
+    import numpy as np
+    import torch
+    from chip_smoke import cuda_ms, cuda_ms_queued
+    import repro_torch
+    from repro_torch.core import bitstream
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.kernels import ans_decode, huffman_decode
+
     for codec, bits, log in CASES:
         hi = 1 << bits
         sym = np.clip(np.rint(rng.normal(hi / 2, hi / 6, (STREAMS, SYMBOLS))),
@@ -112,8 +157,6 @@ def main():
         print(json.dumps(row), flush=True)
         if not equal:
             sys.exit(f"{entry} at {codec}{bits} differs from its symbols")
-    for tensor, codec, bits, K, N in FUSED:
-        time_fused(args, dev, clock_mhz, rng, tensor, codec, bits, K, N)
 
 
 def time_fused(args, dev, clock_mhz, rng, tensor, codec, bits, K, N):
@@ -170,6 +213,85 @@ def time_fused(args, dev, clock_mhz, rng, tensor, codec, bits, K, N):
         if not close:
             sys.exit(f"{entry} at {tensor} M={M} differs from x @ deq by "
                      f"{err}")
+
+
+def stats(ms):
+    import statistics
+    return dict(median=statistics.median(ms), mean=statistics.fmean(ms),
+                min=min(ms), max=max(ms), n=len(ms))
+
+
+def time_dequant(args, dev, clock_mhz, rng):
+    """``dequant_matmul`` at the (case, M) pairs of ``DQ`` x ``DQ_M``."""
+    import numpy as np
+    import torch
+    from chip_smoke import (BF16_FLOPS_PER_S, HBM_BYTES_PER_S,
+                            SCALAR_OPS_PER_S, cuda_ms_cold, queued_launch_ms)
+    import repro_torch
+    from repro_torch.kernels import dequant_matmul as dm
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    for tensor, K, N, int4, per_channel in DQ:
+        q = torch.from_numpy(rng.integers(0, 16 if int4 else 256, (K, N),
+                                          dtype=np.uint8)).to(dev)
+        wq = (q[0::2] | (q[1::2] << 4)).contiguous() if int4 else q
+        if per_channel:
+            scale = torch.from_numpy(rng.uniform(0.002, 0.006, N).astype(
+                np.float32)).to(dev)
+            zero = torch.from_numpy(rng.uniform(-0.04, -0.02, N).astype(
+                np.float32)).to(dev)
+        else:
+            scale = torch.tensor(0.004, dtype=torch.float32, device=dev)
+            zero = torch.tensor(-0.03, dtype=torch.float32, device=dev)
+        w_bf16 = (q.float() * scale.reshape(1, -1)
+                  + zero.reshape(1, -1)).to(torch.bfloat16)
+        del q
+        for M in DQ_M:
+            x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(
+                np.float32)).to(dev, torch.bfloat16)
+
+            def fn():
+                return dm.dequant_matmul(x, wq, scale, zero, int4=int4)
+            got = fn()
+            # the plan this launch ran (a parent checkout may record none)
+            p = dm.launch_plan(dev) if hasattr(dm, "launch_plan") else None
+            ref = dm.dequant_matmul_plain(x, wq, scale, zero, int4=int4)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            close = bool(torch.allclose(got.float(), ref.float(),
+                                        atol=DQ_TOL, rtol=DQ_TOL))
+            del ref
+            # each input read once, the output written once; the MMA's
+            # FLOPs and the dequant's multiply and add a weight
+            nbytes = (2 * M * K + wq.numel() + 4 * (scale.numel()
+                                                    + zero.numel()) + 2 * M * N)
+            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                 2 * M * K * N / BF16_FLOPS_PER_S
+                                 + 2 * K * N / SCALAR_OPS_PER_S)
+            paced = cuda_ms_cold(fn, DQ_LAUNCHES, flush)
+            cold = queued_launch_ms(fn, DQ_LAUNCHES, clock_mhz, flush)
+            queued = queued_launch_ms(fn, DQ_LAUNCHES, clock_mhz)
+            dense = queued_launch_ms(lambda: torch.matmul(x, w_bf16),
+                                     DQ_LAUNCHES, clock_mhz, flush)
+            row = dict(label=args.label, src=str(Path(repro_torch.__file__)
+                                                 .resolve().parents[1]),
+                       entry_point="dequant_matmul", tensor=tensor,
+                       weight="uint4 packed along K" if int4 else "uint8",
+                       affine="per-channel" if per_channel else "per-tensor",
+                       shape=[M, K, N], max_abs_err=err, allclose=close,
+                       bound_ms=bound_ms, cold_paced_ms=paced,
+                       cold_ms=stats(cold),
+                       queued_ms=stats(queued),
+                       dense_bf16_matmul_cold_ms=stats(dense))
+            if p is not None:
+                row.update(variant=p.variant, bm=p.bm, splits=p.splits,
+                           k_per_split=p.k_per_split, blocks=p.blocks,
+                           workspace_bytes=p.workspace_bytes)
+            print(json.dumps(row), flush=True)
+            if not close:
+                sys.exit(f"dequant_matmul at {tensor} M={M} differs from "
+                         f"its plain version by {err}")
+        del w_bf16
 
 
 if __name__ == "__main__":

@@ -42,7 +42,7 @@ _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #            ssk, ssn, zero, szk, szn, tile, partial, out, scratch, stats,
 #            stream); fused_table_fits_shared: (log, symbol tile bytes)
 #   dequant_matmul: (x, M, K, N, wq, int4, scale, ssn, zero, szn, out,
-#            stream)
+#            variant, bm, splits, k_per_split, partial, tickets, stream)
 _AFFINE = [_p, _l, _l, _p, _l, _l, _i, _p, _p, _p, _p, _p]
 SIGNATURES = {
     "prefix_decode": [_p, _l, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p],
@@ -53,7 +53,8 @@ SIGNATURES = {
     "fused_tans_matmul": [_p, _i, _i, _i, _p, _l, _i, _i, _p, _p, _p, _i,
                           *_AFFINE],
     "fused_table_fits_shared": [_i, _l],
-    "dequant_matmul": [_p, _i, _i, _i, _p, _i, _p, _l, _p, _l, _p, _p],
+    "dequant_matmul": [_p, _i, _i, _i, _p, _i, _p, _l, _p, _l, _p, _i, _i,
+                       _i, _i, _p, _p, _p],
 }
 
 launches: Dict[str, int] = {"huffman_decode": 0, "ans_decode": 0,

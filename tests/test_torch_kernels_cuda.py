@@ -32,11 +32,16 @@ table at ``max_len`` 15 (global), an affine along K, lanes cut into column
 tiles, two launches compared bitwise (the lanes are summed in a fixed
 order), the library's placement test, the kernels' stats, and the inputs
 the wrapper refuses.  The dequant→matmul kernel runs the JAX package's
-test shapes (ragged ones among them) and both of its tile configurations
-(M up to 16, and above), uint8 and K-packed uint4, per-tensor and
-per-channel affine, within 1e-2 of its plain version; x = I gives the
-dequantized weight bitwise with an affine that a contracted multiply-add
-would round differently; two launches are bitwise equal.
+test shapes (ragged ones, which its plan sends to the edge variant), the
+main path's layer shapes at M = 4 and 128 and ``lm_head``'s 2048 x 152064
+at M = 4, forced splits of K (K no multiple of the split or of a stage, K
+below a stage, one split, a split a stage), and views one element into
+a buffer (the edge variant; the kernel refuses the ring there), uint8 and
+K-packed uint4, per-tensor and per-channel affine, within 1e-2 of its
+plain version and bitwise over two launches (a split's partials are
+summed in split order); one-hot rows give the dequantized weight bitwise
+in the edge variant and the ring at every tile height, and x = I does so
+with an affine that a contracted multiply-add would round differently.
 """
 import numpy as np
 import pytest
@@ -569,20 +574,26 @@ def test_dequant_matmul_close_to_plain(card, M, K, N, int4, per_channel):
     ref = dm.dequant_matmul_plain(*args, int4=int4)
     torch.testing.assert_close(got.float(), ref.float(), atol=DQ_ATOL,
                                rtol=DQ_RTOL)
-    # each output is one thread's in-order sum: a second launch is bitwise
+    # a tile's partials are summed in split order: a second launch is
+    # bitwise
     assert torch.equal(got, dm.dequant_matmul(*args, int4=int4))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant,K", [("edge", 130), ("ring", 136)])
 @pytest.mark.parametrize("int4", [False, True])
 @pytest.mark.parametrize("per_channel", [False, True])
 def test_dequant_matmul_rounds_product_and_sum_separately(card, int4,
-                                                          per_channel):
+                                                          per_channel,
+                                                          variant, K):
     """x = I gives the dequantized weight bitwise, with the affine chosen so
-    that a contracted multiply-add would move some weights by a bf16 step."""
+    that a contracted multiply-add would move some weights by a bf16 step,
+    in the edge variant (K = 130 is no multiple of 8) and the ring at each
+    of its tile heights."""
     import dequant_cases
+    from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
-    K, N, qmax = 130, 48, 15 if int4 else 255
+    N, qmax = 48, 15 if int4 else 255
     if per_channel:
         q, scale, zero = dequant_cases.fma_pinning_case(5 + int4, K, N, qmax)
     else:
@@ -594,11 +605,17 @@ def test_dequant_matmul_rounds_product_and_sum_separately(card, int4,
     w = dequant_cases.dequant_two_roundings(q, scale, zero)
     assert (w != dequant_cases.dequant_one_rounding(q, scale, zero)).any()
     wq = torch.from_numpy(ops.pack_nibbles(q) if int4 else q).to(card)
+    st, zt = ops._affine(scale, card), ops._affine(zero, card)
     for rows in (np.arange(K), np.array([0, 1, 64, K - 1])):
         x = torch.zeros((len(rows), K), dtype=torch.bfloat16, device=card)
         x[torch.arange(len(rows)), torch.from_numpy(rows)] = 1
-        got = ops.dequant_matmul(x, wq, scale, zero, int4=int4)
-        np.testing.assert_array_equal(got.float().cpu().numpy(), w[rows])
+        plans = ([dm.plan_for(x, wq, int4=int4)] if variant == "edge" else
+                 [dm.plan(len(rows), K, N, int4=int4, bm=bm)
+                  for bm in dm.RING_BM])
+        for p in plans:
+            assert p.variant == variant
+            got = dm._launch(x, wq, st, zt, int4, p)
+            np.testing.assert_array_equal(got.float().cpu().numpy(), w[rows])
 
 
 @pytest.mark.cuda
@@ -621,3 +638,149 @@ def test_dequant_matmul_wrapper_rejects_bad_inputs(card):
     out = dm.dequant_matmul(x[:0], wq, s, z)
     assert tuple(out.shape) == (0, 32)
     assert build.launches["dequant_matmul"] == before
+
+
+def _dq_weight(wq, scale, zero, int4):
+    """The kernel's dequantized weight, (K, N) bf16 (plain torch ops)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    q = dm.unpack_k(wq) if int4 else wq
+    return (q.float() * scale.reshape(1, -1) + zero.reshape(1, -1)).to(
+        torch.bfloat16)
+
+
+def _dq_check(args, int4, launch=None):
+    """The kernel as planned (or as ``launch`` says) against the plain
+    version within 1e-2, a second launch bitwise, one launch counted and
+    its plan recorded."""
+    from repro_torch.kernels import dequant_matmul as dm
+
+    def run():
+        if launch is None:
+            return dm.dequant_matmul(*args, int4=int4)
+        return dm._launch(*args, int4, launch)
+    before = build.launches["dequant_matmul"]
+    got = run()
+    torch.cuda.synchronize()
+    assert build.launches["dequant_matmul"] == before + 1
+    assert dm.launch_plan(args[0].device) == (
+        launch or dm.plan_for(args[0], args[1], int4=int4))
+    ref = dm.dequant_matmul_plain(*args, int4=int4)
+    torch.testing.assert_close(got.float(), ref.float(), atol=DQ_ATOL,
+                               rtol=DQ_RTOL)
+    # the split partials are summed in split order, not arrival order
+    assert torch.equal(got, run())
+    return got
+
+
+def _split_plan(M, K, N, int4, splits, k_per_split, bm=None):
+    """The ring's plan (at ``bm`` rows a tile), cut into ``splits`` of
+    ``k_per_split``."""
+    import dataclasses
+    from repro_torch.kernels import dequant_matmul as dm
+    p = dm.plan(M, K, N, int4=int4, bm=bm)
+    return dataclasses.replace(
+        p, splits=splits, k_per_split=k_per_split,
+        workspace_bytes=4 * splits * M * N if splits > 1 else 0)
+
+
+def _onehot_every_variant(args, int4, splits=None):
+    """One-hot rows of x through the edge variant and the ring at each of
+    its tile heights (as planned, or cut into ``splits`` = (splits,
+    k_per_split)): each gives the dequantized weight's rows, bitwise."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, wq, scale, zero = args
+    K, N = x.shape[1], wq.shape[1]
+    pick = torch.tensor([0, 1, K // 2, K - 1], device=x.device)
+    onehot = torch.zeros((4, K), dtype=torch.bfloat16, device=x.device)
+    onehot[torch.arange(4, device=x.device), pick] = 1
+    want = _dq_weight(wq, scale, zero, int4)[pick]
+    plans = [dm.plan(4, K, N, int4=int4, aligned=False)]
+    for bm in dm.RING_BM:
+        plans.append(dm.plan(4, K, N, int4=int4, bm=bm) if splits is None
+                     else _split_plan(4, K, N, int4, *splits, bm=bm))
+    for p in plans:
+        got = dm._launch(onehot, wq, scale, zero, int4, p)
+        assert torch.equal(got, want), p
+
+
+DQ_MAIN = [(K, N, int4) for K, N in ((2048, 1024), (2048, 2048),
+                                     (2048, 6144), (6144, 2048))
+           for int4 in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 128])
+@pytest.mark.parametrize("K,N,int4", DQ_MAIN)
+def test_dequant_matmul_at_the_main_path_shapes(card, M, K, N, int4):
+    """The layer matrices' shapes at a decode step and a prefill: the ring
+    variant, tiled and split as planned, within 1e-2 of the plain version,
+    bitwise over two launches and on one-hot rows in every variant."""
+    from repro_torch.kernels import dequant_matmul as dm
+    args = _dq_inputs(M, K, N, int4, True, card, seed=K + N + M)
+    p = dm.plan_for(args[0], args[1], int4=int4)
+    assert p.variant == "ring"
+    _dq_check(args, int4)
+    _onehot_every_variant(args, int4)
+
+
+@pytest.mark.cuda
+def test_dequant_matmul_at_lm_head_width(card):
+    """lm_head, 2048 x 152064 uint8 at M = 4: 1,188 tiles, unsplit."""
+    from repro_torch.kernels import dequant_matmul as dm
+    args = _dq_inputs(4, 2048, 152064, False, False, card, seed=11)
+    p = dm.plan_for(args[0], args[1], int4=False)
+    assert (p.variant, p.splits, p.tiles) == ("ring", 1, 1188)
+    _dq_check(args, False)
+    _onehot_every_variant(args, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,int4,splits,k_per_split", [
+    (4, 1000, 256, False, 3, 384),    # K no multiple of the split or of 64
+    (4, 1000, 256, True, 3, 384),
+    (128, 1000, 256, True, 2, 512),
+    (4, 40, 256, False, 1, 64),       # K < BK
+    (128, 40, 144, True, 1, 64),
+    (4, 2048, 1024, True, 1, 2048),   # one split where the plan splits
+    (128, 2048, 1024, False, 1, 2048),
+    (4, 8, 16, True, 1, 64),
+    (5, 6144, 2048, True, 96, 64),    # a split a stage
+])
+def test_dequant_matmul_ring_splits(card, M, K, N, int4, splits,
+                                    k_per_split):
+    """Forced splits of the ring, each whole 64-deep stages but the last:
+    within 1e-2, bitwise over two launches and on one-hot rows."""
+    from repro_torch.kernels import dequant_matmul as dm
+    args = _dq_inputs(M, K, N, int4, True, card, seed=K + splits)
+    for bm in dm.RING_BM if M > 16 else dm.RING_BM[:1]:
+        _dq_check(args, int4, launch=_split_plan(M, K, N, int4, splits,
+                                                 k_per_split, bm=bm))
+    _onehot_every_variant(args, int4, splits=(splits, k_per_split))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["x", "wq"])
+@pytest.mark.parametrize("int4", [False, True])
+def test_dequant_matmul_misaligned_pointer_takes_the_edge(card, operand,
+                                                          int4):
+    """A contiguous view one element into a flat buffer: the plan sends it
+    to the edge variant, which agrees with the ring on the aligned copy;
+    the kernel refuses the ring there."""
+    from repro_torch.kernels import dequant_matmul as dm
+    M, K, N = 4, 2048, 1024
+    x, wq, s, z = _dq_inputs(M, K, N, int4, True, card, seed=2)
+    src = x if operand == "x" else wq
+    buf = torch.empty(src.numel() + 1, dtype=src.dtype, device=card)
+    view = buf[1:1 + src.numel()].view(src.shape)
+    view.copy_(src)
+    args = (view, wq, s, z) if operand == "x" else (x, view, s, z)
+    p = dm.plan_for(args[0], args[1], int4=int4)
+    assert p.variant == "edge" and p.splits == 1
+    got = _dq_check(args, int4)
+    aligned = dm.dequant_matmul(x, wq, s, z, int4=int4)
+    torch.testing.assert_close(got.float(), aligned.float(), atol=DQ_ATOL,
+                               rtol=DQ_RTOL)
+    for bm in dm.RING_BM:
+        p = dm.plan(M, K, N, int4=int4, bm=bm)
+        with pytest.raises(RuntimeError, match="dequant_matmul launch failed"):
+            dm._launch(*args, int4, p)
