@@ -26,6 +26,24 @@ Phases, each printing one JSON line:
    load and read just after the generate.
    Then ``profile``: the same few decode steps timed without and then with
    ``torch.profiler``, and device time by operator under it.
+   Then ``continuous``: the same decoded weights serve a seeded Poisson
+   trace (``TRAFFIC``: 16 requests at 100 / s, ragged prompts of 4–32 and
+   2–16 new tokens, arrivals replayed on the host clock) through the
+   ``ContinuousEngine`` (8 slots, prefill chunks of 16, queue bound 64,
+   ``max_len`` 64: the launcher's ``--batch-slots 8 --traffic 16
+   --prompt-len 32 --gen 16``).  Every request's greedy tokens are held
+   against its solo ``Engine.generate`` (cuBLAS may sum 8 rows in another
+   order than 1, so the count that agree bitwise is reported, with the
+   first diverging request and step), and request 0's chunked-prefill
+   logit at its last prompt position against the lockstep prefill's,
+   within ``REF_ATOL``.  Then the same trace on a fresh compressed-resident
+   fused store: launch counts zeroed just before the store is built and
+   read after the replay, once the worker has finished the last prefetch;
+   the fused launches must equal 5 fused matrices x 2 layers a forward,
+   with forwards = decode steps + the prompts' prefill chunks, and
+   ``ans_decode`` the fallback's calls a forward x forwards + the last
+   prefetch's; tokens are compared with the dense run's, and request 0's
+   chunked-prefill logits with the dense engine's, within ``REF_ATOL``.
 4. dequant_matmul — the third path: the weights the serve phase decoded
    on the card through the decode kernels go through
    ``kernels.ops.dequant_matmul`` (the port of the JAX package's
@@ -73,14 +91,17 @@ Phases, each printing one JSON line:
    backend call time minus kernel time.
    Then the raw codec's identity table through the prefix kernel, at 4 and
    8 bits.  Then the fused kernels on layer 0's handles of the resident
-   path at M = 4 and 128: ``wo`` (prefix) and ``wq`` (tANS; 64 lanes of
+   path at M = 4 and 128 and the continuous path's M = 8 (slots) and 16
+   (a prefill chunk): ``wo`` (prefix) and ``wq`` (tANS; 64 lanes of
    65,536 symbols, K = N = 2048) within ``FUSED_TOL`` of the plain
    version, ``wk`` (K = 2048, N = 1024) and ``w_down`` (K = 6144, 192
    lanes) within it of ``x @ deq(symbols)``; all bitwise on one-hot rows
    and over two launches, with the kernel's sync passes or cycles a step,
    the partial buffer's bytes and a dense bf16 matmul floor.
 
-Then the ``kernels`` summary line (measured fields and ``bound_ms`` only),
+Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
+``launches_continuous``: each kernel's launches on the continuous phase's
+compressed-resident run),
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits nonzero; without a CUDA device it exits 1 and prints no result.
@@ -117,7 +138,15 @@ FUSED_TOL = 1e-2
 # the fused kernel rows: layer 0's handles at the resident path's four
 # shapes, and whether each is held against the plain version
 FUSED_ROWS = (("wo", True), ("wq", True), ("wk", False), ("w_down", False))
-FUSED_M = (BATCH, BATCH * PROMPT)
+# the continuous phase: the launcher's --batch-slots 8 --traffic 16
+# --prompt-len 32 --gen 16 (max_len = prompt + gen + one chunk of headroom)
+N_SLOTS, PREFILL_CHUNK, MAX_QUEUE = 8, 16, 64
+CONT_MAX_LEN = PROMPT + GEN + PREFILL_CHUNK
+TRAFFIC = dict(n_requests=16, rate_per_s=100.0, prompt_max=PROMPT,
+               gen_max=GEN, seed=0)
+# row counts of the fused rows: lockstep decode and prefill, then the
+# continuous engine's decode batch and prefill chunk
+FUSED_M = (BATCH, BATCH * PROMPT, N_SLOTS, PREFILL_CHUNK)
 FUSED_REPLACES = {
     "prefix": "src/repro/kernels/fused_decode_matmul.py:193",
     "tans": "src/repro/kernels/fused_decode_matmul.py:234"}
@@ -340,13 +369,201 @@ def profile_decode(eng, prompt, dev):
                    "calls": e.count} for e in ops])
 
 
+def fused_per_forward(rw):
+    """Fused launches a forward of the resident store ``rw``: each fused
+    matrix of each layer once, by kernel family."""
+    return {f"fused_{fam}": sum(
+        rw._fused_slots[0][n.split("/", 1)[1]].family == fam
+        for n in rw._fused) * rw.n_layers for fam in ("prefix", "tans")}
+
+
+def fallback_calls_per_layer(rw):
+    """``tans_decode`` calls of the worker's decode of each layer: one per
+    budgeted run of each fallback step on a tANS table."""
+    from repro_torch.core.scheduler import iter_seg_runs
+    return [sum(len(list(iter_seg_runs(step.segs, rw.chunk_symbols)))
+                for step in rw.plan[layer]
+                if rw.model.tables[step.table_id].kernel == "tans")
+            for layer in range(rw.n_layers)]
+
+
+def serve_trace(cfg, weights, resident, dev):
+    """The continuous phase's trace through a fresh ``ContinuousEngine``;
+    returns the engine, the requests in trace order, the trace and the
+    summary metrics."""
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serving import engine
+    from repro_torch.serving.batching import (ContinuousEngine,
+                                              poisson_trace, replay)
+    trace = poisson_trace(vocab=cfg.vocab, **TRAFFIC)
+    ce = ContinuousEngine(cfg, weights,
+                          engine.ServeConfig(max_len=CONT_MAX_LEN),
+                          n_slots=N_SLOTS, prefill_chunk=PREFILL_CHUNK,
+                          max_queue=MAX_QUEUE, resident=resident, device=dev)
+    reqs, shed, makespan = replay(ce, trace, shed_on_full=True)
+    fin = [r for r in reqs if r is not None and r.finish_reason == "length"]
+    toks = sum(len(r.output) for r in fin)
+    pct = lambda xs, p: percentile(xs, p) if xs else None  # noqa: E731
+    ttft = [r.ttft_s for r in fin]
+    lat = [r.latency_s for r in fin]
+    wait = [r.queue_wait_s for r in fin]
+    summary = dict(
+        completed=len(fin), submitted=len(trace), shed=shed, tokens=toks,
+        makespan_s=makespan, tok_per_s=toks / makespan,
+        n_decode_steps=ce.n_decode_steps,
+        prefill_chunks=sum(-(-len(p) // PREFILL_CHUNK) for _, p, _ in trace),
+        ttft_p50_s=pct(ttft, 50), latency_p50_s=pct(lat, 50),
+        latency_p99_s=pct(lat, 99), queue_wait_p50_s=pct(wait, 50),
+        queue_wait_p99_s=pct(wait, 99))
+    if len(fin) != len(trace) or shed:
+        raise AssertionError(f"continuous {resident}: {len(fin)} of "
+                             f"{len(trace)} requests completed, {shed} shed")
+    return ce, reqs, trace, summary
+
+
+def chunked_prefill_last(ce, prompt):
+    """Request ``prompt`` prefilled chunk by chunk through the engine's
+    ``prefill_chunk_fn`` into a fresh scratch cache: the float logits at its
+    last prompt position, on the host."""
+    import torch
+    P, C = len(prompt), PREFILL_CHUNK
+    toks = torch.zeros((1, -(-P // C) * C), dtype=torch.int64)
+    toks[0, :P] = torch.from_numpy(prompt.astype("int64"))
+    toks = toks.to(ce.device)
+    cache = ce.steps.mod.init_cache(ce.cfg, 1, CONT_MAX_LEN, device=ce.device)
+    with torch.inference_mode():
+        for c0 in range(0, toks.shape[1], C):
+            logits, cache = ce.steps.prefill_chunk_fn(
+                ce.params, toks[:, c0:c0 + C], cache,
+                torch.full((1,), c0, dtype=torch.int64, device=ce.device))
+            if c0 <= P - 1 < c0 + C:
+                last = logits[0, P - 1 - c0].float().cpu()
+    return last
+
+
+def continuous_phase(cm, params, dev):
+    """Continuous batching of the Poisson trace, dense-resident on the serve
+    phase's decoded weights, then compressed-resident fused on a fresh
+    store built from the same container."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serving import engine
+    from repro_torch.serving.resident import CompressedResidentWeights
+
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=DEPTH)
+
+    # dense-resident: no kernel runs in the step (the weights were decoded
+    # at load), so every count must stay 0
+    torch.cuda.synchronize()
+    for k in build.launches:
+        build.launches[k] = 0
+    ce, reqs, trace, dense = serve_trace(cfg, params, "dense", dev)
+    dense_launches = dict(build.launches)
+    if any(dense_launches.values()):
+        raise AssertionError(f"dense continuous launches {dense_launches}")
+    solo = engine.Engine(cfg, params, engine.ServeConfig(max_len=CONT_MAX_LEN),
+                         device=dev)
+    agree, first_diff = 0, None
+    for i, ((_, prompt, gen), r) in enumerate(zip(trace, reqs)):
+        want = solo.generate(prompt[None], gen)[0].tolist()
+        if want == r.output:
+            agree += 1
+        elif first_diff is None:
+            step = next(j for j, (a, b) in enumerate(zip(want, r.output))
+                        if a != b)
+            first_diff = dict(request=i, step=step, solo=want[step],
+                              packed=r.output[step])
+    prompt0 = trace[0][1]
+    chunked = chunked_prefill_last(ce, prompt0)
+    with torch.inference_mode():
+        lockstep, _ = ce.steps.prefill_fn(
+            params, torch.as_tensor(prompt0[None], dtype=torch.int64,
+                                    device=dev))
+    prefill_err = float((chunked - lockstep[0, -1].float().cpu()).abs().max())
+    emit("continuous", residency="dense", arch=cfg.name, n_slots=N_SLOTS,
+         prefill_chunk=PREFILL_CHUNK, max_queue=MAX_QUEUE,
+         max_len=CONT_MAX_LEN, traffic=TRAFFIC, **dense,
+         launches=dense_launches, solo_agree_bitwise=agree,
+         solo_compared=len(trace), first_diverging=first_diff,
+         chunked_prefill_max_abs_err_vs_lockstep=prefill_err,
+         atol=REF_ATOL, tokens_request0=reqs[0].output)
+    if not prefill_err <= REF_ATOL:
+        raise AssertionError(f"chunked prefill differs from the lockstep "
+                             f"prefill by {prefill_err}")
+
+    # compressed-resident fused: counts zeroed just before the store is
+    # built, read after the replay once the last prefetch has decoded
+    counters = ("resident.prefetch_hit", "resident.prefetch_wait",
+                "resident.consume_wait_s")
+    read = lambda: {c: obs_metrics.counter(c).total()  # noqa: E731
+                    for c in counters}
+    torch.cuda.synchronize()
+    for k in build.launches:
+        build.launches[k] = 0
+    c0 = read()
+    t0 = time.perf_counter()
+    rw = CompressedResidentWeights(cm, cfg, backend="cuda", fused=True,
+                                   device=dev)
+    build_s = time.perf_counter() - t0
+    built = dict(build.launches)
+    rce, rreqs, _, res = serve_trace(cfg, rw, "compressed", dev)
+    speculative = rw.wait_prefetches()
+    launches, c1 = dict(build.launches), read()
+    for k in ("huffman_decode", "ans_decode", "fused_prefix", "fused_tans"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the continuous "
+                                 f"resident path")
+    forwards = res["n_decode_steps"] + res["prefill_chunks"]
+    per_forward = fused_per_forward(rw)
+    expected = {k: forwards * v for k, v in per_forward.items()}
+    fused = {k: launches[k] for k in expected}
+    if fused != expected:
+        raise AssertionError(f"fused launches {fused}, expected {forwards} "
+                             f"forwards x {per_forward}")
+    per_layer = fallback_calls_per_layer(rw)
+    ans = dict(at_build=built["ans_decode"], per_forward=sum(per_layer),
+               forwards=forwards, speculative_prefetches=speculative,
+               per_prefetch=per_layer[0])
+    ans["expected"] = (ans["at_build"] + forwards * ans["per_forward"]
+                       + speculative * per_layer[0])
+    if launches["ans_decode"] != ans["expected"]:
+        raise AssertionError(f"ans_decode launched {launches['ans_decode']} "
+                             f"times, expected {ans}")
+    same = sum(a.output == b.output for a, b in zip(rreqs, reqs))
+    pairs = [(x, y) for a, b in zip(rreqs, reqs)
+             for x, y in zip(a.output, b.output)]
+    rchunked = chunked_prefill_last(rce, prompt0)
+    rerr = float((rchunked - chunked).abs().max())
+    rw.close()
+    emit("continuous", residency="compressed-fused", arch=cfg.name,
+         n_slots=N_SLOTS, prefill_chunk=PREFILL_CHUNK, **res,
+         weights_build_s=build_s, forwards=forwards, launches=launches,
+         fused_launches_expected=expected,
+         fused_launches_per_forward=per_forward, ans_decode_launches=ans,
+         prefetch_hits=c1["resident.prefetch_hit"]
+         - c0["resident.prefetch_hit"],
+         prefetch_waits=c1["resident.prefetch_wait"]
+         - c0["resident.prefetch_wait"],
+         consume_wait_s=c1["resident.consume_wait_s"]
+         - c0["resident.consume_wait_s"],
+         requests_equal_dense=same,
+         token_agreement_vs_dense=sum(x == y for x, y in pairs) / len(pairs),
+         chunked_prefill_max_abs_err_vs_dense=rerr, atol=REF_ATOL,
+         tokens_request0=rreqs[0].output)
+    if not rerr <= REF_ATOL:
+        raise AssertionError(f"resident chunked prefill differs from the "
+                             f"dense engine's by {rerr}")
+    return launches
+
+
 def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
     """Compressed-resident fused serving of the main path's container:
     launch counts zeroed just before the weights are built, read just
     after the generate."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.core.scheduler import iter_seg_runs
     from repro_torch.kernels import build
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.serving import engine
@@ -392,19 +609,14 @@ def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
     # layer's fused matmuls once
     during = {k: launches[k] - before[k] for k in ("fused_prefix",
                                                    "fused_tans")}
-    per_forward = {f"fused_{fam}": sum(
-        rw._fused_slots[0][n.split("/", 1)[1]].family == fam
-        for n in rw._fused) * rw.n_layers for fam in ("prefix", "tans")}
+    per_forward = fused_per_forward(rw)
     if during != {k: GEN * v for k, v in per_forward.items()}:
         raise AssertionError(f"fused launches in generate {during}, "
                              f"expected {GEN} x {per_forward}")
     # the worker launches tans_decode: one call per budgeted run of each
     # fallback step of a layer, each layer decoded once a forward, plus the
     # last forward's prefetch of layer 0 for a next forward
-    per_layer = [sum(len(list(iter_seg_runs(step.segs, rw.chunk_symbols)))
-                     for step in rw.plan[layer]
-                     if rw.model.tables[step.table_id].kernel == "tans")
-                 for layer in range(rw.n_layers)]
+    per_layer = fallback_calls_per_layer(rw)
     forwards = 2 + GEN               # both generates: prefill + steps
     ans = dict(at_build=built["ans_decode"], per_forward=sum(per_layer),
                forwards=forwards, speculative_prefetches=speculative,
@@ -756,7 +968,10 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev):
     # the worst over all its shapes
     rows = []
     for name, (short, replaces, per_m) in heads.items():
-        head, m128 = per_m[FUSED_M[0]], per_m[FUSED_M[1]]
+        head = per_m[BATCH]
+        at = lambda M: {k: per_m[M][k] for k in (  # noqa: E731
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "onehot_bitwise")}
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/fused_decode_matmul.cu",
@@ -766,9 +981,8 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev):
             bound_by=head["bound_by"], library_ms=None, tolerance=FUSED_TOL,
             tensor=f"layers/{short}[0]", shape=head["shape"],
             onehot_bitwise=head["onehot_bitwise"],
-            m128={k: m128[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                "onehot_bitwise")}))
+            m128=at(BATCH * PROMPT), m8=at(N_SLOTS),
+            m16=at(PREFILL_CHUNK)))
     return rows
 
 
@@ -1016,6 +1230,9 @@ def main():
         serve_main_path(dev)
     serve_s = time.perf_counter() - t0
     profile_decode(eng, prompt, dev)
+    t0 = time.perf_counter()
+    continuous_launches = continuous_phase(cm, eng.params, dev)
+    continuous_s = time.perf_counter() - t0
     dq_row = dequant_matmul_phase(cm, eng.params, clock_mhz, dev)
     del eng
     t0 = time.perf_counter()
@@ -1026,7 +1243,10 @@ def main():
     rows = kernel_phase(cm, launches, clock_mhz, dev)
     rows += fused_kernel_rows(rw, resident_launches, clock_mhz, dev)
     rows.append(dq_row)
-    emit("done", serve_phase_s=serve_s, resident_phase_s=resident_s)
+    for row in rows:
+        row["launches_continuous"] = continuous_launches.get(row["name"], 0)
+    emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
+         resident_phase_s=resident_s)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

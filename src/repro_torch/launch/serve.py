@@ -1,4 +1,5 @@
-"""Serving launcher (PyTorch port): EntroLLM end to end, lockstep.
+"""Serving launcher (PyTorch port): EntroLLM end to end, lockstep or
+continuous batching.
 
 Pipeline: seeded random weights -> mixed-quantize + entropy-encode into the
 compressed container (``--codec`` picks the coder; ``--compress-spec`` sets
@@ -17,11 +18,19 @@ decode→dequant→matmul kernels for the tile-aligned tensors:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --resident compressed --fused [--device cpu]
 
+``--batch-slots N`` serves independently arriving requests through an
+N-slot continuous-batching engine instead of one lockstep batch (either
+residency); ``--traffic R`` replays R seeded Poisson arrivals with ragged
+prompts and generation lengths:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --batch-slots 4 --traffic 8 --prompt-len 16 --gen 8 [--device cpu]
+
 It serves the reduced variant of ``--arch`` (``registry.reduced``), like the
 JAX launcher; ``chip_smoke.py`` drives the full width.  Runs on the card
 unless ``--device cpu`` is given.  The JAX launcher's other serving modes
-(continuous batching, paged KV, fleets, meshes) are not ported yet and their
-flags exit with a message saying so.
+(paged KV, fleets, meshes) are not ported yet and their flags exit with a
+message saying so.
 """
 import argparse
 import sys
@@ -29,8 +38,7 @@ import time
 
 # flags of the JAX launcher whose serving modes the port does not have yet
 _NOT_PORTED_FLAGS = (
-    "--batch-slots", "--max-queue",
-    "--prefill-chunk", "--traffic", "--kv-spec", "--kv-block",
+    "--kv-spec", "--kv-block",
     "--prefix-sharing", "--replicas", "--router", "--disaggregate", "--mesh",
     "--production", "--shape", "--multi-pod")
 
@@ -79,6 +87,17 @@ def main(argv=None):
                         "(default: scheduler per-layer budget)")
     p.add_argument("--no-stream", action="store_true",
                    help="monolithic decode_all load")
+    p.add_argument("--batch-slots", type=int, default=0, metavar="N",
+                   help="serve with an N-slot continuous-batching engine "
+                        "instead of one lockstep batch (0 = lockstep)")
+    p.add_argument("--max-queue", type=int, default=64,
+                   help="admission-queue bound for --batch-slots")
+    p.add_argument("--prefill-chunk", type=int, default=16,
+                   help="chunked-prefill step for --batch-slots")
+    p.add_argument("--traffic", type=int, default=0, metavar="R",
+                   help="with --batch-slots: replay R synthetic Poisson "
+                        "arrivals (ragged prompts/gen) instead of one "
+                        "uniform request wave")
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default: cuda; raises "
                         "when no card is present)")
@@ -94,8 +113,11 @@ def main(argv=None):
         flag = arg.split("=", 1)[0]
         if flag in _NOT_PORTED_FLAGS:
             p.error(f"{flag} is not ported yet (the PyTorch port serves "
-                    f"lockstep batches, dense or compressed resident)")
+                    f"lockstep and continuous batches, dense or compressed "
+                    f"resident)")
     args = p.parse_args(argv)
+    if args.traffic > 0 and args.batch_slots < 1:
+        p.error("--traffic replays arrivals through --batch-slots N")
     if args.fused_impl not in (None, "auto"):
         p.error(f"--fused-impl {args.fused_impl} is not ported yet (the "
                 f"port picks the fused kernel by the tensor's device)")
@@ -223,8 +245,19 @@ def main(argv=None):
               f"{load_metrics['time_to_first_weight_s']*1e3:.0f}ms; "
               f"quantized residency: {not args.no_quantized_serving})")
 
-    sc = engine.ServeConfig(max_len=args.prompt_len + args.gen)
+    # slot mode pads prompts to a prefill-chunk multiple, so its cache needs
+    # that much headroom; the lockstep path keeps the exact footprint
+    headroom = args.prefill_chunk if args.batch_slots > 0 else 0
+    sc = engine.ServeConfig(max_len=args.prompt_len + args.gen + headroom)
     rng = np.random.default_rng(0)
+    if args.batch_slots > 0:
+        rc = _serve_continuous(cfg, serve_params, sc, args, rng,
+                               load_metrics, dev)
+        if args.resident == "compressed":
+            serve_params.close()
+        _write_obs(args)
+        return rc
+
     eng = engine.Engine(cfg, serve_params, sc, device=dev,
                         resident=args.resident)
     prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
@@ -238,6 +271,62 @@ def main(argv=None):
           f"{metrics['e2e_tok_per_s']:.1f} e2e tok/s); "
           f"time-to-first-token incl. weight load: {ttft:.2f}s")
     _write_obs(args)
+    return 0
+
+
+def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev):
+    """--batch-slots path: slot-batched serving of independent requests."""
+    import numpy as np
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serving.batching import (ContinuousEngine,
+                                              QueueFullError, poisson_trace,
+                                              replay)
+
+    ce = ContinuousEngine(cfg, serve_params, sc, n_slots=args.batch_slots,
+                          max_queue=args.max_queue,
+                          prefill_chunk=args.prefill_chunk,
+                          resident=args.resident, device=dev)
+    n = args.traffic if args.traffic > 0 else args.batch
+    shed = 0
+    t0 = time.monotonic()
+    if args.traffic > 0:        # Poisson replay: ragged prompts + gen lengths
+        trace = poisson_trace(n, rate_per_s=100.0, prompt_max=args.prompt_len,
+                              gen_max=args.gen, vocab=cfg.vocab, seed=0)
+        _, shed, _ = replay(ce, trace, shed_on_full=True)
+    else:                       # one wave of uniform requests
+        for _ in range(n):
+            prompt = rng.integers(0, cfg.vocab, (args.prompt_len,)
+                                  ).astype(np.int32)
+            while True:
+                try:
+                    ce.submit(prompt, args.gen)
+                    break
+                except QueueFullError:   # drain some work, then re-offer
+                    ce.step()
+        ce.run()
+    span = time.monotonic() - t0
+    fin = ce.finished
+    if not fin:
+        print(f"continuous batching: no requests completed "
+              f"({shed} shed by backpressure)")
+        return 1
+    toks = sum(len(r.output) for r in fin)
+    lat = [r.latency_s for r in fin]
+    ttft = [r.ttft_s for r in fin]
+    wait = [r.queue_wait_s for r in fin]
+    print(f"continuous batching [{args.batch_slots} slots, queue bound "
+          f"{args.max_queue}]: {len(fin)}/{n} requests"
+          + (f" ({shed} shed by backpressure)" if shed else "")
+          + f", {toks} tok in "
+          f"{span:.2f}s = {toks/max(span, 1e-9):.1f} tok/s aggregate")
+    print(f"  ttft p50 {percentile(ttft, 50)*1e3:.0f}ms "
+          f"(+{load_metrics['decode_load_s']:.2f}s "
+          f"weight load) | latency p50 {percentile(lat, 50)*1e3:.0f}ms "
+          f"p99 {percentile(lat, 99)*1e3:.0f}ms | "
+          f"{ce.n_decode_steps} fused decode steps")
+    print(f"  queue wait [admitted] p50 {percentile(wait, 50)*1e3:.0f}ms "
+          f"p99 {percentile(wait, 99)*1e3:.0f}ms over {len(fin)} requests"
+          + (f"; {shed} shed before admission" if shed else ""))
     return 0
 
 

@@ -7,8 +7,9 @@ family exposes
     decode_step(cfg, params, token, cache, pos) -> (logits, cache)
     init_cache(cfg, batch, max_len) -> cache dict
 
-and, for compressed-resident serving, the per-layer weight-slot twins
-``embed_step`` / ``head_step`` / ``resident_prefill_block`` /
+for continuous batching, ``prefill_chunk`` (and per-slot ``decode_step``
+positions), and for compressed-resident serving, the per-layer weight-slot
+twins ``embed_step`` / ``head_step`` / ``resident_prefill_block`` /
 ``resident_block``.  Only the dense family is ported so far; the others
 raise.
 """
@@ -38,6 +39,16 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
 
 def param_specs(cfg: ArchConfig) -> Dict[str, Tuple]:
     return {n: s.axes for n, s in build(cfg).schema(cfg).items()}
+
+
+def supports_continuous_batching(cfg: ArchConfig) -> bool:
+    """True when the family implements the slot-batch cache contract
+    (``prefill_chunk`` + per-slot ``decode_step`` positions); dense
+    today."""
+    try:
+        return hasattr(build(cfg), "prefill_chunk")
+    except NotImplementedError:
+        return False
 
 
 def supports_resident_serving(cfg: ArchConfig) -> bool:

@@ -58,12 +58,14 @@ def _layer(params: Dict[str, Any], l: int) -> Dict[str, Any]:
 
 def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
           cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-          pos: int = 0):
+          pos: Any = 0):
     """Attention sub-block; returns (out, (k, v)).
 
     Without ``cache`` the block attends causally over ``x`` and returns the
     layer's (k, v); with one, the step's (k, v) are written in place at
-    ``[pos, pos + S)`` and attended against the whole cache.
+    ``[pos, pos + S)`` and attended against the whole cache (S > 1 is a
+    chunked prefill).  ``pos`` is an int (lockstep batch) or a ``(B,)``
+    tensor (slot batch, one independent position a row).
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -145,12 +147,37 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     return logits, cache
 
 
-def decode_step(cfg: ArchConfig, params, token: torch.Tensor, cache, pos: int):
-    """One generation step.  token: (B, 1) int; pos: the position shared by
-    the whole batch (lockstep).  ``cache`` is updated in place and
-    returned."""
-    x = take_rows(params["embed"], token)
-    positions = pos + torch.arange(1, device=token.device)
+def _positions(pos: Any, S: int, device) -> torch.Tensor:
+    """Positions of an S-token step written at ``pos``: (S,) for an int
+    (lockstep), (B, S) for a (B,) tensor of per-slot positions."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(-1, 1) + torch.arange(S, device=device)
+    return pos + torch.arange(S, device=device)
+
+
+def decode_step(cfg: ArchConfig, params, token: torch.Tensor, cache, pos):
+    """One generation step: a one-token :func:`prefill_chunk`.  token:
+    (B, 1) int; pos: an int shared by the whole batch (lockstep) or a (B,)
+    tensor of per-slot positions (continuous batch).  ``cache`` is updated
+    in place and returned."""
+    return prefill_chunk(cfg, params, token, cache, pos)
+
+
+def prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, cache, pos):
+    """Write a (B, S) chunk of tokens into an existing cache and attend it
+    against the whole cache.
+
+    cache: ``init_cache`` layout (bf16); pos: an int (lockstep) or a (B,)
+    tensor of per-row write offsets (the chunk occupies cache rows
+    ``[pos, pos + S)``; the caller keeps ``pos + S <= max_len``).  Returns
+    (logits for every chunk position (B, S, V), cache updated in place).
+    With S > 1 this is the admission path of continuous batching: the
+    caller picks the logit at the request's true last prompt position, so
+    ragged prompts ride in fixed-size chunks (pad tokens land in the cache
+    but stay masked, because ``kv_len`` never reaches them).
+    """
+    x = take_rows(params["embed"], tokens)
+    positions = _positions(pos, tokens.shape[1], tokens.device)
     for l in range(cfg.n_layers):
         x, _ = _block(cfg, _layer(params, l), x, positions=positions,
                       cache=(cache["k"][l], cache["v"][l]), pos=pos)
@@ -194,15 +221,15 @@ def resident_prefill_block(cfg: ArchConfig, lp, x: torch.Tensor, *,
 
 
 def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int,
-                   pos: int):
-    """One `decode_step` iteration against the layer-stacked cache: layer
-    ``l``'s rows of ``cache`` are updated in place.  ``pos`` is the position
-    shared by the whole batch (lockstep); S comes from ``x``.  ``lp`` values
-    may be tensors, QT / QT4 triples or FusedQT handles: every weight goes
-    through ``layers.matmul``, which decodes fused handles inside the
-    matmul."""
-    S = x.shape[1]
-    positions = pos + torch.arange(S, device=x.device)
+                   pos):
+    """One `decode_step` / `prefill_chunk` iteration against the
+    layer-stacked cache: layer ``l``'s rows of ``cache`` are updated in
+    place.  ``pos`` follows the step functions' contract (an int for a
+    lockstep batch, a (B,) tensor per slot); S comes from ``x``, so the same
+    call serves decode (S = 1) and chunked prefill.  ``lp`` values may be
+    tensors, QT / QT4 triples or FusedQT handles: every weight goes through
+    ``layers.matmul``, which decodes fused handles inside the matmul."""
+    positions = _positions(pos, x.shape[1], x.device)
     x, _ = _block(cfg, lp, x, positions=positions,
                   cache=(cache["k"][l], cache["v"][l]), pos=pos)
     return x, cache

@@ -202,14 +202,18 @@ NEG_INF = -1e9
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool, q_offset: int = 0,
-                  kv_len: Optional[int] = None) -> torch.Tensor:
-    """Grouped-query attention for a lockstep batch (one scalar position).
+                  causal: bool, q_offset: Any = 0,
+                  kv_len: Any = None) -> torch.Tensor:
+    """Grouped-query attention.
 
-    q: (B, S, H, hd); k, v: (B, T, KV, hd).  KV heads are broadcast up to H,
-    scores come from bf16 operands accumulated in float32, the softmax runs
-    in float32 and the probabilities are cast to ``v``'s dtype for the
-    second product — the JAX package's contract.
+    q: (B, S, H, hd); k, v: (B, T, KV, hd).  ``q_offset`` (global position
+    of q[0]) and ``kv_len`` (valid cache length) are scalars for a lockstep
+    batch, or ``(B,)`` tensors for a slot batch, where each row is an
+    independent request with its own cache length (continuous batching).
+    KV heads are broadcast up to H, scores come from bf16 operands
+    accumulated in float32, the softmax runs in float32 and the
+    probabilities are cast to ``v``'s dtype for the second product — the
+    JAX package's contract.
     """
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -223,13 +227,16 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bsnh,btnh->bnst",
                      (q * scale).to(torch.bfloat16).float(),
                      k.to(torch.bfloat16).float())
-    tpos = torch.arange(T, device=q.device)
-    qpos = q_offset + torch.arange(S, device=q.device)
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= tpos <= qpos[:, None]
-    if kv_len is not None:
-        mask &= tpos < kv_len
+    if _per_slot(q_offset) or _per_slot(kv_len):
+        mask = _slot_mask(B, S, T, causal, q_offset, kv_len, q.device)
+    else:
+        tpos = torch.arange(T, device=q.device)
+        qpos = q_offset + torch.arange(S, device=q.device)
+        mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= tpos <= qpos[:, None]
+        if kv_len is not None:
+            mask &= tpos < kv_len
     s = torch.where(mask, s, NEG_INF)
     # softmax written out as the JAX package computes it (exp of the
     # max-shifted scores, divided by their sum)
@@ -238,11 +245,44 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bnst,btnh->bsnh", p.to(v.dtype), v)
 
 
+def _per_slot(a: Any) -> bool:
+    return isinstance(a, torch.Tensor) and a.dim() == 1
+
+
+def _slot_mask(B: int, S: int, T: int, causal: bool, q_offset: Any,
+               kv_len: Any, device: torch.device) -> torch.Tensor:
+    """(B, 1, S, T) mask of a slot batch: row b keeps ``tpos <= q_offset[b]
+    + s`` (causal) and ``tpos < kv_len[b]``; a scalar stands for every row.
+    The head axis broadcasts against the (B, H, S, T) scores."""
+    tpos = torch.arange(T, device=device)
+    qpos = (torch.as_tensor(q_offset, device=device).reshape(-1, 1)
+            + torch.arange(S, device=device))                 # (B|1, S)
+    mask = torch.ones((B, S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= tpos <= qpos[..., None]
+    if kv_len is not None:
+        mask &= tpos < torch.as_tensor(kv_len, device=device).reshape(-1, 1, 1)
+    return mask[:, None]
+
+
 def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
-                    k: torch.Tensor, v: torch.Tensor, pos: int) -> None:
+                    k: torch.Tensor, v: torch.Tensor, pos: Any) -> None:
     """Write step-k/v (B, S, KV, hd) into preallocated (B, T, KV, hd) caches
-    at offset ``pos`` along T, **in place** (the JAX package returns updated
-    copies; the port reuses the cache's memory)."""
+    along T, **in place** (the JAX package returns updated copies; the port
+    reuses the cache's memory).
+
+    ``pos`` is the write offset: an int writes every row at the same
+    position (lockstep), a ``(B,)`` tensor writes row b at ``pos[b]`` (slot
+    batch: a freshly admitted request and one 100 tokens deep share one
+    step).
+    """
     S = k.shape[1]
+    if _per_slot(pos):
+        rows = torch.arange(k.shape[0], device=k.device)[:, None]
+        cols = pos.to(k.device).reshape(-1, 1) + torch.arange(S,
+                                                              device=k.device)
+        cache_k[rows, cols] = k.to(cache_k.dtype)
+        cache_v[rows, cols] = v.to(cache_v.dtype)
+        return
     cache_k[:, pos:pos + S] = k.to(cache_k.dtype)
     cache_v[:, pos:pos + S] = v.to(cache_v.dtype)

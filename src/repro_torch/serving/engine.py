@@ -165,8 +165,12 @@ def sample(logits: torch.Tensor, temperature: float,
 
 
 class ServeSteps:
-    """The per-architecture step functions every serving front end drives
-    (lockstep in this port).
+    """The per-architecture step functions every serving front end drives:
+    :class:`Engine` (lockstep) and
+    :class:`repro_torch.serving.batching.ContinuousEngine` (slot batch).
+    ``decode_fn`` takes ``pos`` as an int (lockstep) or a ``(B,)`` tensor
+    (per-slot positions); ``prefill_chunk_fn`` writes one prompt chunk at
+    ``(B,)`` offsets.
 
     ``resident="dense"`` (default) runs the whole-tree steps over a params
     dict.  ``resident="compressed"`` builds per-layer step loops instead:
@@ -196,13 +200,18 @@ class ServeSteps:
         if resident == "compressed":
             self.prefill_fn = self._resident_prefill
             self.decode_fn = self._resident_step
+            self.prefill_chunk_fn = self._resident_step
 
     def prefill_fn(self, params, prompt: torch.Tensor):
         return self.mod.prefill(self.cfg, params, prompt,
                                 max_len=self.sc.max_len)
 
-    def decode_fn(self, params, token: torch.Tensor, cache, pos: int):
+    def decode_fn(self, params, token: torch.Tensor, cache, pos):
         return self.mod.decode_step(self.cfg, params, token, cache, pos)
+
+    def prefill_chunk_fn(self, params, tokens: torch.Tensor, cache,
+                         pos: torch.Tensor):
+        return self.mod.prefill_chunk(self.cfg, params, tokens, cache, pos)
 
     # ------------------------------------------------- compressed residency
     def _resident_prefill(self, weights, prompt: torch.Tensor):
@@ -228,11 +237,13 @@ class ServeSteps:
         return self.mod.head_step(self.cfg, weights.globals, x,
                                   last_only=True), cache
 
-    def _resident_step(self, weights, tokens: torch.Tensor, cache, pos: int):
-        """Per-layer twin of ``decode_step``: ``get(l)`` returns layer l's slot
-        (usually already decoded by the worker), ``prefetch(l+1)`` starts
-        the next layer's decode, and the wrap-around prefetch primes layer 0
-        for the next step."""
+    def _resident_step(self, weights, tokens: torch.Tensor, cache, pos):
+        """Per-layer twin of ``decode_step`` AND ``prefill_chunk`` (the
+        block reads S from the token shape; ``pos`` passes through, an int
+        or a (B,) tensor): ``get(l)`` returns layer l's slot (usually
+        already decoded by the worker), ``prefetch(l+1)`` starts the next
+        layer's decode, and the wrap-around prefetch primes layer 0 for the
+        next step."""
         x = self.mod.embed_step(self.cfg, weights.globals, tokens)
         weights.prefetch(0)
         for l in range(weights.n_layers):

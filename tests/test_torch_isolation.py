@@ -55,7 +55,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.kernels.ans_decode, repro_torch.convert, "
             "repro_torch.kernels.fused_decode_matmul, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
-            "repro_torch.serving.resident; "
+            "repro_torch.serving.resident, repro_torch.serving.batching, "
+            "repro_torch.obs.points, repro_torch.obs.analysis; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad; print('clean')")

@@ -25,7 +25,8 @@ bitwise.  The fused kernels run
 both families at M = 1, 4, 128 and N = 64, 1024, 2048, and at the main
 path's four shapes with 65,536-symbol lanes (``wo`` Huffman-8 2048 x 2048;
 ``wq``, ``wk``, ``w_down`` rANS-4 2048 x 2048, 2048 x 1024, 6144 x 2048) at
-M = 1, 4, 17, 128, within 1e-2 of x @ deq(the decode kernel's symbols);
+M = 1, 4, 8, 16, 17, 128 (8 and 16: the continuous engine's decode batch
+and prefill chunk), within 1e-2 of x @ deq(the decode kernel's symbols);
 with lanes packed four times wider than they need, tANS tables at
 ``table_log`` 10 and 14 (shared memory) and 15 and 16 (global), a prefix
 table at ``max_len`` 15 (global), an affine along K, lanes cut into column
@@ -474,9 +475,11 @@ MAIN_FUSED = [("huffman", 8, 2048, 2048), ("rans", 4, 2048, 2048),
 def test_fused_kernels_at_the_main_path_shapes(card, codec, bits, K, N):
     """qwen3-1.7b's layer matrices as the resident path fuses them, 65,536-
     symbol lanes: wo Huffman-8, wq, wk (64 rows a lane) and w_down (192
-    lanes) rANS-4, at a decode step, a ragged row count and a prefill."""
+    lanes) rANS-4, at lockstep decode steps (1, 4), the continuous engine's
+    decode batch (8 slots) and prefill chunk (16), a ragged row count and a
+    lockstep prefill."""
     fq, sym = _fused(codec, bits, K, N, 65536, card, per_row=True, seed=K)
-    _main_shape_check(fq, sym, card, (1, 4, 17, 128))
+    _main_shape_check(fq, sym, card, (1, 4, 8, 16, 17, 128))
 
 
 @pytest.mark.cuda

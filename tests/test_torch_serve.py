@@ -21,8 +21,9 @@ third token, a near-tie of 0.6875 against 0.68359375).
 
 Also: the port's launcher runs on the reduced config with ``--device cpu``
 and prints its three report lines, flags of serving modes not ported yet
-exit with a message (compressed residency and ``--fused`` are ported; see
-``tests/test_torch_resident.py``), and every entry point called without
+exit with a message (compressed residency and ``--fused`` are ported, see
+``tests/test_torch_resident.py``, and so is ``--batch-slots``, see
+``tests/test_torch_batching.py``), and every entry point called without
 ``device`` raises on this card-less host instead of running on the CPU.
 """
 import json
@@ -190,7 +191,7 @@ def test_launcher_monolithic_numpy_dense_load(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--fused-impl=pallas", "--kv-spec=bits=4",
-                                  "--batch-slots=4", "--mesh=1x1"])
+                                  "--replicas=2", "--mesh=1x1"])
 def test_launcher_refuses_flags_not_ported_yet(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tserve.main(["--arch", "qwen3-1.7b", "--device", "cpu", flag])
