@@ -44,6 +44,24 @@ Phases, each printing one JSON line:
    ``ans_decode`` the fallback's calls a forward x forwards + the last
    prefetch's; tokens are compared with the dense run's, and request 0's
    chunked-prefill logits with the dense engine's, within ``REF_ATOL``.
+   Then ``paged``: the same decoded weights serve ``PAGED_TRAFFIC`` (24
+   requests over two shared 32-token system prompts, prompts up to 64
+   tokens, ``max_len`` 96: the launcher's ``--batch-slots 8 --traffic 24
+   --prompt-len 64 --gen 16 --prefix-sharing``) through the slot pool and
+   through the paged KV cache (``PAGED_RUNS``): bf16 blocks of 16 with
+   prefix sharing, held bitwise to the slot pool request by request, with
+   prefix hits; 8-bit blocks; and 4-bit blocks in a pool of
+   ``PAGED_TIGHT_BLOCKS``, run twice, which must evict to the cold tier
+   and give equal tokens.  Every run completes all requests with none
+   shed; a ``paged_drift`` line gives the token drift against bf16 blocks
+   (8-bit held to ``PAGED_DRIFT``, see there); a ``kv_logits`` line holds
+   every trace prompt's first-token logits through bf16 blocks bitwise to
+   the bf16 slot cache's and through 8-, 4-bit blocks and the int8 slot
+   cache within ``KV_LOGITS_TOL``, against a wrong-context control; two
+   ``profile`` lines time 8 paged decode steps at bits 16 and 4; an
+   ``int8_cache`` line runs the lockstep prompt on the int8 slot cache
+   against bf16 (logits within ``KV_LOGITS_TOL``).  Launch counts are
+   zeroed before the phase and must read 0 after it.
 4. dequant_matmul — the third path: the weights the serve phase decoded
    on the card through the decode kernels go through
    ``kernels.ops.dequant_matmul`` (the port of the JAX package's
@@ -101,7 +119,7 @@ Phases, each printing one JSON line:
 
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
-compressed-resident run),
+compressed-resident run; ``launches_paged``: on the paged phase, 0),
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits nonzero; without a CUDA device it exits 1 and prints no result.
@@ -144,6 +162,41 @@ N_SLOTS, PREFILL_CHUNK, MAX_QUEUE = 8, 16, 64
 CONT_MAX_LEN = PROMPT + GEN + PREFILL_CHUNK
 TRAFFIC = dict(n_requests=16, rate_per_s=100.0, prompt_max=PROMPT,
                gen_max=GEN, seed=0)
+# the paged phase: the launcher's --batch-slots 8 --traffic 24 --prompt-len
+# 64 --gen 16 --prefix-sharing (two 32-token system prompts, two blocks
+# each; max_len = 64 + 16 + one chunk = 6 blocks of 16)
+PAGED_BLOCK = 16
+PAGED_MAX_LEN = 64 + GEN + PREFILL_CHUNK
+PAGED_TRAFFIC = dict(n_requests=24, rate_per_s=100.0, prompt_max=64,
+                     gen_max=GEN, seed=0, prefix_pool=2, prefix_len=32)
+# the runs: the slot pool (the yardstick), then paged pools by their
+# --kv-spec; the tight 4-bit pool holds trash + three max-length requests,
+# so published blocks at refcount 0 go to the cold tier, and runs twice
+PAGED_TIGHT_BLOCKS = 1 + 3 * (PAGED_MAX_LEN // PAGED_BLOCK)
+PAGED_RUNS = (
+    ("slot-pool", None, None),
+    ("bits16", "bits=16,block=16,sharing", None),
+    ("bits8", "bits=8,block=16,codec=rans,sharing", None),
+    ("bits4-tight", "bits=4,block=16,codec=rans,sharing", PAGED_TIGHT_BLOCKS),
+    ("bits4-tight-again", "bits=4,block=16,codec=rans,sharing",
+     PAGED_TIGHT_BLOCKS))
+# quantized pools may change greedy tokens: at most this share of them
+# against bf16 blocks, the JAX package's own bound (tests/test_kvcache.py,
+# set on the reduced qwen3-1.7b, head_dim 32).  At full width (head_dim 128,
+# the full vocabulary) 4-bit blocks drift past it in the JAX package itself
+# (scripts/kv_drift_reference.py), so the 4-bit drift is reported and held
+# through its logits instead (KV_LOGITS_TOL)
+PAGED_DRIFT = 0.6
+# the first generated token's logits (each trace prompt prefilled alone)
+# through quantized KV may differ from the bf16 slot cache's by at most
+# these; a wrong context (the other system prompt, in bf16: what a stale
+# block table or garbage prefix blocks give) must move them by more than
+# KV_CONTEXT_MARGIN times the widest, or a limit could not tell it apart.
+# Readings on an H100 at this width: 8-bit blocks 0.141, 4-bit 1.032, the
+# int8 slot cache 0.102 (and 0.102 over the int8_cache line's shared
+# histories); the wrong context at least 5.06
+KV_LOGITS_TOL = {"bits8": 0.5, "bits4": 2.0, "int8": 0.5}
+KV_CONTEXT_MARGIN = 2.0
 # row counts of the fused rows: lockstep decode and prefill, then the
 # continuous engine's decode batch and prefill chunk
 FUSED_M = (BATCH, BATCH * PROMPT, N_SLOTS, PREFILL_CHUNK)
@@ -318,15 +371,41 @@ def serve_main_path(dev):
     return cm, launches, eng, prompt, logits.float().cpu(), out.cpu()
 
 
-def profile_decode(eng, prompt, dev):
-    """Where a decode step's time goes: ``PROFILE_STEPS`` greedy steps after
-    a prefill, timed once without the profiler and once under
-    ``torch.profiler``: device time by operator and the device's idle share
-    of the profiled window (the profiler's own host overhead counts as
-    idle)."""
-    import torch
+def device_profile(steps):
+    """``steps(window)`` runs ``PROFILE_STEPS`` steps inside the context
+    ``window`` and returns ``(wall ms, window)``; it runs once without the
+    profiler and once under ``torch.profiler``.  Returns the fields of a
+    ``profile`` line: both wall times, device time by operator and the
+    device's idle share of the profiled window (the profiler's own host
+    overhead counts as idle)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    unprofiled_wall_ms, _ = steps(contextlib.nullcontext())
+    wall_ms, prof = steps(profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]))
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # kernels carry the device time; each operator that launched them
+    # carries it again as its own, so busy time sums kernels only
+    avgs = prof.key_averages()
+    busy_ms = sum(dev_us(e) for e in avgs
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU
+                  and dev_us(e) > 0), key=dev_us, reverse=True)[:8]
+    return dict(steps=PROFILE_STEPS, unprofiled_wall_ms=unprofiled_wall_ms,
+                wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms,
+                top_ops=[{"name": e.key, "device_ms": dev_us(e) / 1e3,
+                          "calls": e.count} for e in ops])
+
+
+def profile_decode(eng, prompt, dev):
+    """Where a lockstep decode step's time goes: ``PROFILE_STEPS`` greedy
+    steps after a prefill (:func:`device_profile`)."""
+    import torch
     S = prompt.shape[1]
 
     def steps(window):
@@ -346,27 +425,7 @@ def profile_decode(eng, prompt, dev):
                 ms = (time.perf_counter() - t0) * 1e3
         return ms, prof
 
-    unprofiled_wall_ms, _ = steps(contextlib.nullcontext())
-    wall_ms, prof = steps(profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]))
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    # kernels carry the device time; each operator that launched them
-    # carries it again as its own, so busy time sums kernels only
-    avgs = prof.key_averages()
-    busy_ms = sum(dev_us(e) for e in avgs
-                  if e.device_type == DeviceType.CUDA) / 1e3
-    ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU
-                  and dev_us(e) > 0), key=dev_us, reverse=True)[:8]
-    emit("profile", what="decode steps", steps=PROFILE_STEPS,
-         unprofiled_wall_ms=unprofiled_wall_ms,
-         wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=1 - busy_ms / wall_ms,
-         top_ops=[{"name": e.key, "device_ms": dev_us(e) / 1e3,
-                   "calls": e.count} for e in ops])
+    emit("profile", what="decode steps", **device_profile(steps))
 
 
 def fused_per_forward(rw):
@@ -387,19 +446,20 @@ def fallback_calls_per_layer(rw):
             for layer in range(rw.n_layers)]
 
 
-def serve_trace(cfg, weights, resident, dev):
-    """The continuous phase's trace through a fresh ``ContinuousEngine``;
-    returns the engine, the requests in trace order, the trace and the
-    summary metrics."""
+def serve_trace(cfg, weights, resident, dev, traffic=TRAFFIC,
+                max_len=CONT_MAX_LEN, **engine_kw):
+    """A trace (the continuous phase's by default) through a fresh
+    ``ContinuousEngine``; returns the engine, the requests in trace order,
+    the trace and the summary metrics."""
     from repro_torch.obs.metrics import percentile
     from repro_torch.serving import engine
     from repro_torch.serving.batching import (ContinuousEngine,
                                               poisson_trace, replay)
-    trace = poisson_trace(vocab=cfg.vocab, **TRAFFIC)
-    ce = ContinuousEngine(cfg, weights,
-                          engine.ServeConfig(max_len=CONT_MAX_LEN),
+    trace = poisson_trace(vocab=cfg.vocab, **traffic)
+    ce = ContinuousEngine(cfg, weights, engine.ServeConfig(max_len=max_len),
                           n_slots=N_SLOTS, prefill_chunk=PREFILL_CHUNK,
-                          max_queue=MAX_QUEUE, resident=resident, device=dev)
+                          max_queue=MAX_QUEUE, resident=resident, device=dev,
+                          **engine_kw)
     reqs, shed, makespan = replay(ce, trace, shed_on_full=True)
     fin = [r for r in reqs if r is not None and r.finish_reason == "length"]
     toks = sum(len(r.output) for r in fin)
@@ -412,6 +472,7 @@ def serve_trace(cfg, weights, resident, dev):
         makespan_s=makespan, tok_per_s=toks / makespan,
         n_decode_steps=ce.n_decode_steps,
         prefill_chunks=sum(-(-len(p) // PREFILL_CHUNK) for _, p, _ in trace),
+        prefill_chunks_run=ce.n_prefill_chunks,
         ttft_p50_s=pct(ttft, 50), latency_p50_s=pct(lat, 50),
         latency_p99_s=pct(lat, 99), queue_wait_p50_s=pct(wait, 50),
         queue_wait_p99_s=pct(wait, 99))
@@ -556,6 +617,271 @@ def continuous_phase(cm, params, dev):
         raise AssertionError(f"resident chunked prefill differs from the "
                              f"dense engine's by {rerr}")
     return launches
+
+
+def paged_phase(params, dev):
+    """The shared-prompt trace through the slot pool and through paged
+    pools (``PAGED_RUNS``), dense-resident on the serve phase's decoded
+    weights; then the first-token logits through each KV layout, the
+    ``profile`` of paged decode steps and the int8 slot cache.  Launch
+    counts are zeroed just before the phase and must read 0
+    after it (the weights were decoded at load; a paged step runs no
+    kernel of the port)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.spec import KVCompressionSpec
+    from repro_torch.kernels import build
+    from repro_torch.serving.kvcache import kv_cache_bytes
+
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=DEPTH)
+    slot_bytes = kv_cache_bytes(cfg, N_SLOTS, PAGED_MAX_LEN)
+    torch.cuda.synchronize()
+    for k in build.launches:
+        build.launches[k] = 0
+    outputs = {}
+    for label, text, n_blocks in PAGED_RUNS:
+        spec = KVCompressionSpec.parse(text) if text else None
+        torch.cuda.reset_peak_memory_stats(dev)
+        ce, reqs, trace, run = serve_trace(
+            cfg, params, "dense", dev, traffic=PAGED_TRAFFIC,
+            max_len=PAGED_MAX_LEN, kv_spec=spec, kv_blocks=n_blocks)
+        outputs[label] = [r.output for r in reqs]
+        run["prefill_chunks_skipped"] = (run["prefill_chunks"]
+                                         - run["prefill_chunks_run"])
+        run["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        run["slot_cache_bytes"] = slot_bytes
+        if spec is not None:
+            st = ce.slots.stats()
+            run.update(kv_spec=spec.describe(), kv_blocks=ce.slots.n_blocks,
+                       cold_effective_bits=(ce.slots.cold.effective_bits
+                                            if ce.slots.cold else None),
+                       **st)
+        pairs = [(x, y) for a, b in zip(outputs[label], outputs["slot-pool"])
+                 for x, y in zip(a, b)]
+        run["requests_equal_slot_pool"] = sum(
+            a == b for a, b in zip(outputs[label], outputs["slot-pool"]))
+        run["token_agreement_vs_slot_pool"] = (sum(x == y for x, y in pairs)
+                                               / len(pairs))
+        emit("paged", run=label, arch=cfg.name, n_slots=N_SLOTS,
+             prefill_chunk=PREFILL_CHUNK, max_len=PAGED_MAX_LEN,
+             traffic=PAGED_TRAFFIC, **run,
+             tokens_request0=outputs[label][0])
+        if label == "bits16":
+            if outputs[label] != outputs["slot-pool"]:
+                raise AssertionError(
+                    f"paged bits=16 differs from the slot pool: "
+                    f"{run['requests_equal_slot_pool']} of {len(trace)} "
+                    f"requests equal")
+            if not run["shared_hits"] > 0:
+                raise AssertionError("paged bits=16: no prefix hit")
+        if label.startswith("bits4-tight") and not run["cold_evictions"] > 0:
+            raise AssertionError(f"{label}: {n_blocks} blocks evicted "
+                                 f"nothing to the cold tier")
+    if outputs["bits4-tight"] != outputs["bits4-tight-again"]:
+        raise AssertionError("two bits=4 runs gave different tokens")
+    drift = {label: token_drift(outputs[label], outputs["bits16"])
+             for label in ("bits8", "bits4-tight")}
+    emit("paged_drift", bound=PAGED_DRIFT, held="bits8", **drift)
+    if drift["bits8"] > PAGED_DRIFT:
+        raise AssertionError(f"bits8: {drift['bits8']:.3f} of the tokens "
+                             f"drift from bf16 blocks (> {PAGED_DRIFT})")
+    kv_logits_check(cfg, params, trace, dev)
+    paged_profile(cfg, params, dev)
+    int8_cache_check(cfg, params, dev)
+    launches = dict(build.launches)
+    if any(launches.values()):
+        raise AssertionError(f"paged phase launched kernels: {launches}")
+    return launches
+
+
+def token_drift(got, want):
+    """Share of ``want``'s tokens that ``got`` differs from, position by
+    position (the JAX package's drift measure)."""
+    return (sum(x != y for a, b in zip(got, want) for x, y in zip(a, b))
+            / sum(len(b) for b in want))
+
+
+def first_token_logits(cfg, params, prompts, dev, kv):
+    """Each prompt prefilled alone, chunk by chunk, into an empty cache: the
+    float logits at its last position (its first generated token's), one
+    row a prompt.  ``kv`` is a ``--kv-spec`` text (a one-slot block pool)
+    or the slot cache's ``kv_bits``."""
+    import torch
+    from repro_torch.core.spec import KVCompressionSpec
+    from repro_torch.models import dense
+    from repro_torch.serving.batching.request import Request
+    from repro_torch.serving.kvcache import BlockKVManager
+    C = PREFILL_CHUNK
+    paged = isinstance(kv, str)
+    if paged:
+        m = BlockKVManager(cfg, 1, PAGED_MAX_LEN, device=dev,
+                           spec=KVCompressionSpec.parse(kv), prefill_chunk=C)
+    rows = []
+    with torch.inference_mode():
+        for prompt in prompts:
+            P = len(prompt)
+            toks = torch.zeros((1, -(-P // C) * C), dtype=torch.int64)
+            toks[0, :P] = torch.from_numpy(prompt.astype("int64"))
+            toks = toks.to(dev)
+            if paged:
+                slot, _ = m.alloc(Request(prompt=prompt, max_new_tokens=GEN))
+                bt = torch.from_numpy(m.table_rows([slot])).to(dev,
+                                                               torch.int64)
+            else:
+                cache = dense.init_cache(cfg, 1, PAGED_MAX_LEN, device=dev,
+                                         kv_bits=kv)
+            for c0 in range(0, toks.shape[1], C):
+                pos = torch.full((1,), c0, dtype=torch.int64, device=dev)
+                if paged:
+                    logits, _ = dense.paged_prefill_chunk(
+                        cfg, params, toks[:, c0:c0 + C], m.pool, bt, pos)
+                else:
+                    logits, cache = dense.prefill_chunk(
+                        cfg, params, toks[:, c0:c0 + C], cache, pos)
+                if c0 <= P - 1 < c0 + C:
+                    rows.append(logits[0, P - 1 - c0].float())
+            if paged:
+                m.release(slot)
+    return torch.stack(rows)
+
+
+def kv_logits_check(cfg, params, trace, dev):
+    """The first generated token's logits of every trace prompt through
+    bf16, 8- and 4-bit blocks and the int8 slot cache, against the bf16
+    slot cache's: bf16 blocks bitwise, the quantized ones within
+    ``KV_LOGITS_TOL``.  The control is the bf16 slot cache with each
+    prompt's system prompt swapped for the other one; returns the
+    ``kv_logits`` line's fields."""
+    import numpy as np
+    prompts = [p for _, p, _ in trace]
+    n = PAGED_TRAFFIC["prefix_len"]
+    prefixes = list({p[:n].tobytes(): p[:n] for p in prompts}.values())
+    swapped = [np.concatenate([next(q for q in prefixes
+                                    if q.tobytes() != p[:n].tobytes()),
+                               p[n:]]) for p in prompts]
+    ref = first_token_logits(cfg, params, prompts, dev, 16)
+
+    def err(got):
+        return (got - ref).abs().amax(1)
+
+    control = err(first_token_logits(cfg, params, swapped, dev, 16))
+    out = dict(prompts=len(prompts), tol=KV_LOGITS_TOL,
+               margin=KV_CONTEXT_MARGIN,
+               control_min_max_abs_err=float(control.min()),
+               control_median_max_abs_err=float(control.median()))
+    for label, kv in (("bits16", "bits=16,block=16"),
+                      ("bits8", "bits=8,block=16,codec=rans"),
+                      ("bits4", "bits=4,block=16,codec=rans"),
+                      ("int8", 8)):
+        got = first_token_logits(cfg, params, prompts, dev, kv)
+        e = err(got)
+        out[label] = dict(max_abs_err=float(e.max()),
+                          median_max_abs_err=float(e.median()),
+                          first_tokens_equal=int(
+                              (got.argmax(1) == ref.argmax(1)).sum()))
+    emit("kv_logits", **out)
+    if out["bits16"]["max_abs_err"] != 0.0:
+        raise AssertionError("bf16 blocks' first-token logits differ from "
+                             "the slot cache's")
+    for label, tol in KV_LOGITS_TOL.items():
+        if not out[label]["max_abs_err"] <= tol:
+            raise AssertionError(
+                f"{label} KV: first-token logits differ from bf16 by "
+                f"{out[label]['max_abs_err']} (> {tol})")
+    widest = max(KV_LOGITS_TOL.values())
+    if not out["control_min_max_abs_err"] > KV_CONTEXT_MARGIN * widest:
+        raise AssertionError(
+            f"a wrong context moves the logits by only "
+            f"{out['control_min_max_abs_err']}, within {KV_CONTEXT_MARGIN} "
+            f"x the widest limit {widest}")
+    return out
+
+
+def paged_profile(cfg, params, dev):
+    """``PROFILE_STEPS`` decode steps of the paged engine with every slot
+    decoding (``ContinuousEngine.step`` alone: no request queued or
+    prefilling), at bits 16 and 4: a ``profile`` line each
+    (:func:`device_profile`)."""
+    import torch
+    from repro_torch.core.spec import KVCompressionSpec
+    from repro_torch.serving import engine
+    from repro_torch.serving.batching import ContinuousEngine, poisson_trace
+    from repro_torch.serving.batching.request import RequestState
+    trace = poisson_trace(vocab=cfg.vocab, **PAGED_TRAFFIC)[:N_SLOTS]
+    for text in ("bits=16,block=16,sharing",
+                 "bits=4,block=16,codec=rans,sharing"):
+        ce = ContinuousEngine(cfg, params,
+                              engine.ServeConfig(max_len=PAGED_MAX_LEN),
+                              n_slots=N_SLOTS, prefill_chunk=PREFILL_CHUNK,
+                              kv_spec=KVCompressionSpec.parse(text),
+                              device=dev)
+        reqs = [ce.submit(p, PAGED_MAX_LEN - 64) for _, p, _ in trace]
+        while len(ce.queue) or ce._prefilling is not None:
+            ce.step()
+        if not all(r.state is RequestState.DECODING for r in reqs):
+            raise AssertionError("profile: a request left the batch early")
+
+        def steps(window):
+            torch.cuda.synchronize()
+            with window as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILE_STEPS):
+                    ce.step()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            return ms, prof
+
+        emit("profile", what="paged decode steps", kv_spec=text,
+             n_slots=N_SLOTS, **device_profile(steps))
+
+
+def int8_cache_check(cfg, params, dev):
+    """The serve phase's lockstep prompt (batch 4, prompt 32, 16 greedy
+    tokens) through ``prefill_chunk`` / ``decode_step`` on the int8 slot
+    cache and on the bf16 one: cache bytes, the logits' largest difference
+    over the steps both runs share a token history, and token agreement."""
+    import numpy as np
+    import torch
+    from repro_torch.models import dense
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
+                             device=dev)
+    runs = {}
+    for bits in (16, 8):
+        cache = dense.init_cache(cfg, BATCH, PROMPT + GEN, device=dev,
+                                 kv_bits=bits)
+        nbytes = sum(c.numel() * c.element_size() for c in cache.values())
+        pos = torch.zeros((BATCH,), dtype=torch.int64, device=dev)
+        tok, toks, logits = prompt, [], []
+        with torch.inference_mode():
+            for _ in range(GEN):
+                lg, cache = dense.prefill_chunk(cfg, params, tok, cache, pos)
+                pos = pos + tok.shape[1]
+                lg = lg[:, -1].float()
+                logits.append(lg)
+                tok = lg.argmax(-1, keepdim=True)
+                toks.append(tok)
+        runs[bits] = (nbytes, torch.cat(toks, 1).cpu(), logits)
+    (b16, t16, l16), (b8, t8, l8) = runs[16], runs[8]
+    if not all(bool(torch.isfinite(x).all()) for x in l8):
+        raise AssertionError("int8 cache: non-finite logits")
+    same = (t16 == t8).long()
+    # step i's logits follow tokens 0 .. i-1: a row shares its history up
+    # to and including its first differing token's step
+    history = torch.cat([torch.ones_like(same[:, :1]),
+                         same.cumprod(1)[:, :-1]], 1).to(dev)
+    err = max(float(((a - b).abs() * history[:, i:i + 1]).max())
+              for i, (a, b) in enumerate(zip(l16, l8)))
+    emit("int8_cache", batch=BATCH, prompt=PROMPT, gen=GEN,
+         cache_bytes=b8, bf16_cache_bytes=b16,
+         logits_max_abs_diff_shared_history=err,
+         tol=KV_LOGITS_TOL["int8"],
+         token_agreement=float(same.float().mean()),
+         rows_equal=int(same.all(1).sum()))
+    if not err <= KV_LOGITS_TOL["int8"]:
+        raise AssertionError(f"int8 cache: logits differ from bf16 by {err} "
+                             f"over shared histories (> "
+                             f"{KV_LOGITS_TOL['int8']})")
 
 
 def resident_phase(cm, prompt, dense_logits, dense_tokens, dev):
@@ -1233,6 +1559,9 @@ def main():
     t0 = time.perf_counter()
     continuous_launches = continuous_phase(cm, eng.params, dev)
     continuous_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paged_launches = paged_phase(eng.params, dev)
+    paged_s = time.perf_counter() - t0
     dq_row = dequant_matmul_phase(cm, eng.params, clock_mhz, dev)
     del eng
     t0 = time.perf_counter()
@@ -1245,8 +1574,9 @@ def main():
     rows.append(dq_row)
     for row in rows:
         row["launches_continuous"] = continuous_launches.get(row["name"], 0)
+        row["launches_paged"] = paged_launches.get(row["name"], 0)
     emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
-         resident_phase_s=resident_s)
+         paged_phase_s=paged_s, resident_phase_s=resident_s)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

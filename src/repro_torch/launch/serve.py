@@ -26,11 +26,19 @@ prompts and generation lengths:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --batch-slots 4 --traffic 8 --prompt-len 16 --gen 8 [--device cpu]
 
+``--kv-spec`` / ``--kv-block`` / ``--prefix-sharing`` serve the slot batch
+through the paged KV block pool (dense residency, one device); with
+``--prefix-sharing`` the traffic opens with two shared system prompts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --batch-slots 3 --traffic 4 --prefix-sharing \\
+        --kv-spec bits=4,codec=rans [--device cpu]
+
 It serves the reduced variant of ``--arch`` (``registry.reduced``), like the
 JAX launcher; ``chip_smoke.py`` drives the full width.  Runs on the card
 unless ``--device cpu`` is given.  The JAX launcher's other serving modes
-(paged KV, fleets, meshes) are not ported yet and their flags exit with a
-message saying so.
+(fleets, meshes) are not ported yet and their flags exit with a message
+saying so.
 """
 import argparse
 import sys
@@ -38,8 +46,7 @@ import time
 
 # flags of the JAX launcher whose serving modes the port does not have yet
 _NOT_PORTED_FLAGS = (
-    "--kv-spec", "--kv-block",
-    "--prefix-sharing", "--replicas", "--router", "--disaggregate", "--mesh",
+    "--replicas", "--router", "--disaggregate", "--mesh",
     "--production", "--shape", "--multi-pod")
 
 
@@ -98,6 +105,20 @@ def main(argv=None):
                    help="with --batch-slots: replay R synthetic Poisson "
                         "arrivals (ragged prompts/gen) instead of one "
                         "uniform request wave")
+    p.add_argument("--kv-spec", default=None, metavar="SPEC",
+                   help="with --batch-slots: serve through the paged KV "
+                        "block pool under this compression policy, e.g. "
+                        "'bits=4,block=16,codec=rans,sharing' (see "
+                        "repro_torch.core.spec.KVCompressionSpec; bits=16 "
+                        "keeps dense bf16 blocks, bit-identical to the slot "
+                        "pool)")
+    p.add_argument("--kv-block", type=int, default=0, metavar="B",
+                   help="override the paged KV block size (tokens per "
+                        "block); implies --kv-spec when given alone")
+    p.add_argument("--prefix-sharing", action="store_true",
+                   help="share identical prompt-prefix KV blocks across "
+                        "requests (implies --kv-spec when given alone, and "
+                        "makes --traffic replay shared system prompts)")
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default: cuda; raises "
                         "when no card is present)")
@@ -114,7 +135,7 @@ def main(argv=None):
         if flag in _NOT_PORTED_FLAGS:
             p.error(f"{flag} is not ported yet (the PyTorch port serves "
                     f"lockstep and continuous batches, dense or compressed "
-                    f"resident)")
+                    f"resident, and paged KV on one device)")
     args = p.parse_args(argv)
     if args.traffic > 0 and args.batch_slots < 1:
         p.error("--traffic replays arrivals through --batch-slots N")
@@ -133,6 +154,34 @@ def main(argv=None):
         p.error("--fused/--fused-impl require --resident compressed (the "
                 "fused kernel consumes the entropy-coded payload handles "
                 "that mode keeps resident)")
+
+    # paged KV: parse and validate the policy upfront; the paged pool rides
+    # dense residency on one device
+    kv_spec = None
+    if args.kv_spec is not None or args.kv_block or args.prefix_sharing:
+        if args.batch_slots <= 0:
+            p.error("--kv-spec/--kv-block/--prefix-sharing require "
+                    "--batch-slots (the paged KV cache is a "
+                    "continuous-batching feature)")
+        if args.resident != "dense":
+            p.error("paged KV (--kv-spec) needs --resident dense: the "
+                    "compressed-resident per-layer drivers have no paged "
+                    "step twins")
+        from repro_torch.core.spec import KVCompressionSpec
+        overrides = {}
+        if args.kv_block:
+            overrides["block_size"] = args.kv_block
+        if args.prefix_sharing:
+            overrides["sharing"] = True
+        try:
+            kv_spec = KVCompressionSpec.parse(args.kv_spec or "", **overrides)
+        except (ValueError, KeyError) as e:
+            p.error(f"bad --kv-spec: {e}")
+        if kv_spec.sharing and args.prefill_chunk % kv_spec.block_size:
+            p.error(f"--prefix-sharing needs --prefill-chunk divisible by "
+                    f"the KV block size (chunk {args.prefill_chunk}, block "
+                    f"{kv_spec.block_size}): the prefix-skip boundary must "
+                    f"be a chunk boundary")
 
     # validate names against the registries before any expensive work
     from repro_torch.core.codecs import codec_names
@@ -246,13 +295,30 @@ def main(argv=None):
               f"quantized residency: {not args.no_quantized_serving})")
 
     # slot mode pads prompts to a prefill-chunk multiple, so its cache needs
-    # that much headroom; the lockstep path keeps the exact footprint
+    # that much headroom; the lockstep path keeps the exact footprint.
+    # Prefix-shared traffic prepends a block-aligned system prompt, so the
+    # prompt budget grows to cover prefix + at least one unique token.
+    kv_prefix_len = 0
+    if kv_spec is not None and kv_spec.sharing and args.traffic > 0:
+        b = kv_spec.block_size
+        kv_prefix_len = max(b, args.prompt_len // (2 * b) * b)
+    prompt_budget = max(args.prompt_len, kv_prefix_len + 1)
     headroom = args.prefill_chunk if args.batch_slots > 0 else 0
-    sc = engine.ServeConfig(max_len=args.prompt_len + args.gen + headroom)
+    sc = engine.ServeConfig(max_len=prompt_budget + args.gen + headroom)
     rng = np.random.default_rng(0)
+    if kv_spec is None:
+        # true serving peak is weights + KV: the KV term the weight lines
+        # above leave out (a paged pool prints its own bytes)
+        from repro_torch.serving.kvcache import kv_cache_bytes
+        kv_rows = args.batch_slots if args.batch_slots > 0 else args.batch
+        kvb = kv_cache_bytes(cfg, kv_rows, sc.max_len)
+        print(f"  KV cache {kvb/2**20:.2f} MiB resident "
+              f"({kv_rows} x {sc.max_len} bf16 rows) — true serving peak = "
+              f"weights + KV")
     if args.batch_slots > 0:
         rc = _serve_continuous(cfg, serve_params, sc, args, rng,
-                               load_metrics, dev)
+                               load_metrics, dev, kv_spec=kv_spec,
+                               kv_prefix_len=kv_prefix_len)
         if args.resident == "compressed":
             serve_params.close()
         _write_obs(args)
@@ -274,7 +340,8 @@ def main(argv=None):
     return 0
 
 
-def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev):
+def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev,
+                      kv_spec=None, kv_prefix_len=0):
     """--batch-slots path: slot-batched serving of independent requests."""
     import numpy as np
     from repro_torch.obs.metrics import percentile
@@ -285,13 +352,25 @@ def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev):
     ce = ContinuousEngine(cfg, serve_params, sc, n_slots=args.batch_slots,
                           max_queue=args.max_queue,
                           prefill_chunk=args.prefill_chunk,
-                          resident=args.resident, device=dev)
+                          resident=args.resident, kv_spec=kv_spec,
+                          device=dev)
+    if kv_spec is not None:
+        print(f"  paged KV [{kv_spec.describe()}]: pool "
+              f"{ce.slots.pool_bytes/2**20:.2f} MiB resident "
+              f"({ce.slots.n_blocks} x {kv_spec.block_size}-token blocks) — "
+              f"true serving peak = weights + KV")
     n = args.traffic if args.traffic > 0 else args.batch
     shed = 0
     t0 = time.monotonic()
     if args.traffic > 0:        # Poisson replay: ragged prompts + gen lengths
+        prefix_kw = {}
+        if kv_spec is not None and kv_spec.sharing:
+            # shared system prompts exercise prefix sharing: 2 distinct
+            # block-aligned prefixes, ragged unique suffixes
+            prefix_kw = dict(prefix_pool=2, prefix_len=kv_prefix_len)
         trace = poisson_trace(n, rate_per_s=100.0, prompt_max=args.prompt_len,
-                              gen_max=args.gen, vocab=cfg.vocab, seed=0)
+                              gen_max=args.gen, vocab=cfg.vocab, seed=0,
+                              **prefix_kw)
         _, shed, _ = replay(ce, trace, shed_on_full=True)
     else:                       # one wave of uniform requests
         for _ in range(n):
@@ -327,6 +406,14 @@ def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev):
     print(f"  queue wait [admitted] p50 {percentile(wait, 50)*1e3:.0f}ms "
           f"p99 {percentile(wait, 99)*1e3:.0f}ms over {len(fin)} requests"
           + (f"; {shed} shed before admission" if shed else ""))
+    if kv_spec is not None:
+        st = ce.slots.stats()
+        print(f"  paged KV: prefix hit rate {st['prefix_hit_rate']*100:.0f}% "
+              f"({st['shared_hits']} hits / {st['shared_misses']} misses), "
+              f"{st['blocks_free']}/{st['blocks_total']} blocks free, cold "
+              f"tier {st['cold_bytes']/2**10:.1f} KiB "
+              f"({st['cold_evictions']} evictions, {st['cold_restores']} "
+              f"restores, {st['dropped_evictions']} dropped)")
     return 0
 
 

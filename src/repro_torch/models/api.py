@@ -8,8 +8,10 @@ family exposes
     init_cache(cfg, batch, max_len) -> cache dict
 
 for continuous batching, ``prefill_chunk`` (and per-slot ``decode_step``
-positions), and for compressed-resident serving, the per-layer weight-slot
-twins ``embed_step`` / ``head_step`` / ``resident_prefill_block`` /
+positions), for the paged KV cache ``init_kv_pool`` and the block-table
+twins ``paged_prefill_chunk`` / ``paged_decode_step``, and for
+compressed-resident serving, the per-layer weight-slot twins
+``embed_step`` / ``head_step`` / ``resident_prefill_block`` /
 ``resident_block``.  Only the dense family is ported so far; the others
 raise.
 """
@@ -47,6 +49,16 @@ def supports_continuous_batching(cfg: ArchConfig) -> bool:
     today."""
     try:
         return hasattr(build(cfg), "prefill_chunk")
+    except NotImplementedError:
+        return False
+
+
+def supports_paged_kv(cfg: ArchConfig) -> bool:
+    """True when the family implements the paged block-pool cache contract
+    (``init_kv_pool`` + ``paged_decode_step`` / ``paged_prefill_chunk``
+    through a block table); dense today."""
+    try:
+        return hasattr(build(cfg), "paged_decode_step")
     except NotImplementedError:
         return False
 

@@ -11,9 +11,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from .layers import (Schema, Spec, deq, gqa_attention, init_params,
-                     layer_slice, matmul, rms_norm, rope, swiglu, take_rows,
-                     update_kv_cache)
+from .layers import (Schema, Spec, deq, gather_blocks, gqa_attention,
+                     init_params, kv_dequantize, kv_quantize, layer_slice,
+                     matmul, rms_norm, rope, scatter_blocks, swiglu,
+                     take_rows, update_kv_cache)
 
 
 def schema(cfg: ArchConfig) -> Schema:
@@ -56,17 +57,24 @@ def _layer(params: Dict[str, Any], l: int) -> Dict[str, Any]:
             for k, v in params.items() if k.startswith("layers/")}
 
 
-def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
-          cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-          pos: Any = 0):
-    """Attention sub-block; returns (out, (k, v)).
+def quantize_kv(k: torch.Tensor):
+    """int8 KV quantization: a symmetric scale per (token, head) over
+    head_dim, ``max(max|k| / 127, 1e-8)``, codes clipped to +-127 (the JAX
+    package's ``quantize_kv``)."""
+    kf = k.float()
+    s = torch.amax(torch.abs(kf), dim=-1, keepdim=True) / 127.0
+    s = torch.maximum(s, torch.tensor(1e-8, dtype=torch.float32,
+                                      device=s.device))
+    q = torch.clamp(torch.round(kf / s), -127, 127).to(torch.int8)
+    return q, s.to(torch.bfloat16)
 
-    Without ``cache`` the block attends causally over ``x`` and returns the
-    layer's (k, v); with one, the step's (k, v) are written in place at
-    ``[pos, pos + S)`` and attended against the whole cache (S > 1 is a
-    chunked prefill).  ``pos`` is an int (lockstep batch) or a ``(B,)``
-    tensor (slot batch, one independent position a row).
-    """
+
+def dequantize_kv(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.bfloat16) * s.to(torch.bfloat16)
+
+
+def _qkv(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, positions):
+    """The attention block's q, k, v: projections, qk-norm and RoPE."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, lp["attn_norm"])
@@ -76,11 +84,38 @@ def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"])
         k = rms_norm(k, lp["k_norm"])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
+          cache: Optional[Tuple[torch.Tensor, ...]] = None, pos: Any = 0):
+    """Attention sub-block; returns (out, (k, v) or the cache).
+
+    Without ``cache`` the block attends causally over ``x`` and returns the
+    layer's (k, v); with one, the step's (k, v) are written in place at
+    ``[pos, pos + S)`` and attended against the whole cache (S > 1 is a
+    chunked prefill).  ``cache`` is (k, v) bf16 or (k, v, k_scale, v_scale)
+    for the int8 cache, which quantizes the step's rows before the write
+    and dequantizes the whole cache for the attention.  ``pos`` is an int
+    (lockstep batch) or a ``(B,)`` tensor (slot batch, one independent
+    position a row).
+    """
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q, k, v = _qkv(cfg, lp, x, positions)
     if cache is None:
         attn = gqa_attention(q, k, v, causal=True)
         kv = (k, v)
+    elif len(cache) == 4:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        update_kv_cache(cache[0], cache[1], kq, vq, pos)
+        update_kv_cache(cache[2], cache[3], ks, vs, pos)
+        attn = gqa_attention(q, dequantize_kv(cache[0], cache[2]),
+                             dequantize_kv(cache[1], cache[3]), causal=S > 1,
+                             q_offset=pos, kv_len=pos + S)
+        kv = cache
     else:
         update_kv_cache(cache[0], cache[1], k, v, pos)
         attn = gqa_attention(q, cache[0], cache[1], causal=S > 1,
@@ -122,8 +157,21 @@ def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------------- serving
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+               dtype=torch.bfloat16, device=None,
+               kv_bits: int = 16) -> Dict[str, torch.Tensor]:
+    """The slot cache: bf16 ``k`` / ``v``, or with ``kv_bits=8`` int8 codes
+    and a bf16 scale per (token, head) (four leaves)."""
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    if kv_bits == 8:
+        shape = (L, batch, max_len, KV, hd)
+        sshape = shape[:-1] + (1,)
+        bf = torch.bfloat16
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=bf, device=device),
+            "v_scale": torch.zeros(sshape, dtype=bf, device=device),
+        }
     return {
         "k": torch.zeros((L, batch, max_len, KV, hd), dtype=dtype,
                          device=device),
@@ -167,9 +215,10 @@ def prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, cache, pos):
     """Write a (B, S) chunk of tokens into an existing cache and attend it
     against the whole cache.
 
-    cache: ``init_cache`` layout (bf16); pos: an int (lockstep) or a (B,)
-    tensor of per-row write offsets (the chunk occupies cache rows
-    ``[pos, pos + S)``; the caller keeps ``pos + S <= max_len``).  Returns
+    cache: ``init_cache`` layout (bf16, or the four int8 leaves); pos: an
+    int (lockstep) or a (B,) tensor of per-row write offsets (the chunk
+    occupies cache rows ``[pos, pos + S)``; the caller keeps
+    ``pos + S <= max_len``).  Returns
     (logits for every chunk position (B, S, V), cache updated in place).
     With S > 1 this is the admission path of continuous batching: the
     caller picks the logit at the request's true last prompt position, so
@@ -180,9 +229,17 @@ def prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, cache, pos):
     positions = _positions(pos, tokens.shape[1], tokens.device)
     for l in range(cfg.n_layers):
         x, _ = _block(cfg, _layer(params, l), x, positions=positions,
-                      cache=(cache["k"][l], cache["v"][l]), pos=pos)
+                      cache=_cache_layer(cache, l), pos=pos)
     x = rms_norm(x, params["final_norm"])
     return logits_fn(cfg, params, x), cache
+
+
+def _cache_layer(cache: Dict[str, torch.Tensor], l: int) -> Tuple:
+    """Layer ``l``'s leaves of a slot cache, in ``_attn``'s order (views:
+    writes to them land in the cache)."""
+    keys = ("k", "v", "k_scale", "v_scale") if "k_scale" in cache \
+        else ("k", "v")
+    return tuple(cache[k][l] for k in keys)
 
 
 # ------------------------------------------------- compressed-resident serving
@@ -231,5 +288,119 @@ def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int,
     ``layers.matmul``, which decodes fused handles inside the matmul."""
     positions = _positions(pos, x.shape[1], x.device)
     x, _ = _block(cfg, lp, x, positions=positions,
-                  cache=(cache["k"][l], cache["v"][l]), pos=pos)
+                  cache=_cache_layer(cache, l), pos=pos)
     return x, cache
+
+
+# ------------------------------------------------------------- paged KV cache
+#
+# Block-pool twins of the slot-batch step functions.  The cache is a pool of
+# fixed-size blocks, (L, n_blocks, block_size, KV, .) a leaf, and every
+# request's sequence is routed through a (B, max_blocks) block table:
+# attention scatters the step's K/V into the table's blocks (in place) and
+# gathers the logical sequence back out (``layers.gather_blocks`` /
+# ``scatter_blocks``).  With dense bf16 blocks the gathered sequence holds
+# bitwise the same live rows as the slot cache, so greedy decode equals
+# ``decode_step`` / ``prefill_chunk`` when ``max_len`` is a multiple of the
+# block size (one attention shape); quantized pools (``kv_bits`` 8 / 4)
+# trade bounded greedy drift for more tokens a byte.  ``pos`` is always the
+# (B,) per-slot tensor: paged serving is a continuous-batching feature.
+
+
+def init_kv_pool(cfg: ArchConfig, n_blocks: int, block_size: int,
+                 kv_bits: int = 16, device=None) -> Dict[str, torch.Tensor]:
+    """Preallocate a paged KV block pool (block id 0 is the trash block)."""
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    if kv_bits == 16:
+        shape = (L, n_blocks, block_size, KV, hd)
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    assert kv_bits in (8, 4), kv_bits
+    if kv_bits == 4 and hd % 2:
+        raise ValueError(f"kv_bits=4 nibble-packs head_dim pairs; "
+                         f"hd={hd} is odd")
+    hs = hd if kv_bits == 8 else hd // 2
+    pool = {}
+    for side in ("k", "v"):
+        pool[side] = torch.zeros((L, n_blocks, block_size, KV, hs),
+                                 dtype=torch.uint8, device=device)
+    for side in ("k", "v"):
+        for part in ("scale", "zero"):
+            pool[f"{side}_{part}"] = torch.zeros(
+                (L, n_blocks, block_size, KV, 1), dtype=torch.bfloat16,
+                device=device)
+    return pool
+
+
+def _pool_meta(cfg: ArchConfig, pool) -> Tuple[Tuple[str, ...], int]:
+    """(leaf order, kv_bits), read from the pool's leaves and shapes."""
+    if "k_scale" not in pool:
+        return ("k", "v"), 16
+    bits = 8 if pool["k"].shape[-1] == cfg.hd else 4
+    return ("k", "k_scale", "k_zero", "v", "v_scale", "v_zero"), bits
+
+
+def _paged_attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
+                pc: Dict[str, torch.Tensor], bt: torch.Tensor,
+                pos: torch.Tensor):
+    """Attention against one layer's block-pool slice ``pc``: the cached
+    path of :func:`_attn` op for op, with ``scatter_blocks`` in place of
+    ``update_kv_cache`` (first) and ``gather_blocks`` materializing the
+    (B, MB*BS) sequence that ``gqa_attention`` masks by ``kv_len`` (then).
+    Quantized pools quantize the step's K/V per (token, head) before the
+    scatter and dequantize the gathered sequence."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    positions = _positions(pos, S, x.device)                   # (B, S)
+    q, k, v = _qkv(cfg, lp, x, positions)
+    _, bits = _pool_meta(cfg, pc)
+    if bits == 16:
+        ck = gather_blocks(scatter_blocks(pc["k"], bt, positions, k), bt)
+        cv = gather_blocks(scatter_blocks(pc["v"], bt, positions, v), bt)
+    else:
+        seq = {}
+        for side, step_val in (("k", k), ("v", v)):
+            parts = kv_quantize(step_val, bits)
+            for name, part in zip((side, f"{side}_scale", f"{side}_zero"),
+                                  parts):
+                seq[name] = gather_blocks(
+                    scatter_blocks(pc[name], bt, positions, part), bt)
+        ck, cv = (kv_dequantize(seq[s], seq[f"{s}_scale"], seq[f"{s}_zero"],
+                                bits) for s in ("k", "v"))
+    attn = gqa_attention(q, ck, cv, causal=S > 1, q_offset=pos,
+                         kv_len=pos + S)
+    return matmul(attn.reshape(B, S, H * hd), lp["wo"])
+
+
+def _paged_block(cfg: ArchConfig, lp, x, *, pc, bt, pos):
+    x = x + _paged_attn(cfg, lp, x, pc=pc, bt=bt, pos=pos)
+    h = rms_norm(x, lp["mlp_norm"])
+    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def paged_prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, pool,
+                        bt: torch.Tensor, pos: torch.Tensor):
+    """Chunked prefill through the block table (paged ``prefill_chunk``).
+
+    tokens: (B, S) chunk; pool: ``init_kv_pool`` dict (written in place);
+    bt: (B, MB) block table; pos: (B,) chunk start offsets.  The chunk's
+    rows land in the blocks ``bt`` names for positions [pos, pos + S); the
+    caller keeps those entries allocated (admission allocates the whole
+    request: ``serving/kvcache/blocks.py``).  Returns (logits (B, S, V),
+    pool).
+    """
+    x = take_rows(params["embed"], tokens)
+    keys, _ = _pool_meta(cfg, pool)
+    for l in range(cfg.n_layers):
+        x = _paged_block(cfg, _layer(params, l), x,
+                         pc={k: pool[k][l] for k in keys}, bt=bt, pos=pos)
+    x = rms_norm(x, params["final_norm"])
+    return logits_fn(cfg, params, x), pool
+
+
+def paged_decode_step(cfg: ArchConfig, params, token: torch.Tensor, pool,
+                      bt: torch.Tensor, pos: torch.Tensor):
+    """One generation step over a paged slot batch: a one-token
+    :func:`paged_prefill_chunk`.  token: (B, 1); bt: (B, MB) block table
+    (all-trash rows for inactive lanes); pos: (B,) per-slot kv_len."""
+    return paged_prefill_chunk(cfg, params, token, pool, bt, pos)

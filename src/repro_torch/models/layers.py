@@ -286,3 +286,84 @@ def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
         return
     cache_k[:, pos:pos + S] = k.to(cache_k.dtype)
     cache_v[:, pos:pos + S] = v.to(cache_v.dtype)
+
+
+# ------------------------------------------------------------- paged KV cache
+#
+# Block-pool primitives for the paged KV cache: the pool leaf layout is
+# (n_blocks, block_size, KV, hd_store) a layer, and a request's logical
+# sequence is the concatenation of the blocks its (max_blocks,) row of the
+# block table names.  Block id 0 is the TRASH block: inactive lanes of the
+# decode step point every table entry at it, so their garbage writes land in
+# memory no request ever gathers as live rows.  The JAX package returns
+# updated pools; the port writes the pool in place, as ``update_kv_cache``
+# writes the slot cache.
+
+
+def gather_blocks(pool_leaf: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Gather per-request sequences out of a block pool.
+
+    pool_leaf: (NB, BS, ...) one layer's pool; bt: (B, MB) integer block
+    table.  Returns (B, MB * BS, ...): each request's blocks concatenated in
+    table order, standing in for the slot cache's (B, T, ...) axis
+    (positions >= kv_len are masked by attention like slot-pool padding).
+    """
+    g = pool_leaf[bt.to(device=pool_leaf.device, dtype=torch.int64)]
+    return g.reshape((bt.shape[0], -1) + tuple(pool_leaf.shape[2:]))
+
+
+def scatter_blocks(pool_leaf: torch.Tensor, bt: torch.Tensor,
+                   positions: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Write per-request rows into the pool through the block table, **in
+    place**, and return the pool.
+
+    pool_leaf: (NB, BS, ...); bt: (B, MB); positions: (B, S) global token
+    positions; val: (B, S, ...).  Row (b, s) lands at block
+    ``bt[b, positions[b, s] // BS]``, offset ``positions[b, s] % BS``.
+    Duplicate targets only arise from trash-block writes (several idle lanes
+    aiming at block 0), where any winner is equally garbage.
+    """
+    NB, BS = pool_leaf.shape[0], pool_leaf.shape[1]
+    dev = pool_leaf.device
+    bt = bt.to(device=dev, dtype=torch.int64)
+    positions = positions.to(device=dev, dtype=torch.int64)
+    blk = torch.gather(bt, 1, positions // BS)                 # (B, S)
+    idx = (blk * BS + positions % BS).reshape(-1)              # (B*S,)
+    # .view, not .reshape: a reshape that had to copy would take the writes
+    flat = pool_leaf.view((NB * BS,) + tuple(pool_leaf.shape[2:]))
+    assert flat.data_ptr() == pool_leaf.data_ptr()
+    flat[idx] = val.reshape((-1,) + tuple(val.shape[2:])).to(pool_leaf.dtype)
+    return pool_leaf
+
+
+def kv_quantize(x: torch.Tensor, bits: int):
+    """Asymmetric per-(token, head) KV quantization over head_dim, applied
+    as paged blocks are written (the JAX package's ``kv_quantize``).
+
+    x: (..., hd) -> (q uint8 (..., hd) [or (..., hd/2) nibble-packed at
+    bits=4, the low nibble at the even index], scale bf16 (..., 1), zero
+    bf16 (..., 1)).  Computed in float32; ``torch.round`` rounds half to
+    even, as ``jnp.round`` does.
+    """
+    assert bits in (8, 4), bits
+    xf = x.float()
+    lo = torch.amin(xf, dim=-1, keepdim=True)
+    hi = torch.amax(xf, dim=-1, keepdim=True)
+    qmax = (1 << bits) - 1
+    scale = (hi - lo) / qmax
+    scale = torch.where(scale == 0.0, 1.0, scale)    # constant vector guard
+    q = torch.clamp(torch.round((xf - lo) / scale), 0, qmax).to(torch.uint8)
+    if bits == 4:
+        q = q[..., 0::2] | (q[..., 1::2] << 4)       # nibble-pack along hd
+    return q, scale.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                  bits: int) -> torch.Tensor:
+    """Inverse of :func:`kv_quantize`: uint8 symbols -> bf16 K/V rows,
+    written as :func:`deq` is (a bf16 product, then a bf16 sum)."""
+    assert bits in (8, 4), bits
+    if bits == 4:
+        q = _unpack4(q)
+    bf = torch.bfloat16
+    return q.to(bf) * scale.to(bf) + zero.to(bf)

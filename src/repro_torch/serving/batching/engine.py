@@ -1,5 +1,6 @@
 """Continuous-batching engine: slot-batched decode with mid-flight admission
-(PyTorch port of ``repro/serving/batching/engine.py``, slot pool only).
+(PyTorch port of ``repro/serving/batching/engine.py``: the slot pool and
+the paged KV cache).
 
 The scheduler loop (one ``step()``):
 
@@ -41,9 +42,20 @@ engine's device, seeded with ``SamplingParams.seed`` at admission, once per
 sampled token (greedy lanes never draw), so a request's tokens depend on
 its seed and not on which requests share its batch.
 
-Not ported: the paged KV cache (``kv_spec`` / ``kv_blocks``), the fleet
-seams (``handoff_sink``, ``export_request`` / ``adopt_request`` /
-``evacuate``) and the MoE capacity warning (MoE is not ported).
+Paged KV (``kv_spec``): a :class:`~repro_torch.serving.kvcache.
+BlockKVManager` replaces the slot pool.  Admission peeks at the queue's head
+and pops it only once the manager can cover its whole allocation
+(peek-then-plan); prefill runs through ``paged_prefill_chunk_fn`` straight
+into the request's pool blocks, starting after the prefix-shared chunks the
+manager lets it skip, and the decode step gathers every slot's sequence
+through ``decode_tables()`` (all-trash rows for lanes not yet live).  With
+bf16 blocks and ``max_len`` a multiple of the block size the tokens equal
+the slot pool's bitwise.  Paged KV rides dense residency on one device, as
+in the JAX package; the port has no mesh.
+
+Not ported: the fleet seams (``handoff_sink``, ``export_request`` /
+``can_adopt`` / ``adopt_request`` / ``evacuate``) and the MoE capacity
+warning (MoE is not ported).
 """
 from __future__ import annotations
 
@@ -55,11 +67,13 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.spec import KVCompressionSpec
 from repro_torch.models import api
 from repro_torch.models.layers import QT, QT4
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from ..engine import ServeConfig, ServeSteps, _fence, sample
+from ..kvcache import BlockKVManager
 from .queue import RequestQueue
 from .request import Request, RequestState, SamplingParams
 from .slots import SlotBatchManager
@@ -90,12 +104,18 @@ class ContinuousEngine:
     :class:`repro_torch.serving.resident.CompressedResidentWeights`, and the
     per-layer step loops replace the whole-tree steps with identical
     numerics.
+
+    ``kv_spec`` serves through the paged KV block pool under that policy
+    (``kv_blocks`` blocks, default one slot pool's worth plus the trash
+    block); it needs a family with the paged contract and dense residency,
+    and raises otherwise rather than serve the slot pool.
     """
 
     def __init__(self, cfg: ArchConfig, params: Any, sc: ServeConfig, *,
                  n_slots: int = 8, max_queue: int = 64,
                  prefill_chunk: int = 32, resident: str = "dense",
-                 device=None):
+                 kv_spec: Optional[KVCompressionSpec] = None,
+                 kv_blocks: Optional[int] = None, device=None):
         if not api.supports_continuous_batching(cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r} does not implement the slot-batch "
@@ -112,12 +132,28 @@ class ContinuousEngine:
         self.params = params
         self.sc = sc
         self.steps = ServeSteps(cfg, sc, resident=resident)
-        self.slots = SlotBatchManager(cfg, n_slots, sc.max_len,
-                                      device=self.device)
+        self.paged = kv_spec is not None
+        if self.paged:
+            if not api.supports_paged_kv(cfg):
+                raise NotImplementedError(
+                    f"family {cfg.family!r} does not implement the paged "
+                    f"block-pool cache contract (init_kv_pool + "
+                    f"paged_decode_step); supported today: dense")
+            if self.steps.paged_decode_fn is None:
+                raise NotImplementedError(
+                    "paged KV needs the dense-residency whole-tree steps; "
+                    "serve with resident='dense'")
+            self.slots: Any = BlockKVManager(
+                cfg, n_slots, sc.max_len, spec=kv_spec, n_blocks=kv_blocks,
+                prefill_chunk=prefill_chunk, device=self.device)
+        else:
+            self.slots = SlotBatchManager(cfg, n_slots, sc.max_len,
+                                          device=self.device)
         self.queue = RequestQueue(max_queue)
         self.prefill_chunk = prefill_chunk
         self.finished: List[Request] = []
         self.n_decode_steps = 0
+        self.n_prefill_chunks = 0
         self._prefilling: Optional[dict] = None   # in-flight admission state
         # per-slot step state: last token, temperature, the request's
         # generator (None for a free slot)
@@ -160,6 +196,17 @@ class ContinuousEngine:
         padded = -(-P // chunk) * chunk
         toks = torch.zeros((1, padded), dtype=torch.int64)
         toks[0, :P] = torch.from_numpy(req.prompt.astype(np.int64))
+        if self.paged:
+            # block admission: claim table entries (taking shared prefix
+            # blocks) and start prefill AFTER the shared region — the block
+            # manager keeps the final chunk (position P-1) to run
+            got = self.slots.alloc(req)
+            assert got is not None, "admission past can_admit"
+            slot, skip = got
+            self._prefilling = dict(req=req, slot=slot,
+                                    toks=toks.to(self.device), c0=skip,
+                                    last=None, scratch=None)
+            return
         slot = self.slots.alloc(req)
         assert slot is not None, "admission with no free slot"
         self._prefilling = dict(
@@ -174,10 +221,18 @@ class ContinuousEngine:
         req, chunk = st["req"], self.prefill_chunk
         P, c0 = req.prompt_len, st["c0"]
         with obs_trace.span("serve.admit_chunk", rid=req.rid, c0=c0):
-            logits, st["scratch"] = self.steps.prefill_chunk_fn(
-                self.params, st["toks"][:, c0:c0 + chunk], st["scratch"],
-                torch.full((1,), c0, dtype=torch.int64, device=self.device))
+            tokens = st["toks"][:, c0:c0 + chunk]
+            pos = torch.full((1,), c0, dtype=torch.int64, device=self.device)
+            if self.paged:
+                bt = torch.from_numpy(self.slots.table_rows([st["slot"]]))
+                logits, self.slots.pool = self.steps.paged_prefill_chunk_fn(
+                    self.params, tokens, self.slots.pool,
+                    bt.to(self.device, torch.int64), pos)
+            else:
+                logits, st["scratch"] = self.steps.prefill_chunk_fn(
+                    self.params, tokens, st["scratch"], pos)
             _fence(self.device)
+        self.n_prefill_chunks += 1
         if c0 <= P - 1 < c0 + chunk:
             st["last"] = logits[:, P - 1 - c0][:, None]     # (1, 1, V)
         st["c0"] = c0 + chunk
@@ -185,7 +240,10 @@ class ContinuousEngine:
             return
         self._prefilling = None
         slot = st["slot"]
-        self.slots.insert(slot, st["scratch"], P)
+        if self.paged:
+            self.slots.insert(slot, P)      # prefill wrote the pool in place
+        else:
+            self.slots.insert(slot, st["scratch"], P)
         temp = req.sampling.temperature
         gen = torch.Generator(device=self.device)
         gen.manual_seed(req.sampling.seed)
@@ -219,9 +277,18 @@ class ContinuousEngine:
         chunks = 0
         while True:
             if self._prefilling is None and self.slots.n_free:
-                req = self.queue.pop()
-                if req is not None:
-                    self._start_prefill(req)
+                if self.paged:
+                    # peek-then-plan: commit the pop only once the block
+                    # manager can cover the head's whole allocation; one
+                    # clock reading, so a deadline cannot pass in between
+                    now = time.monotonic()
+                    head = self.queue.peek(now)
+                    if head is not None and self.slots.can_admit(head):
+                        self._start_prefill(self.queue.pop(now))
+                else:
+                    req = self.queue.pop()
+                    if req is not None:
+                        self._start_prefill(req)
             if self._prefilling is None:
                 break
             self._advance_prefill()
@@ -238,8 +305,14 @@ class ContinuousEngine:
             dev = self.device
             pos = torch.from_numpy(self.slots.kv_len).to(dev)
             tok = torch.from_numpy(self._tokens[:, None]).to(dev)
-            logits, self.slots.cache = self.steps.decode_fn(
-                self.params, tok, self.slots.cache, pos)
+            if self.paged:
+                bt = torch.from_numpy(self.slots.decode_tables())
+                logits, self.slots.pool = self.steps.paged_decode_fn(
+                    self.params, tok, self.slots.pool,
+                    bt.to(dev, torch.int64), pos)
+            else:
+                logits, self.slots.cache = self.steps.decode_fn(
+                    self.params, tok, self.slots.cache, pos)
             new_tok = self._sample_slots(logits, active)
         self.n_decode_steps += 1
         obs_metrics.counter("serve.tokens").inc(len(active))

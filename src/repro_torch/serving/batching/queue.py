@@ -1,6 +1,6 @@
 """Bounded admission queue for continuous-batching serving (PyTorch port of
-``repro/serving/batching/queue.py``, without the paged engine's ``peek``
-and the fleet's ``requeue``; stdlib only).
+``repro/serving/batching/queue.py``, without the fleet's ``requeue``;
+stdlib only).
 
 FIFO with two control points:
 
@@ -54,22 +54,34 @@ class RequestQueue:
         obs_metrics.gauge("queue.depth").set(len(self._q))
         return req
 
-    def pop(self, now: Optional[float] = None) -> Optional[Request]:
-        """Next admissible request, or None.  Overdue requests are expired in
-        passing (state EXPIRED, ``finish_reason="deadline"``)."""
+    def peek(self, now: Optional[float] = None) -> Optional[Request]:
+        """The request ``pop`` would return, without removing it.  Overdue
+        heads are expired in passing (state EXPIRED,
+        ``finish_reason="deadline"``), so a peek-then-pop pair always
+        agrees on the head — the paged engine plans block admission against
+        the peeked request before it commits."""
         now = time.monotonic() if now is None else now
         while self._q:
-            req = self._q.popleft()
+            req = self._q[0]
+            if not req.expired(now):
+                return req
+            self._q.popleft()
             obs_metrics.gauge("queue.depth").set(len(self._q))
-            if req.expired(now):
-                req.state = RequestState.EXPIRED
-                req.finish_reason = "deadline"
-                req.t_finished = now
-                self.expired.append(req)
-                obs_metrics.counter("queue.shed").inc(reason="deadline")
-                if req.t_arrival is not None:
-                    obs_metrics.histogram("queue.wait_s").observe(
-                        now - req.t_arrival, outcome="shed")
-                continue
-            return req
+            req.state = RequestState.EXPIRED
+            req.finish_reason = "deadline"
+            req.t_finished = now
+            self.expired.append(req)
+            obs_metrics.counter("queue.shed").inc(reason="deadline")
+            if req.t_arrival is not None:
+                obs_metrics.histogram("queue.wait_s").observe(
+                    now - req.t_arrival, outcome="shed")
         return None
+
+    def pop(self, now: Optional[float] = None) -> Optional[Request]:
+        """Next admissible request (the one :meth:`peek` gives), removed
+        from the queue, or None."""
+        req = self.peek(now)
+        if req is not None:
+            self._q.popleft()
+            obs_metrics.gauge("queue.depth").set(len(self._q))
+        return req

@@ -170,7 +170,10 @@ class ServeSteps:
     :class:`repro_torch.serving.batching.ContinuousEngine` (slot batch).
     ``decode_fn`` takes ``pos`` as an int (lockstep) or a ``(B,)`` tensor
     (per-slot positions); ``prefill_chunk_fn`` writes one prompt chunk at
-    ``(B,)`` offsets.
+    ``(B,)`` offsets.  With dense residency ``paged_decode_fn`` /
+    ``paged_prefill_chunk_fn`` run the same steps over a paged block pool
+    through a ``(B, max_blocks)`` block table; they are None for
+    compressed residency (the paged KV cache rides dense residency only).
 
     ``resident="dense"`` (default) runs the whole-tree steps over a params
     dict.  ``resident="compressed"`` builds per-layer step loops instead:
@@ -197,10 +200,16 @@ class ServeSteps:
         self.sc = sc
         self.mod = api.build(cfg)
         self.resident = resident
+        # paged twins (the block-pool cache layout, a block table as an
+        # extra operand): dense residency only, as in the JAX package
+        self.paged_decode_fn = self.paged_prefill_chunk_fn = None
         if resident == "compressed":
             self.prefill_fn = self._resident_prefill
             self.decode_fn = self._resident_step
             self.prefill_chunk_fn = self._resident_step
+        elif api.supports_paged_kv(cfg):
+            self.paged_decode_fn = self._paged_decode
+            self.paged_prefill_chunk_fn = self._paged_prefill_chunk
 
     def prefill_fn(self, params, prompt: torch.Tensor):
         return self.mod.prefill(self.cfg, params, prompt,
@@ -212,6 +221,16 @@ class ServeSteps:
     def prefill_chunk_fn(self, params, tokens: torch.Tensor, cache,
                          pos: torch.Tensor):
         return self.mod.prefill_chunk(self.cfg, params, tokens, cache, pos)
+
+    def _paged_decode(self, params, token: torch.Tensor, pool,
+                      bt: torch.Tensor, pos: torch.Tensor):
+        return self.mod.paged_decode_step(self.cfg, params, token, pool, bt,
+                                          pos)
+
+    def _paged_prefill_chunk(self, params, tokens: torch.Tensor, pool,
+                             bt: torch.Tensor, pos: torch.Tensor):
+        return self.mod.paged_prefill_chunk(self.cfg, params, tokens, pool,
+                                            bt, pos)
 
     # ------------------------------------------------- compressed residency
     def _resident_prefill(self, weights, prompt: torch.Tensor):

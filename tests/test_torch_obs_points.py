@@ -87,8 +87,12 @@ def test_overlap_report_equals_reference(tmp_path):
     ("resident-fused-lockstep", ["--batch", "1", "--gen", "2",
                                  "--prompt-len", "4", "--resident",
                                  "compressed", "--fused"]),
+    ("paged-continuous", ["--batch-slots", "3", "--traffic", "4",
+                          "--prefix-sharing", "--kv-spec",
+                          "bits=8,block=8,codec=rans", "--prefill-chunk",
+                          "8"]),
 ], ids=["continuous", "continuous-resident-fused", "dense-lockstep",
-        "resident-lockstep", "resident-fused-lockstep"])
+        "resident-lockstep", "resident-fused-lockstep", "paged-continuous"])
 def test_launcher_trace_passes_check_trace(mode, flags, tmp_path):
     trace, metrics = tmp_path / "trace.json", tmp_path / "metrics.jsonl"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -190,7 +190,7 @@ def test_launcher_monolithic_numpy_dense_load(capsys):
     assert "quantized residency: False" in out
 
 
-@pytest.mark.parametrize("flag", ["--fused-impl=pallas", "--kv-spec=bits=4",
+@pytest.mark.parametrize("flag", ["--fused-impl=pallas", "--disaggregate=1:1",
                                   "--replicas=2", "--mesh=1x1"])
 def test_launcher_refuses_flags_not_ported_yet(flag, capsys):
     with pytest.raises(SystemExit) as e:
