@@ -93,7 +93,11 @@ Phases, each printing one JSON line:
 6. reference — the reduced qwen3-1.7b served on the card and on the CPU
    through the same port, dense-resident and compressed-resident fused:
    decoded weights must be identical and prefill logits within
-   ``REF_ATOL``; greedy token agreement is reported.
+   ``REF_ATOL``; greedy token agreement is reported.  Then the reduced
+   qwen2-moe-a2.7b the same way, dense-resident: weights identical, every
+   router choice of the prefill compared (one that differs is reported
+   with its probability gap and must be a near-tie, two bf16 steps), and
+   the logits held within ``REF_ATOL`` when every choice agrees.
 7. kernels — each decode kernel on the first chunk the main path decoded
    with it, held bitwise against its plain PyTorch version on the card, with
    its time (``ms``: launches paced by the host, as every row is timed),
@@ -117,10 +121,30 @@ Phases, each printing one JSON line:
    and over two launches, with the kernel's sync passes or cycles a step,
    the partial buffer's bytes and a dense bf16 matmul floor.
 
+8. moe — qwen2-moe-a2.7b at full width (d_model 2048, 16 heads and 16 KV
+   heads of 128, 60 routed experts of d_ff 1408 padded to 64, top-4, 4
+   shared, padded vocab 152064) with its depth cut from 24 to
+   ``MOE_DEPTH`` and seeded random weights made on the host, compressed
+   under ``SPEC`` by a child process (``--moe-container``) that the script
+   starts first, so the encode runs beside the qwen3 phases.  On its
+   container, in order: dense-resident load through both decode kernels,
+   every tensor held bitwise, ``Engine.generate`` as the serve phase runs
+   it and a ``profile`` of its decode steps; the ``TRAFFIC`` trace through
+   the ``ContinuousEngine`` at the published capacity factor (its
+   low-capacity warning must fire; agreement with solo runs reported);
+   the trace's requests all submitted at once through the slot pool and
+   through bf16 paged blocks of 16 (bitwise equal, request by request; no
+   kernel launch); compressed-resident fused serving (``MOE_FUSED`` fused,
+   the 4-D expert stacks and the shared gate / up on the per-layer
+   decode, launch counts exact, the port's spans summed over the
+   generate); and the fused kernels at the router's and
+   ``shared_w_down``'s shapes, held as the qwen3 rows are.
+
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
-compressed-resident run; ``launches_paged``: on the paged phase, 0),
-and as the last line
+compressed-resident run; ``launches_paged``: on the paged phase, 0;
+``launches_moe``: on the moe phase's dense-resident load and generate and
+on its compressed-resident generate), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits nonzero; without a CUDA device it exits 1 and prints no result.
 """
@@ -217,6 +241,22 @@ DQ_TENSORS = ("layers/wq", "layers/wk", "layers/wv", "layers/wo",
 DQ_M = (BATCH, BATCH * PROMPT)
 DQ_TOL = 1e-2
 DQ_TIMED = 20
+# the moe phase: full-width qwen2-moe-a2.7b (60 routed experts padded to 64,
+# top-4, 4 shared; d_ff 1408 an expert, vocab 151936) cut to MOE_DEPTH of
+# 24 layers, seeded random weights under SPEC (the router and every other
+# layer matrix rANS-4, wo Huffman-8), compressed by a child process started
+# with the script; what its resident run must fuse and what must fall back
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_DEPTH = 1
+MOE_RESIDENT_GEN = 4
+MOE_FUSED = {"layers/wq": "tans", "layers/wk": "tans", "layers/wv": "tans",
+             "layers/wo": "prefix", "layers/moe/router": "tans",
+             "layers/moe/shared_w_down": "tans"}
+MOE_STACKS = ("layers/moe/w_gate", "layers/moe/w_up", "layers/moe/w_down")
+MOE_SHARED_FALLBACK = ("segment of 65536 symbols does not tile rows of "
+                       "width 5632")
+MOE_FUSED_ROWS = (("moe/router", False), ("moe/shared_w_down", False))
+MOE_PAGED_SPEC = "bits=16,block=16"
 
 
 def emit(phase, **kw):
@@ -402,7 +442,7 @@ def device_profile(steps):
                           "calls": e.count} for e in ops])
 
 
-def profile_decode(eng, prompt, dev):
+def profile_decode(eng, prompt, dev, what="decode steps"):
     """Where a lockstep decode step's time goes: ``PROFILE_STEPS`` greedy
     steps after a prefill (:func:`device_profile`)."""
     import torch
@@ -425,7 +465,7 @@ def profile_decode(eng, prompt, dev):
                 ms = (time.perf_counter() - t0) * 1e3
         return ms, prof
 
-    emit("profile", what="decode steps", **device_profile(steps))
+    emit("profile", what=what, **device_profile(steps))
 
 
 def fused_per_forward(rw):
@@ -1175,15 +1215,17 @@ def kernel_phase(cm, launches, clock_mhz, dev):
     return rows
 
 
-def fused_kernel_rows(rw, launches, clock_mhz, dev):
-    """Each fused kernel on layer 0's handles of the resident path (``wo``
-    prefix; ``wq``, ``wk``, ``w_down`` tANS), at the path's two row counts.
-    ``wo`` and ``wq`` are held against the plain version; ``wk`` and
-    ``w_down`` against ``x @ deq(symbols)``, the symbols from the decode
-    kernel (the plain version's Python loop would cost the script a minute
-    more a case): the plain version's own arithmetic on exact symbols.  Two
-    launches must be bitwise equal, and one-hot rows of x bitwise the
-    dequantized weight's rows."""
+def fused_kernel_rows(rw, launches, clock_mhz, dev, rows=FUSED_ROWS):
+    """Each fused kernel on layer 0's handles of the resident path
+    (``rows``: by default qwen3's ``wo`` prefix and ``wq``, ``wk``,
+    ``w_down`` tANS), at the ``FUSED_M`` row counts.  A row marked so is
+    held against the plain version, the others against
+    ``x @ deq(symbols)``, the symbols from the decode kernel (the plain
+    version's Python loop would cost the script a minute more a case): the
+    plain version's own arithmetic on exact symbols.  Two launches must be
+    bitwise equal, and one-hot rows of x bitwise the dequantized weight's
+    rows.  Returns a summary row for each kernel with a plain-checked
+    tensor."""
     import numpy as np
     import torch
     from repro_torch.core.scheduler import plan_fused_spans
@@ -1192,7 +1234,7 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev):
     from repro_torch.models.layers import QT, deq
 
     heads, worst = {}, {}
-    for short, plain_checked in FUSED_ROWS:
+    for short, plain_checked in rows:
         fq = rw._fused_slots[0][short]
         name = f"fused_{fq.family}"
         entry = f"{name}_matmul"
@@ -1292,13 +1334,13 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev):
             heads[name] = (short, replaces, per_m)
     # one summary row a kernel, from its plain-checked tensor; the error is
     # the worst over all its shapes
-    rows = []
+    summary = []
     for name, (short, replaces, per_m) in heads.items():
         head = per_m[BATCH]
         at = lambda M: {k: per_m[M][k] for k in (  # noqa: E731
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
             "onehot_bitwise")}
-        rows.append(dict(
+        summary.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/fused_decode_matmul.cu",
             replaces=replaces, launches=launches[name],
@@ -1309,7 +1351,7 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev):
             onehot_bitwise=head["onehot_bitwise"],
             m128=at(BATCH * PROMPT), m8=at(N_SLOTS),
             m16=at(PREFILL_CHUNK)))
-    return rows
+    return summary
 
 
 def cuda_ms_cold(fn, n, flush):
@@ -1525,13 +1567,457 @@ def dequant_matmul_phase(cm, params, clock_mhz, dev):
         max_abs_err=worst)
 
 
+# ------------------------------------------------------------------ moe phase
+
+def moe_config():
+    """(published config, the moe phase's depth cut of it)."""
+    from repro_torch.configs import registry
+    full = registry.get(MOE_ARCH)
+    return full, dataclasses.replace(full, n_layers=MOE_DEPTH)
+
+
+def moe_host_weights(cfg):
+    """The moe phase's seeded random weights, made on the host: the child
+    that compresses them and the phase that checks the card's decode make
+    the same ones."""
+    import torch
+    from repro_torch.models import moe
+    params = moe.init(cfg, 0, torch.device("cpu"))
+    return {k: v.float().numpy() for k, v in params.items()}
+
+
+def write_moe_container(path):
+    """Child process (``--moe-container PATH``): the moe phase's weights
+    compressed under ``SPEC`` and saved to ``path``, its timings beside it
+    (``PATH.json``).  Runs on the host alone, beside the qwen3 phases."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.quant import Granularity
+    from repro_torch.core.spec import CompressionSpec
+    from repro_torch.core.store import CompressedModel
+    _, cfg = moe_config()
+    t0 = time.perf_counter()
+    host = moe_host_weights(cfg)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cm = CompressedModel.compress(host, spec=CompressionSpec.parse(
+        SPEC, default_granularity=Granularity.PER_CHANNEL))
+    compress_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cm.save(path)
+    with open(path + ".json", "w") as f:
+        json.dump(dict(init_s=init_s, compress_s=compress_s,
+                       save_s=time.perf_counter() - t0), f)
+
+
+def start_moe_container():
+    """Start the child that writes the moe container; returns (process,
+    path).  Its errors go to ``PATH.log``."""
+    path = os.path.join(ROOT, "build", "chip_smoke", f"{MOE_ARCH}.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    for p in (path, path + ".json"):
+        if os.path.exists(p):
+            os.remove(p)
+    with open(path + ".log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--moe-container",
+             path], stdout=subprocess.DEVNULL, stderr=log, cwd=ROOT)
+    return proc, path
+
+
+def moe_container(proc, path):
+    """Wait for the child; returns (container, its timings, seconds
+    waited)."""
+    from repro_torch.core.store import CompressedModel
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        with open(path + ".log") as f:
+            raise AssertionError(f"moe container child exited {rc}: "
+                                 f"{f.read()[-2000:]}")
+    with open(path + ".json") as f:
+        made = json.load(f)
+    t0 = time.perf_counter()
+    cm = CompressedModel.load(path)
+    made["load_s"] = time.perf_counter() - t0
+    for p in (path, path + ".json", path + ".log"):
+        os.remove(p)
+    return cm, made, waited
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Records each ``moe.route`` call's (probs, top-k ids) on the host,
+    in call order (one a layer a forward)."""
+    from repro_torch.models import moe
+    got, orig = [], moe.route
+
+    def recording(x, router, k):
+        out = orig(x, router, k)
+        got.append((out[0].float().cpu().numpy(), out[2].cpu().numpy()))
+        return out
+
+    moe.route = recording
+    try:
+        yield got
+    finally:
+        moe.route = orig
+
+
+def route_flips(routes, want):
+    """Every router choice of ``routes`` that differs from ``want``'s (both
+    from :func:`recorded_routes`), with the gap of ``want``'s probabilities
+    between the experts the two picked and its near-tie limit (two bf16
+    steps at the k-th probability: ROADMAP's rule)."""
+    import math
+    import numpy as np
+    flips = []
+    for layer, ((_, a), (probs, b)) in enumerate(zip(routes, want)):
+        for r, s in zip(*np.nonzero((np.sort(a, -1) != np.sort(b, -1))
+                                    .any(-1))):
+            p = probs[r, s]
+            gap = abs(float(p[np.setdiff1d(a[r, s], b[r, s])].min()
+                            - p[np.setdiff1d(b[r, s], a[r, s])].max()))
+            kth = float(np.sort(p)[-b.shape[-1]])
+            limit = 2 * 2.0 ** (math.frexp(kth)[1] - 8)
+            flips.append(dict(call=layer, row=int(r), pos=int(s), gap=gap,
+                              limit=limit, near_tie=gap <= limit))
+    return flips
+
+
+def moe_dense(cm, made, cfg, full, dev):
+    """Step 1: the container decoded onto the card through both decode
+    kernels, every tensor held bitwise to ``quant.quantize``, then
+    ``Engine.generate`` as the serve phase runs it."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quant import Granularity
+    from repro_torch.core.spec import CompressionSpec
+    from repro_torch.kernels import build
+    from repro_torch.serving import engine
+    spec = CompressionSpec.parse(SPEC,
+                                 default_granularity=Granularity.PER_CHANNEL)
+    st = cm.stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in build.launches:
+        build.launches[k] = 0
+    load = {}
+    params = engine.load_params_from_compressed(
+        cm, backend="cuda", device=dev, metrics=load)
+    eng = engine.Engine(cfg, params, engine.ServeConfig(max_len=PROMPT + GEN),
+                        device=dev)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
+    t0 = time.perf_counter()
+    eng.generate(prompt, 2)          # first call: allocator and caches
+    first_generate_s = time.perf_counter() - t0
+    out, met = eng.generate(prompt, GEN, echo_metrics=True)
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for k in ("huffman_decode", "ans_decode"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the moe load")
+    t0 = time.perf_counter()
+    n_checked = check_decoded(cm, moe_host_weights(cfg), params, spec, dev)
+    check_s = time.perf_counter() - t0
+    Vp = cfg.padded_vocab()
+    if tuple(out.shape) != (BATCH, GEN) or out.dtype != torch.int32:
+        raise AssertionError(f"moe tokens {tuple(out.shape)} {out.dtype}")
+    if not bool(((out >= 0) & (out < Vp)).all()):
+        raise AssertionError("moe token outside the padded vocabulary")
+    with torch.inference_mode():
+        logits, _ = eng.steps.prefill_fn(params,
+                                         torch.as_tensor(prompt, device=dev))
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("moe: non-finite prefill logits")
+    profile_decode(eng, prompt, dev, what=f"{cfg.name} decode steps")
+    emit("moe", step="dense", arch=cfg.name,
+         reduced={"n_layers": [full.n_layers, MOE_DEPTH]},
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+         d_ff=cfg.d_ff, experts=[cfg.moe.num_experts,
+                                 cfg.moe.padded_experts(16)],
+         top_k=cfg.moe.top_k, shared_experts=cfg.moe.shared_experts,
+         capacity_factor=cfg.moe.capacity_factor, padded_vocab=Vp,
+         spec=SPEC, params=st.param_count, effective_bits=st.effective_bits,
+         groups={g.table_id: {"params": g.param_count,
+                              "achieved_bits": g.effective_bits,
+                              "entropy_bits": g.entropy_bits}
+                 for g in st.groups},
+         encoded_bytes=st.encoded_bytes, container=made,
+         first_generate_s=first_generate_s,
+         decode_backend=load["decode_backend"],
+         decode_load_s=load["decode_load_s"],
+         ttfw_s=load["time_to_first_weight_s"], ttft_s=met["ttft_s"],
+         prefill_s=met["prefill_s"], decode_s=met["decode_s"],
+         decode_tok_per_s=met["decode_tok_per_s"],
+         e2e_tok_per_s=met["e2e_tok_per_s"], peak_bytes=peak,
+         launches=launches, tensors_checked=n_checked, check_s=check_s,
+         tokens=out[0].tolist())
+    return params, prompt, out.cpu(), launches
+
+
+def serve_all(cfg, params, dev, trace, **engine_kw):
+    """Every request of ``trace`` submitted at once, then served to the end
+    (no arrival pacing: two runs pack their steps the same way)."""
+    from repro_torch.serving import engine
+    from repro_torch.serving.batching import ContinuousEngine
+    ce = ContinuousEngine(cfg, params, engine.ServeConfig(max_len=CONT_MAX_LEN),
+                          n_slots=N_SLOTS, prefill_chunk=PREFILL_CHUNK,
+                          max_queue=MAX_QUEUE, device=dev, **engine_kw)
+    reqs = [ce.submit(p, g) for _, p, g in trace]
+    t0 = time.perf_counter()
+    ce.run()
+    makespan = time.perf_counter() - t0
+    if not all(r.finish_reason == "length" for r in reqs):
+        raise AssertionError("a request did not finish")
+    toks = sum(len(r.output) for r in reqs)
+    return ce, [r.output for r in reqs], dict(
+        tokens=toks, makespan_s=makespan, tok_per_s=toks / makespan,
+        n_decode_steps=ce.n_decode_steps, prefill_chunks=ce.n_prefill_chunks)
+
+
+def moe_continuous(cfg, params, dev):
+    """Steps 2 and 3: the ``TRAFFIC`` trace replayed through the
+    ``ContinuousEngine`` at the published capacity (its low-capacity
+    warning must fire), against each request's solo run; then the trace's
+    requests, all submitted at once, through the slot pool and through bf16
+    paged blocks of 16 without prefix sharing in a pool that never makes
+    admission wait: the same packing, so the same capacity every step, and
+    tokens bitwise equal request by request.  No kernel launches in
+    either."""
+    import warnings
+    import torch
+    from repro_torch.core.spec import KVCompressionSpec
+    from repro_torch.kernels import build
+    from repro_torch.serving import engine
+    torch.cuda.synchronize()
+    for k in build.launches:
+        build.launches[k] = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ce, reqs, trace, run = serve_trace(cfg, params, "dense", dev)
+    warned = [str(w.message) for w in caught
+              if "capacity_factor" in str(w.message)]
+    if not warned:
+        raise AssertionError("moe: the low-capacity warning did not fire")
+    solo = engine.Engine(cfg, params, engine.ServeConfig(max_len=CONT_MAX_LEN),
+                         device=dev)
+    same, pairs = 0, []
+    for (_, prompt, gen), r in zip(trace, reqs):
+        want = solo.generate(prompt[None], gen)[0].tolist()
+        same += want == r.output
+        pairs += list(zip(want, r.output))
+    emit("moe", step="continuous", arch=cfg.name, n_slots=N_SLOTS,
+         prefill_chunk=PREFILL_CHUNK, max_len=CONT_MAX_LEN, traffic=TRAFFIC,
+         capacity_factor=cfg.moe.capacity_factor, warning=warned[0], **run,
+         requests_equal_solo=same, solo_compared=len(trace),
+         token_agreement_vs_solo=sum(a == b for a, b in pairs) / len(pairs),
+         tokens_request0=reqs[0].output)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, slot_out, slot_run = serve_all(cfg, params, dev, trace)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pce, paged_out, paged_run = serve_all(
+            cfg, params, dev, trace,
+            kv_spec=KVCompressionSpec.parse(MOE_PAGED_SPEC))
+    launches = dict(build.launches)
+    equal = sum(a == b for a, b in zip(paged_out, slot_out))
+    emit("moe", step="paged", arch=cfg.name, kv_spec=MOE_PAGED_SPEC,
+         kv_blocks=pce.slots.n_blocks, slot_pool=slot_run, paged=paged_run,
+         peak_bytes=torch.cuda.max_memory_allocated(dev),
+         requests_equal_slot_pool=equal, compared=len(trace),
+         launches=launches, **pce.slots.stats())
+    if paged_out != slot_out:
+        raise AssertionError(f"moe paged bf16 differs from the slot pool: "
+                             f"{equal} of {len(trace)} requests equal")
+    if any(launches.values()):
+        raise AssertionError(f"moe continuous / paged launches {launches}")
+
+
+def moe_resident(cm, cfg, prompt, dense_tokens, dev):
+    """Step 4: compressed-resident fused serving of the container: the
+    attention matrices, the router and ``shared_w_down`` fused, the 4-D
+    expert stacks and the shared gate / up (rows of 5632) on the per-layer
+    decode; launch counts exact, as the resident phase holds them."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving import engine
+    from repro_torch.serving.resident import CompressedResidentWeights
+    counters = ("resident.prefetch_hit", "resident.prefetch_wait",
+                "resident.consume_wait_s")
+    read = lambda: {c: obs_metrics.counter(c).total()  # noqa: E731
+                    for c in counters}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in build.launches:
+        build.launches[k] = 0
+    t0 = time.perf_counter()
+    rw = CompressedResidentWeights(cm, cfg, backend="cuda", fused=True,
+                                   device=dev)
+    build_s = time.perf_counter() - t0
+    built = dict(build.launches)
+    fused = {n: rw._fused_slots[0][n.split("/", 1)[1]].family
+             for n in rw._fused}
+    if fused != MOE_FUSED:
+        raise AssertionError(f"moe fused tensors {fused}, expected "
+                             f"{MOE_FUSED}")
+    want = {n: "is not a stacked (L, K, N) matrix" for n in MOE_STACKS}
+    want.update({f"layers/moe/shared_w_{g}": MOE_SHARED_FALLBACK
+                 for g in ("gate", "up")})
+    if set(rw.fused_fallback) != set(want) or not all(
+            want[n] in r for n, r in rw.fused_fallback.items()):
+        raise AssertionError(f"moe fallback {rw.fused_fallback}")
+    eng = engine.Engine(cfg, rw, engine.ServeConfig(max_len=PROMPT + GEN),
+                        device=dev, resident="compressed")
+    c0 = read()
+    # the port's spans over the generate, no device fences: where a forward
+    # goes (the worker's layer decode and its decode calls, the engine's
+    # layers and its waits for the worker)
+    tracer = obs_trace.enable()
+    out, met = eng.generate(prompt, MOE_RESIDENT_GEN, echo_metrics=True)
+    speculative = rw.wait_prefetches()
+    obs_trace.disable()
+    launches, c1 = dict(build.launches), read()
+    spans = {}
+    for e in tracer.events:
+        n, t = spans.get(e.name, (0, 0.0))
+        spans[e.name] = (n + 1, t + e.dur_us / 1e6)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for k in ("huffman_decode", "ans_decode", "fused_prefix", "fused_tans"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the moe resident "
+                                 f"path")
+    forwards = MOE_RESIDENT_GEN      # the prefill and the decode steps
+    per_forward = fused_per_forward(rw)
+    fused_launches = {k: launches[k] for k in per_forward}
+    if fused_launches != {k: forwards * v for k, v in per_forward.items()}:
+        raise AssertionError(f"moe fused launches {fused_launches}, expected "
+                             f"{forwards} x {per_forward}")
+    per_layer = fallback_calls_per_layer(rw)
+    ans = dict(at_build=built["ans_decode"], per_forward=sum(per_layer),
+               forwards=forwards, speculative_prefetches=speculative,
+               per_prefetch=per_layer[0])
+    ans["expected"] = (ans["at_build"] + forwards * ans["per_forward"]
+                       + speculative * per_layer[0])
+    if launches["ans_decode"] != ans["expected"]:
+        raise AssertionError(f"moe ans_decode launched "
+                             f"{launches['ans_decode']} times, expected {ans}")
+    peak_resident, bf16 = rw.peak_resident_bytes(), rw.dense_bf16_bytes()
+    if not peak_resident < bf16:
+        raise AssertionError(f"moe peak resident {peak_resident} >= bf16 "
+                             f"{bf16}")
+    if tuple(out.shape) != (BATCH, MOE_RESIDENT_GEN):
+        raise AssertionError(f"moe resident tokens {tuple(out.shape)}")
+    rw.close()
+    emit("moe", step="resident", arch=cfg.name, fused=fused,
+         fallback=rw.fused_fallback, weights_build_s=build_s,
+         gen=MOE_RESIDENT_GEN, ttft_s=met["ttft_s"],
+         prefill_s=met["prefill_s"], decode_s=met["decode_s"],
+         decode_tok_per_s=met["decode_tok_per_s"],
+         e2e_tok_per_s=met["e2e_tok_per_s"], peak_bytes=peak,
+         resident_bytes=rw.resident_bytes(),
+         peak_resident_bytes=peak_resident,
+         dense_resident_bytes=rw.dense_resident_bytes(),
+         dense_bf16_bytes=bf16, launches=launches,
+         fused_launches_per_forward=per_forward, ans_decode_launches=ans,
+         prefetch_hits=c1["resident.prefetch_hit"]
+         - c0["resident.prefetch_hit"],
+         prefetch_waits=c1["resident.prefetch_wait"]
+         - c0["resident.prefetch_wait"],
+         consume_wait_s=c1["resident.consume_wait_s"]
+         - c0["resident.consume_wait_s"],
+         spans={n: {"count": c, "s": t} for n, (c, t) in sorted(spans.items())},
+         token_agreement_vs_dense=float(
+             (out.cpu() == dense_tokens[:, :MOE_RESIDENT_GEN]).float()
+             .mean()),
+         tokens=out[0].tolist())
+    return rw, launches
+
+
+def moe_phase(proc, path, clock_mhz, dev):
+    """qwen2-moe-a2.7b at full width, ``MOE_DEPTH`` layers: the child's
+    container dense-resident, continuous, paged, then compressed-resident
+    fused and the fused kernels at the router's and ``shared_w_down``'s
+    shapes.  Returns each kernel's launches by residency."""
+    import torch
+    full, cfg = moe_config()
+    cm, made, waited = moe_container(proc, path)
+    made["waited_s"] = waited
+    params, prompt, tokens, dense_launches = moe_dense(cm, made, cfg, full,
+                                                       dev)
+    moe_continuous(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    rw, resident_launches = moe_resident(cm, cfg, prompt, tokens, dev)
+    fused_kernel_rows(rw, resident_launches, clock_mhz, dev,
+                      rows=MOE_FUSED_ROWS)
+    return {"dense": dense_launches, "resident": resident_launches}
+
+
+def moe_reference_check(dev):
+    """Reduced qwen2-moe-a2.7b: the port on the card against the port on
+    the CPU, from one container: decoded weights identical, every router
+    choice compared (one that differs must be a near-tie), and prefill
+    logits within ``REF_ATOL`` when every choice agrees."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.quant import Granularity
+    from repro_torch.core.spec import CompressionSpec
+    from repro_torch.core.store import CompressedModel
+    from repro_torch.models import moe
+    from repro_torch.serving import engine
+
+    cfg = registry.reduced(registry.get(MOE_ARCH))
+    spec = CompressionSpec.parse(SPEC + "; defaults:segment_symbols=4096",
+                                 default_granularity=Granularity.PER_CHANNEL)
+    host = {k: v.float().numpy()
+            for k, v in moe.init(cfg, 1, torch.device("cpu")).items()}
+    cm = CompressedModel.compress(host, spec=spec)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (2, 8))
+    runs = []
+    for d, backend in ((dev, "cuda"), (torch.device("cpu"), "torch")):
+        params = engine.load_params_from_compressed(cm, backend=backend,
+                                                    device=d)
+        eng = engine.Engine(cfg, params, engine.ServeConfig(max_len=16),
+                            device=d)
+        with torch.inference_mode(), recorded_routes() as routes:
+            logits, _ = eng.steps.prefill_fn(
+                params, torch.as_tensor(prompt, device=d))
+        runs.append((params, logits.float().cpu(), routes,
+                     eng.generate(prompt, 8).cpu()))
+    (pc, lc, rc, tc), (pp, lp, rp, tp) = runs
+    for name in pp:
+        a, b = pc[name], pp[name]
+        parts = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        for x, y in parts:
+            assert torch.equal(x.cpu(), y), name
+    flips = route_flips(rc, rp)
+    err = float((lc - lp).abs().max())
+    emit("reference", arch=cfg.name, router_calls=len(rp),
+         router_choices_compared=sum(r[1].shape[0] * r[1].shape[1]
+                                     for r in rp),
+         router_flips=flips, logits_max_abs_err=err, atol=REF_ATOL,
+         logits_held=not flips,
+         greedy_token_agreement=float((tc == tp).float().mean()))
+    if not all(f["near_tie"] for f in flips):
+        raise AssertionError(f"moe router choices differ beyond a near-tie: "
+                             f"{flips}")
+    if not flips and not err <= REF_ATOL:
+        raise AssertionError(f"moe card vs CPU logits differ by {err}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import build
+    # outside a checkout this import fails, before any child is started
+    from repro_torch.kernels import build  # noqa: F401
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1544,6 +2030,20 @@ def main():
          cuda=torch.version.cuda, max_sm_clock_mhz=clock_mhz)
     print(smi_line, flush=True)
 
+    moe_child, moe_path = start_moe_container()
+    try:
+        return run_phases(moe_child, moe_path, kind, count, smi_line,
+                          clock_mhz, dev)
+    finally:
+        if moe_child.poll() is None:
+            moe_child.kill()
+            moe_child.wait()
+
+
+def run_phases(moe_child, moe_path, kind, count, smi_line, clock_mhz, dev):
+    """Every phase in order; the moe container's child runs meanwhile."""
+    import torch
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     report = build.build()
     emit("build", seconds=time.perf_counter() - t0,
@@ -1569,14 +2069,23 @@ def main():
                                            dense_tokens, dev)
     resident_s = time.perf_counter() - t0
     reference_check(dev)
+    moe_reference_check(dev)
     rows = kernel_phase(cm, launches, clock_mhz, dev)
     rows += fused_kernel_rows(rw, resident_launches, clock_mhz, dev)
     rows.append(dq_row)
+    del rw, cm
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_launches = moe_phase(moe_child, moe_path, clock_mhz, dev)
+    moe_s = time.perf_counter() - t0
     for row in rows:
         row["launches_continuous"] = continuous_launches.get(row["name"], 0)
         row["launches_paged"] = paged_launches.get(row["name"], 0)
+        row["launches_moe"] = {k: v.get(row["name"], 0)
+                               for k, v in moe_launches.items()}
     emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
-         paged_phase_s=paged_s, resident_phase_s=resident_s)
+         paged_phase_s=paged_s, resident_phase_s=resident_s,
+         moe_phase_s=moe_s)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1585,4 +2094,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--moe-container"]:
+        write_moe_container(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

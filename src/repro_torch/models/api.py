@@ -12,8 +12,8 @@ positions), for the paged KV cache ``init_kv_pool`` and the block-table
 twins ``paged_prefill_chunk`` / ``paged_decode_step``, and for
 compressed-resident serving, the per-layer weight-slot twins
 ``embed_step`` / ``head_step`` / ``resident_prefill_block`` /
-``resident_block``.  Only the dense family is ported so far; the others
-raise.
+``resident_block``.  The dense and moe families are ported so far; the
+others raise.
 """
 from __future__ import annotations
 
@@ -22,13 +22,16 @@ from typing import Dict, Tuple
 
 from repro_torch.configs.base import ArchConfig
 
-_NOT_PORTED = ("moe", "ssm", "hybrid", "encdec")
+_NOT_PORTED = ("ssm", "hybrid", "encdec")
 
 
 def build(cfg: ArchConfig) -> types.ModuleType:
     if cfg.family == "dense":
         from . import dense
         return dense
+    if cfg.family == "moe":
+        from . import moe
+        return moe
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet")
@@ -45,8 +48,8 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Tuple]:
 
 def supports_continuous_batching(cfg: ArchConfig) -> bool:
     """True when the family implements the slot-batch cache contract
-    (``prefill_chunk`` + per-slot ``decode_step`` positions); dense
-    today."""
+    (``prefill_chunk`` + per-slot ``decode_step`` positions); dense and
+    moe."""
     try:
         return hasattr(build(cfg), "prefill_chunk")
     except NotImplementedError:
@@ -56,7 +59,7 @@ def supports_continuous_batching(cfg: ArchConfig) -> bool:
 def supports_paged_kv(cfg: ArchConfig) -> bool:
     """True when the family implements the paged block-pool cache contract
     (``init_kv_pool`` + ``paged_decode_step`` / ``paged_prefill_chunk``
-    through a block table); dense today."""
+    through a block table); dense and moe."""
     try:
         return hasattr(build(cfg), "paged_decode_step")
     except NotImplementedError:
@@ -66,7 +69,7 @@ def supports_paged_kv(cfg: ArchConfig) -> bool:
 def supports_resident_serving(cfg: ArchConfig) -> bool:
     """True when the family implements the per-layer weight-slot contract
     of compressed-resident serving (``embed_step`` / ``head_step`` /
-    ``resident_prefill_block`` / ``resident_block``); dense today."""
+    ``resident_prefill_block`` / ``resident_block``); dense and moe."""
     try:
         return hasattr(build(cfg), "resident_block")
     except NotImplementedError:

@@ -183,16 +183,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None):
     """Run the prompt; return (last-position logits, cache padded to max_len)."""
-    B, S = tokens.shape
-    max_len = max_len or S
     x, caches = forward(cfg, params, tokens, collect_cache=True)
-    cache = init_cache(cfg, B, max_len, dtype=caches[0][0].dtype,
-                       device=tokens.device)
+    cache = _prefill_cache(cfg, caches, max_len or tokens.shape[1])
+    logits = logits_fn(cfg, params, x[:, -1:, :])
+    return logits, cache
+
+
+def _prefill_cache(cfg: ArchConfig, caches, max_len: int):
+    """A slot cache of ``max_len`` rows holding each layer's prompt (k, v)
+    (B, S, KV, hd) in its first S rows, zeros after (the JAX package's
+    padded stack)."""
+    k0 = caches[0][0]
+    B, S = k0.shape[:2]
+    cache = init_cache(cfg, B, max_len, dtype=k0.dtype, device=k0.device)
     for l, (k, v) in enumerate(caches):
         cache["k"][l, :, :S] = k
         cache["v"][l, :, :S] = v
-    logits = logits_fn(cfg, params, x[:, -1:, :])
-    return logits, cache
+    return cache
 
 
 def _positions(pos: Any, S: int, device) -> torch.Tensor:

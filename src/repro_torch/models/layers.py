@@ -190,6 +190,21 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax written out as the JAX package computes it (exp of the
+    max-shifted input, divided by its sum)."""
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries along the last axis and their indices,
+    ties broken toward the lower index as ``jax.lax.top_k`` breaks them (a
+    stable descending sort; ``torch.topk`` documents no order for ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def swiglu(x: torch.Tensor, w_gate: Any, w_up: Any, w_down: Any) -> torch.Tensor:
     g = matmul(x, w_gate)
     u = matmul(x, w_up)
@@ -237,11 +252,7 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask &= tpos <= qpos[:, None]
         if kv_len is not None:
             mask &= tpos < kv_len
-    s = torch.where(mask, s, NEG_INF)
-    # softmax written out as the JAX package computes it (exp of the
-    # max-shifted scores, divided by their sum)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
+    p = softmax(torch.where(mask, s, NEG_INF))
     return torch.einsum("bnst,btnh->bsnh", p.to(v.dtype), v)
 
 

@@ -1,0 +1,327 @@
+"""Mixture-of-Experts feed-forward and the dbrx / qwen2-moe decoder family
+(PyTorch port of ``repro/models/moe.py``, one device).
+
+Dispatch is GShard's, sort-free, as in the JAX package: the router picks
+each token's top-k experts, every (token, choice) pair gets a slot in an
+``(E, C, D)`` capacity buffer from a one-hot running count of earlier
+choices of the same expert, the tokens are gathered into their slots, the
+experts run as three batched products, and the outputs are gathered back
+and summed one choice at a time.  A choice past its expert's capacity ``C``
+is dropped (``capacity_factor`` sets the drop rate).
+
+The JAX package's expert-parallel branch (a ``shard_map`` over the mesh's
+model axis) is not ported; this is its single-device branch, where the
+whole expert set is local.  Attention, caches, the per-layer weight slots of
+compressed-resident serving and the paged block pool are the dense
+family's.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, MoEConfig
+from . import dense
+from .layers import (Schema, Spec, deq, init_params, matmul, rms_norm, silu,
+                     softmax, swiglu, take_rows, top_k)
+
+# ------------------------------------------------------------------------ dispatch
+
+
+def _capacity(n_tokens: int, top_k: int, n_experts: int, cf: float) -> int:
+    c = int(-(-n_tokens * top_k * cf // n_experts))  # ceil
+    return max(4, -(-c // 4) * 4)                    # multiple of 4, >= 4
+
+
+def _assign_slots(eid: torch.Tensor, e0: int, E_loc: int,
+                  C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity slots of the (N*K,) flattened expert choices, all K choices
+    at once so capacity is shared: a choice of local expert ``e`` takes
+    slot ``e * C + (its earlier choices of e)``.  Returns (keep, slot): a
+    choice routed elsewhere or past capacity gets the trash slot
+    ``E_loc * C``."""
+    local = (eid >= e0) & (eid < e0 + E_loc)
+    el = torch.where(local, eid - e0, E_loc)                # E_loc = overflow
+    oh = torch.nn.functional.one_hot(el, E_loc + 1)         # (N*K, E_loc+1)
+    # the exclusive running count in the choice's own column (the
+    # reference's max over ``where=oh > 0``: one column is set a row)
+    pos = (torch.cumsum(oh, 0) - oh).gather(1, el[:, None])[:, 0]
+    pos = torch.where(local, pos, C)
+    keep = local & (pos < C)
+    return keep, torch.where(keep, el * C + pos, E_loc * C)
+
+
+def _dispatch_compute(x2d: torch.Tensor, gates: torch.Tensor,
+                      idx: torch.Tensor, w_gate: Any, w_up: Any, w_down: Any,
+                      e0: int, E_loc: int, C: int) -> torch.Tensor:
+    """Local-expert dispatch + compute.  x2d: (N, D); gates / idx: (N, K).
+
+    Returns the (N, D) output of the experts ``[e0, e0 + E_loc)``: zeros for
+    tokens routed elsewhere or past their expert's capacity.
+    """
+    N, D = x2d.shape
+    K = idx.shape[-1]
+    dev = x2d.device
+    keep, slot = _assign_slots(idx.reshape(-1), e0, E_loc, C)
+
+    # several dropped choices write the trash slot (index_put_ keeps any one
+    # of them; the row is discarded); a live slot is written once
+    n_slots = E_loc * C + 1
+    writes = torch.zeros(n_slots, dtype=torch.int64, device=dev).index_add_(
+        0, slot, torch.ones_like(slot))
+    torch._assert_async((writes[:-1] <= 1).all())
+    tok = torch.arange(N * K, device=dev) // K
+    tok_for_slot = torch.zeros(n_slots, dtype=torch.int64, device=dev)
+    tok_for_slot[slot] = tok
+    valid = torch.zeros(n_slots, dtype=x2d.dtype, device=dev)
+    valid[slot] = 1.0
+
+    buf = x2d[tok_for_slot[:-1]]                            # (E_loc*C, D)
+    buf = (buf * valid[:-1, None]).reshape(E_loc, C, D)
+
+    h = torch.einsum("ecd,edf->ecf", buf, deq(w_gate, x2d.dtype))
+    u = torch.einsum("ecd,edf->ecf", buf, deq(w_up, x2d.dtype))
+    y = torch.einsum("ecf,efd->ecd", silu(h) * u, deq(w_down, x2d.dtype))
+    y_flat = torch.cat([y.reshape(E_loc * C, D),
+                        torch.zeros((1, D), dtype=y.dtype, device=dev)])
+
+    # combine one top-k choice at a time, in the activation dtype (one
+    # weighted sum over k would round differently)
+    slot_nk = slot.reshape(N, K)
+    keep_nk = keep.reshape(N, K)
+    out = torch.zeros((N, D), dtype=x2d.dtype, device=dev)
+    for k in range(K):
+        contrib = y_flat[slot_nk[:, k]]
+        g = (gates[:, k] * keep_nk[:, k]).to(x2d.dtype)
+        out = out + contrib * g[:, None]
+    return out
+
+
+def route(x: torch.Tensor, router: Any,
+          K: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router: float32 probabilities over the experts, and each token's
+    top-``K`` choices with their gates renormalised to sum to one.
+    Returns (probs, gates, idx)."""
+    logits = matmul(x, router).float()                      # (B, S, E)
+    probs = softmax(logits)
+    gates, idx = top_k(probs, K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, idx
+
+
+def moe_mlp(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
+            n_experts_padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE feed-forward.  Returns (y, load_balance_aux)."""
+    B, S, D = x.shape
+    E, K = n_experts_padded, mcfg.top_k
+    probs, gates, idx = route(x, wts["router"], K)
+
+    # Switch-style load-balance aux: E * sum_e f_e * p_e
+    me = probs.mean(dim=(0, 1))                             # (E,)
+    flat = idx.reshape(-1)
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=x.device)) / (B * S * K)
+    aux = E * torch.sum(me * ce)
+
+    C = _capacity(B * S, K, E, mcfg.capacity_factor)
+    y = _dispatch_compute(
+        x.reshape(B * S, D), gates.reshape(-1, K), idx.reshape(-1, K),
+        wts["w_gate"], wts["w_up"], wts["w_down"], 0, E, C).reshape(B, S, D)
+    if mcfg.shared_experts:
+        y = y + swiglu(x, wts["shared_w_gate"], wts["shared_w_up"],
+                       wts["shared_w_down"])
+    return y, aux
+
+
+# ------------------------------------------------------- decoder family (dbrx/qwen2)
+
+def _padded_experts(cfg: ArchConfig, multiple: int = 16) -> int:
+    return cfg.moe.padded_experts(multiple)
+
+
+def moe_block_schema(prefix: str, L: int, D: int, F: int, mcfg: MoEConfig,
+                     Ep: int, resid: float) -> Schema:
+    s: Schema = {
+        f"{prefix}/router": Spec((L, D, Ep), ("layers", "embed", "expert"),
+                                 0.02, torch.float32),
+        f"{prefix}/w_gate": Spec((L, Ep, D, F), ("layers", "expert",
+                                                 "expert_embed",
+                                                 "expert_mlp")),
+        f"{prefix}/w_up": Spec((L, Ep, D, F), ("layers", "expert",
+                                               "expert_embed", "expert_mlp")),
+        f"{prefix}/w_down": Spec((L, Ep, F, D), ("layers", "expert",
+                                                 "expert_mlp",
+                                                 "expert_embed"), resid),
+    }
+    if mcfg.shared_experts:
+        Fs = F * mcfg.shared_experts
+        s[f"{prefix}/shared_w_gate"] = Spec((L, D, Fs),
+                                            ("layers", "embed", "mlp"))
+        s[f"{prefix}/shared_w_up"] = Spec((L, D, Fs),
+                                          ("layers", "embed", "mlp"))
+        s[f"{prefix}/shared_w_down"] = Spec((L, Fs, D),
+                                            ("layers", "mlp", "embed"), resid)
+    return s
+
+
+def schema(cfg: ArchConfig) -> Schema:
+    """dbrx / qwen2-moe: dense attention + MoE feed-forward every layer."""
+    L, D = cfg.n_layers, cfg.d_model
+    Ep = _padded_experts(cfg)
+    resid = 0.02 / (2 * L) ** 0.5
+    s = dense.schema(cfg)
+    for k in ["layers/w_gate", "layers/w_up", "layers/w_down"]:
+        del s[k]
+    s.update(moe_block_schema("layers/moe", L, D, cfg.d_ff, cfg.moe, Ep,
+                              resid))
+    return s
+
+
+def init(cfg: ArchConfig, seed: int = 0,
+         device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+    """Seeded random parameters on ``device`` (``cuda`` unless the caller
+    names the CPU)."""
+    from repro_torch import device as _device
+    return init_params(schema(cfg), seed, _device.resolve(device))
+
+
+def _moe_wts(lp: Dict[str, Any]) -> Dict[str, Any]:
+    return {k.split("/", 1)[1]: v for k, v in lp.items()
+            if k.startswith("moe/")}
+
+
+def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0):
+    attn_out, kv = dense._attn(cfg, lp, x, positions=positions, cache=cache,
+                               pos=pos)
+    x = x + attn_out
+    h = rms_norm(x, lp["mlp_norm"])
+    y, aux = moe_mlp(h, _moe_wts(lp), cfg.moe, _padded_experts(cfg))
+    return x + y, kv, aux
+
+
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            collect_cache: bool = False):
+    """Full-sequence forward.  Returns (hidden, [(k, v) per layer] | None,
+    the load-balance aux averaged over the layers)."""
+    S = tokens.shape[1]
+    x = take_rows(params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    caches = []
+    for l in range(cfg.n_layers):
+        x, kv, aux = _block(cfg, dense._layer(params, l), x,
+                            positions=positions)
+        aux_sum = aux_sum + aux
+        if collect_cache:
+            caches.append(kv)
+    x = rms_norm(x, params["final_norm"])
+    return x, (caches if collect_cache else None), aux_sum / cfg.n_layers
+
+
+init_cache = dense.init_cache
+
+
+def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None):
+    """Run the prompt; return (last-position logits, cache padded to
+    max_len)."""
+    x, caches, _ = forward(cfg, params, tokens, collect_cache=True)
+    cache = dense._prefill_cache(cfg, caches, max_len or tokens.shape[1])
+    return dense.logits_fn(cfg, params, x[:, -1:, :]), cache
+
+
+def _kv(cache: Dict[str, torch.Tensor], l: int) -> Tuple:
+    """Layer ``l``'s bf16 (k, v) of a slot cache (views: writes land in
+    the cache).  The MoE family has no int8 cache, as in the JAX package."""
+    return cache["k"][l], cache["v"][l]
+
+
+def decode_step(cfg: ArchConfig, params, token: torch.Tensor, cache, pos):
+    """One generation step: a one-token :func:`prefill_chunk` (``pos`` an
+    int for a lockstep batch or a (B,) tensor a slot)."""
+    return prefill_chunk(cfg, params, token, cache, pos)
+
+
+def prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, cache, pos):
+    """Chunked prefill into a slot cache; see :func:`dense.prefill_chunk`.
+
+    The GShard capacity ``C`` follows the number of tokens in flight, so a
+    chunk and a full-prompt prefill route identically only while no expert
+    overflows: serve with ``capacity_factor >= E / top_k`` where outputs
+    must not depend on the batch packing.
+    """
+    x = take_rows(params["embed"], tokens)
+    positions = dense._positions(pos, tokens.shape[1], tokens.device)
+    for l in range(cfg.n_layers):
+        x, _, _ = _block(cfg, dense._layer(params, l), x, positions=positions,
+                         cache=_kv(cache, l), pos=pos)
+    x = rms_norm(x, params["final_norm"])
+    return dense.logits_fn(cfg, params, x), cache
+
+
+# ------------------------------------------------- compressed-resident serving
+#
+# Per-layer weight-slot twins of the step functions (see dense.resident_block).
+# The slot dict carries the `moe/*`-prefixed expert weights as `_layer`
+# slices them, so `_moe_wts` resolves them unchanged.  Under fused residency
+# the 2-D-a-layer matrices (attention, router, shared experts) may arrive as
+# FusedQT handles; the (L, E, D, F) expert stacks are no stacked matrix and
+# stay on the per-layer decode path.
+
+embed_step = dense.embed_step
+head_step = dense.head_step
+
+
+def resident_prefill_block(cfg: ArchConfig, lp, x: torch.Tensor, *,
+                           positions: torch.Tensor):
+    """One `forward`-collect-cache iteration; the load-balance aux is
+    dropped (serving never reads it, matching `prefill`)."""
+    x, kv, _ = _block(cfg, lp, x, positions=positions)
+    return x, kv
+
+
+def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int, pos):
+    """One `decode_step` / `prefill_chunk` iteration against the
+    layer-stacked cache (layer ``l``'s rows updated in place)."""
+    positions = dense._positions(pos, x.shape[1], x.device)
+    x, _, _ = _block(cfg, lp, x, positions=positions, cache=_kv(cache, l),
+                     pos=pos)
+    return x, cache
+
+
+# ------------------------------------------------------------- paged KV cache
+#
+# Paged twins: attention is the dense family's (`dense._paged_attn` scatters
+# into and gathers from the block pool through the table); the MLP is the
+# MoE dispatch with the aux dropped.
+
+init_kv_pool = dense.init_kv_pool
+
+
+def _paged_block(cfg: ArchConfig, lp, x, *, pc, bt, pos):
+    x = x + dense._paged_attn(cfg, lp, x, pc=pc, bt=bt, pos=pos)
+    h = rms_norm(x, lp["mlp_norm"])
+    y, _ = moe_mlp(h, _moe_wts(lp), cfg.moe, _padded_experts(cfg))
+    return x + y
+
+
+def paged_prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, pool,
+                        bt: torch.Tensor, pos: torch.Tensor):
+    """Chunked prefill through the block table (see
+    :func:`dense.paged_prefill_chunk`).  Returns (logits (B, S, V), pool)."""
+    x = take_rows(params["embed"], tokens)
+    keys, _ = dense._pool_meta(cfg, pool)
+    for l in range(cfg.n_layers):
+        x = _paged_block(cfg, dense._layer(params, l), x,
+                         pc={k: pool[k][l] for k in keys}, bt=bt, pos=pos)
+    x = rms_norm(x, params["final_norm"])
+    return dense.logits_fn(cfg, params, x), pool
+
+
+def paged_decode_step(cfg: ArchConfig, params, token: torch.Tensor, pool,
+                      bt: torch.Tensor, pos: torch.Tensor):
+    """One generation step over a paged slot batch: a one-token
+    :func:`paged_prefill_chunk`."""
+    return paged_prefill_chunk(cfg, params, token, pool, bt, pos)

@@ -36,6 +36,9 @@ are bit-identical whether it runs alone through ``Engine.generate`` or
 packed in a slot batch (``tests/test_torch_batching.py``).  On a card the
 library matmuls may sum a batch of 8 rows in another order than one row,
 so agreement there is measured (``chip_smoke.py``'s ``continuous`` phase).
+One carve-out: MoE dispatch capacity is shared across the batch, so
+bit-identity additionally needs ``capacity_factor >= num_experts / top_k``
+(no token ever drops); ``__init__`` warns when a config falls short.
 
 Sampling: each request draws from its own ``torch.Generator`` on the
 engine's device, seeded with ``SamplingParams.seed`` at admission, once per
@@ -54,8 +57,7 @@ the slot pool's bitwise.  Paged KV rides dense residency on one device, as
 in the JAX package; the port has no mesh.
 
 Not ported: the fleet seams (``handoff_sink``, ``export_request`` /
-``can_adopt`` / ``adopt_request`` / ``evacuate``) and the MoE capacity
-warning (MoE is not ported).
+``can_adopt`` / ``adopt_request`` / ``evacuate``).
 """
 from __future__ import annotations
 
@@ -97,7 +99,7 @@ class ContinuousEngine:
     on ``device`` (``cuda`` unless the caller names the CPU).
 
     Families must implement the slot-batch cache contract
-    (``api.supports_continuous_batching``): dense today.
+    (``api.supports_continuous_batching``): dense and moe.
 
     ``resident="compressed"`` serves the slot batch straight from the
     entropy-coded container — ``params`` must then be a
@@ -120,9 +122,24 @@ class ContinuousEngine:
             raise NotImplementedError(
                 f"family {cfg.family!r} does not implement the slot-batch "
                 f"cache contract (prefill_chunk + per-slot decode positions);"
-                f" supported today: dense")
+                f" supported today: dense, moe")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if cfg.moe is not None and \
+                cfg.moe.capacity_factor * cfg.moe.top_k < cfg.moe.num_experts:
+            # GShard capacity is shared across the batch, so a token that
+            # routes fine solo can be DROPPED when packed with busy neighbors
+            # — packing-dependent outputs.  cf >= E/top_k admits the worst
+            # case (every token on one expert) and restores bit-identity.
+            import warnings
+            warnings.warn(
+                f"{cfg.name}: moe capacity_factor={cfg.moe.capacity_factor} "
+                f"< num_experts/top_k = "
+                f"{cfg.moe.num_experts / cfg.moe.top_k:.2f}; expert overflow "
+                f"under slot batching can drop tokens a solo run would keep, "
+                f"so outputs may depend on batch packing (raise "
+                f"capacity_factor to >= num_experts/top_k for bit-identical "
+                f"serving)", stacklevel=2)
         self.device = _device.resolve(device)
         got = _weights_device(params)
         if got.type != self.device.type:
@@ -138,7 +155,7 @@ class ContinuousEngine:
                 raise NotImplementedError(
                     f"family {cfg.family!r} does not implement the paged "
                     f"block-pool cache contract (init_kv_pool + "
-                    f"paged_decode_step); supported today: dense")
+                    f"paged_decode_step); supported today: dense, moe")
             if self.steps.paged_decode_fn is None:
                 raise NotImplementedError(
                     "paged KV needs the dense-residency whole-tree steps; "

@@ -195,7 +195,7 @@ class ServeSteps:
             raise NotImplementedError(
                 f"family {cfg.family!r} does not implement the per-layer "
                 f"weight-slot contract (embed_step / resident_block); "
-                f"supported today: dense")
+                f"supported today: dense, moe")
         self.cfg = cfg
         self.sc = sc
         self.mod = api.build(cfg)

@@ -26,7 +26,9 @@ both families at M = 1, 4, 128 and N = 64, 1024, 2048, and at the main
 path's four shapes with 65,536-symbol lanes (``wo`` Huffman-8 2048 x 2048;
 ``wq``, ``wk``, ``w_down`` rANS-4 2048 x 2048, 2048 x 1024, 6144 x 2048) at
 M = 1, 4, 8, 16, 17, 128 (8 and 16: the continuous engine's decode batch
-and prefill chunk), within 1e-2 of x @ deq(the decode kernel's symbols);
+and prefill chunk), and at qwen2-moe-a2.7b's router (2048 x 64) and
+``shared_w_down`` (5632 x 2048) at M = 1, 4, 16, 128, within 1e-2 of
+x @ deq(the decode kernel's symbols);
 with lanes packed four times wider than they need, tANS tables at
 ``table_log`` 10 and 14 (shared memory) and 15 and 16 (global), a prefix
 table at ``max_len`` 15 (global), an affine along K, lanes cut into column
@@ -480,6 +482,23 @@ def test_fused_kernels_at_the_main_path_shapes(card, codec, bits, K, N):
     lockstep prefill."""
     fq, sym = _fused(codec, bits, K, N, 65536, card, per_row=True, seed=K)
     _main_shape_check(fq, sym, card, (1, 4, 8, 16, 17, 128))
+
+
+MOE_FUSED = [("rans", 4, 2048, 64), ("rans", 4, 5632, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,bits,K,N", MOE_FUSED,
+                         ids=["router", "shared_w_down"])
+def test_fused_kernels_at_the_moe_shapes(card, codec, bits, K, N):
+    """qwen2-moe-a2.7b's two fused shapes no qwen3 matrix has, rANS-4 with
+    65,536-symbol lanes: the router (N = 64, two lanes of 1,024 rows, one
+    column tile) and ``shared_w_down`` (K = 5,632, no power of two: 176
+    lanes of 32 rows), at decode steps (1, 4), a prefill chunk (16) and a
+    lockstep prefill (128)."""
+    fq, sym = _fused(codec, bits, K, N, 65536, card, per_row=True, seed=K)
+    assert fq.mat.shape[0] == K * N // 65536
+    _main_shape_check(fq, sym, card, (1, 4, 16, 128))
 
 
 @pytest.mark.cuda
