@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
    backend (both decode kernels), held bitwise against the symbols
    ``quant.quantize`` gives, and served with ``Engine.generate`` (batch 4,
    prompt 32, 16 greedy tokens).  Launch counts are zeroed just before the
-   load and read just after the generate.
+   load and read just after the generate, and must equal the load plan's
+   chunks of each kernel (as in the moe, ssm and encdec phases).
    Then ``profile``: the same few decode steps timed without and then with
    ``torch.profiler``, and device time by operator under it.
    Then ``continuous``: the same decoded weights serve a seeded Poisson
@@ -97,7 +98,9 @@ Phases, each printing one JSON line:
    qwen2-moe-a2.7b the same way, dense-resident: weights identical, every
    router choice of the prefill compared (one that differs is reported
    with its probability gap and must be a near-tie, two bf16 steps), and
-   the logits held within ``REF_ATOL`` when every choice agrees.
+   the logits held within ``REF_ATOL`` when every choice agrees.  Then the
+   reduced mamba2-370m, jamba-1.5-large-398b and seamless-m4t-medium the
+   same way (``FAMILY_SPEC``; the hybrid's router choice by choice).
 7. kernels — each decode kernel on the first chunk the main path decoded
    with it, held bitwise against its plain PyTorch version on the card, with
    its time (``ms``: launches paced by the host, as every row is timed),
@@ -125,8 +128,8 @@ Phases, each printing one JSON line:
    heads of 128, 60 routed experts of d_ff 1408 padded to 64, top-4, 4
    shared, padded vocab 152064) with its depth cut from 24 to
    ``MOE_DEPTH`` and seeded random weights made on the host, compressed
-   under ``SPEC`` by a child process (``--moe-container``) that the script
-   starts first, so the encode runs beside the qwen3 phases.  On its
+   under ``SPEC`` by a child process (``--containers DIR moe``) that the
+   script starts first, so the encode runs beside the qwen3 phases.  On its
    container, in order: dense-resident load through both decode kernels,
    every tensor held bitwise, ``Engine.generate`` as the serve phase runs
    it and a ``profile`` of its decode steps; the ``TRAFFIC`` trace through
@@ -139,12 +142,34 @@ Phases, each printing one JSON line:
    decode, launch counts exact, the port's spans summed over the
    generate); and the fused kernels at the router's and
    ``shared_w_down``'s shapes, held as the qwen3 rows are.
+9. ssm, encdec — the families that serve lockstep and dense-resident only
+   (in the JAX package too), from a second child (``--containers DIR ssm
+   encdec``, started once the serve phase is measured) that encodes
+   mamba2-370m whole (48 layers, d_model 1024, 32 SSD heads
+   of 64, d_state 128, tied embeddings, padded vocab 50688; 368 M symbols)
+   and seamless-m4t-medium at full width (d_model 1024, 16 heads of 64,
+   d_ff 4096, padded vocab 256512) cut to ``ENCDEC_DEPTH`` encoder and
+   decoder layers, each under its ``FAMILY_SPEC`` (the SSM's ``A_log``,
+   ``dt_bias``, ``D_skip`` and conv weights kept float32).  Each: the
+   load through both decode kernels, its launch counts equal to the load
+   plan's chunks, every tensor held bitwise, ``Engine.generate`` (batch 4,
+   prompt 32 (and ``SRC_FRAMES`` frames), 16 tokens), decode at S-1 held to
+   prefill over S (the logits within ``EXTEND_TOL``, every leaf of the
+   cache it leaves within ``EXTEND_STATE_RTOL`` of the prefill's, layer by
+   layer) and a ``profile`` of 8 decode steps; ``cache_bytes`` is the
+   prefill's cache.  The ssm line adds the bytes a layer and row, a
+   ``LONG_PROMPT``-token prompt (three SSD chunks, the last partial) and
+   ``ssd_chunked`` against a loop of ``ssd_step`` at ``SSD_SHAPE``
+   (``SSD_TOL``).  The hybrid does
+   not fit the card at full width and runs reduced in phase 6 only.
 
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
 compressed-resident run; ``launches_paged``: on the paged phase, 0;
 ``launches_moe``: on the moe phase's dense-resident load and generate and
-on its compressed-resident generate), and as the last line
+on its compressed-resident generate; ``launches_ssm`` /
+``launches_encdec``: on those phases' load and generate), and as the last
+line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits nonzero; without a CUDA device it exits 1 and prints no result.
 """
@@ -156,6 +181,7 @@ import subprocess
 import sys
 import time
 
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEPTH = 2
 SPEC = ("*norm*:fp32; layers/wo:bits=8,codec=huffman; "
@@ -257,6 +283,53 @@ MOE_SHARED_FALLBACK = ("segment of 65536 symbols does not tile rows of "
                        "width 5632")
 MOE_FUSED_ROWS = (("moe/router", False), ("moe/shared_w_down", False))
 MOE_PAGED_SPEC = "bits=16,block=16"
+# the families served from a container child: the moe under SPEC, and the
+# ssm, hybrid and encdec families (lockstep, dense-resident: the only
+# serving they have, in the JAX package too).  Their specs keep the SSM's
+# sensitive tensors float32 ahead of the catch-alls (a matching rule
+# overrides the keep-fp32 predicate), then, as SPEC does, one matrix of
+# each block Huffman-8, the other layer matrices rANS-4 and the rest
+# (embed, lm_head) Huffman-8
+FAMILY_ARCHS = {"moe": MOE_ARCH, "ssm": "mamba2-370m",
+                "hybrid": "jamba-1.5-large-398b",
+                "encdec": "seamless-m4t-medium"}
+SSM_CARVE_OUTS = ("*norm*", "*A_log*", "*dt_bias*", "*D_skip*", "*conv_*")
+_FP32 = "; ".join(f"{p}:fp32" for p in SSM_CARVE_OUTS)
+FAMILY_SPEC = {
+    "moe": SPEC,
+    "ssm": _FP32 + ("; layers/out_proj:bits=8,codec=huffman; "
+                    "layers/*:bits=4,codec=rans; *:bits=8,codec=huffman"),
+    "hybrid": _FP32 + ("; periods/*/wo:bits=8,codec=huffman; "
+                       "periods/*:bits=4,codec=rans; *:bits=8,codec=huffman"),
+    "encdec": ("*norm*:fp32; */wo:bits=8,codec=huffman; "
+               "enc/*:bits=4,codec=rans; dec/*:bits=4,codec=rans; "
+               "*:bits=8,codec=huffman")}
+# the reduced configs' containers (the reference phase): short segments, so
+# that the CPU's decode of them takes few steps
+REDUCED_SEGMENTS = "; defaults:segment_symbols=4096"
+# mamba2-370m whole (48 layers, full width); seamless-m4t-medium at full
+# width cut to ENCDEC_DEPTH encoder and decoder layers of 12 each (525 M of
+# its 600 M symbols are embed and lm_head, which no depth cut shrinks); the
+# hybrid does not fit the card at full width (one period of
+# jamba-1.5-large holds ~45 G weights) and runs reduced, in the reference
+# phase only
+ENCDEC_DEPTH = 2
+SRC_FRAMES = 32
+# a prompt of three SSD chunks of 256, the last one partial
+LONG_PROMPT = 600
+# decode_step at position S-1 against prefill over S tokens: the JAX
+# package's own tolerance (tests/test_arch_smoke.py)
+EXTEND_TOL = dict(atol=0.15, rtol=0.05)
+# and every leaf of the cache the decode step leaves against the prefill's,
+# layer by layer, relative to the layer's largest |value| (a state dropped
+# or never written misses by 1; on the CPU, reduced, the port reads at most
+# 5e-7)
+EXTEND_STATE_RTOL = 5e-2
+# ssd_chunked against a loop of ssd_step at mamba2-370m's head shapes, in
+# float32: the chunked scan sums in another order (a CPU run of the port at
+# these shapes: max |diff| 5.1e-5 where |y| reaches 35)
+SSD_SHAPE = dict(B=2, S=LONG_PROMPT, H=32, P=64, N=128)
+SSD_TOL = dict(atol=5e-4, rtol=1e-5)
 
 
 def emit(phase, **kw):
@@ -323,39 +396,26 @@ def check_decoded(cm, host, params, spec, dev):
     return len(host)
 
 
-def serve_main_path(dev):
-    import numpy as np
-    import torch
-    from repro_torch.configs import registry
+def parse_spec(text):
     from repro_torch.core.quant import Granularity
     from repro_torch.core.spec import CompressionSpec
-    from repro_torch.core.store import CompressedModel
-    from repro_torch.kernels import build
-    from repro_torch.models import dense
-    from repro_torch.serving import engine
-
-    full = registry.get("qwen3-1.7b")
-    cfg = dataclasses.replace(full, n_layers=DEPTH)
-    spec = CompressionSpec.parse(SPEC,
+    return CompressionSpec.parse(text,
                                  default_granularity=Granularity.PER_CHANNEL)
-    t0 = time.perf_counter()
-    params = dense.init(cfg, 0, dev)
-    host = {k: v.float().cpu().numpy() for k, v in params.items()}
-    del params
-    init_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    cm = CompressedModel.compress(host, spec=spec)
-    compress_s = time.perf_counter() - t0
-    st = cm.stats()
-    path = os.path.join(ROOT, "build", "chip_smoke", "qwen3-1.7b.npz")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    t0 = time.perf_counter()
-    cm.save(path)
-    cm = CompressedModel.load(path)
-    os.remove(path)
-    save_load_s = time.perf_counter() - t0
 
+def dense_serve(cfg, cm, host, spec_text, prompt, dev):
+    """Dense-resident lockstep serving of one container: decoded onto the
+    card through the ``cuda`` backend, every tensor held bitwise to what
+    ``host`` gives under ``spec_text``, and ``Engine.generate`` of ``GEN``
+    greedy tokens (after a first call that sets up the library and the
+    caches), its tokens in the padded vocabulary and its prefill logits
+    finite.  Launch counts are zeroed just before the load and read just
+    after the generate: each decode kernel must run, as often as the load
+    plan has chunks for it.  Returns (engine, tokens, prefill logits,
+    launches, the fields every serving line shares)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.serving import engine
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in build.launches:
@@ -365,49 +425,83 @@ def serve_main_path(dev):
         cm, backend="cuda", device=dev, metrics=load)
     eng = engine.Engine(cfg, params, engine.ServeConfig(max_len=PROMPT + GEN),
                         device=dev)
-    rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab, (BATCH, PROMPT))
     t0 = time.perf_counter()
-    eng.generate(prompt, 2)          # first call: library and cache set-up
+    eng.generate(prompt, 2)
     first_generate_s = time.perf_counter() - t0
     out, met = eng.generate(prompt, GEN, echo_metrics=True)
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    for k in ("huffman_decode", "ans_decode"):
-        if launches[k] <= 0:
-            raise AssertionError(f"{k} was not launched on the main path")
-
-    n_checked = check_decoded(cm, host, params, spec, dev)
+    want = decode_launches_from_plan(cm)
+    if 0 in want.values() or launches != dict({k: 0 for k in launches},
+                                              **want):
+        raise AssertionError(f"{cfg.name} launches {launches}, expected the "
+                             f"load plan's {want}, each kernel at least once")
+    t0 = time.perf_counter()
+    n_checked = check_decoded(cm, host, params, parse_spec(spec_text), dev)
+    check_s = time.perf_counter() - t0
     Vp = cfg.padded_vocab()
     if tuple(out.shape) != (BATCH, GEN) or out.dtype != torch.int32:
-        raise AssertionError(f"tokens {tuple(out.shape)} {out.dtype}")
+        raise AssertionError(f"{cfg.name} tokens {tuple(out.shape)} "
+                             f"{out.dtype}")
     if not bool(((out >= 0) & (out < Vp)).all()):
-        raise AssertionError("token outside the padded vocabulary")
+        raise AssertionError(f"{cfg.name} token outside the padded vocabulary")
     with torch.inference_mode():
-        logits, _ = eng.steps.prefill_fn(
-            params, torch.as_tensor(prompt, device=dev))
+        logits, _ = eng.steps.prefill_fn(params,
+                                         engine.lockstep_batch(prompt, dev))
     if not bool(torch.isfinite(logits.float()).all()):
-        raise AssertionError("non-finite prefill logits")
-    emit("serve", arch=cfg.name, reduced={"n_layers": [full.n_layers, DEPTH]},
-         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd],
-         d_ff=cfg.d_ff, padded_vocab=Vp, spec=SPEC,
-         params=st.param_count, effective_bits=st.effective_bits,
-         groups={g.table_id: {"params": g.param_count,
-                              "achieved_bits": g.effective_bits,
-                              "entropy_bits": g.entropy_bits}
-                 for g in st.groups},
-         encoded_bytes=st.encoded_bytes, init_s=init_s,
-         first_generate_s=first_generate_s,
-         compress_s=compress_s, save_load_s=save_load_s,
-         decode_backend=load["decode_backend"],
-         decode_load_s=load["decode_load_s"],
-         ttfw_s=load["time_to_first_weight_s"], ttft_s=met["ttft_s"],
-         ttft_incl_load_s=load["decode_load_s"] + met["ttft_s"],
-         prefill_s=met["prefill_s"], decode_s=met["decode_s"],
-         decode_tok_per_s=met["decode_tok_per_s"],
-         e2e_tok_per_s=met["e2e_tok_per_s"], peak_bytes=peak,
-         launches=launches, tensors_checked=n_checked,
-         tokens=out[0].tolist())
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    st = cm.stats()
+    fields = dict(
+        arch=cfg.name, d_model=cfg.d_model, padded_vocab=Vp, spec=spec_text,
+        params=st.param_count, effective_bits=st.effective_bits,
+        groups={g.table_id: {"params": g.param_count,
+                             "achieved_bits": g.effective_bits,
+                             "entropy_bits": g.entropy_bits}
+                for g in st.groups},
+        encoded_bytes=st.encoded_bytes, first_generate_s=first_generate_s,
+        decode_backend=load["decode_backend"],
+        decode_load_s=load["decode_load_s"],
+        ttfw_s=load["time_to_first_weight_s"], ttft_s=met["ttft_s"],
+        ttft_incl_load_s=load["decode_load_s"] + met["ttft_s"],
+        prefill_s=met["prefill_s"], decode_s=met["decode_s"],
+        decode_tok_per_s=met["decode_tok_per_s"],
+        e2e_tok_per_s=met["e2e_tok_per_s"], peak_bytes=peak,
+        launches=launches, launches_expected=want, tensors_checked=n_checked,
+        check_s=check_s, tokens=out[0].tolist())
+    return eng, out, logits, launches, fields
+
+
+def serve_main_path(dev):
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.core.store import CompressedModel
+    from repro_torch.models import dense
+
+    full = registry.get("qwen3-1.7b")
+    cfg = dataclasses.replace(full, n_layers=DEPTH)
+    t0 = time.perf_counter()
+    params = dense.init(cfg, 0, dev)
+    host = {k: v.float().cpu().numpy() for k, v in params.items()}
+    del params
+    init_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cm = CompressedModel.compress(host, spec=parse_spec(SPEC))
+    compress_s = time.perf_counter() - t0
+    path = os.path.join(ROOT, "build", "chip_smoke", "qwen3-1.7b.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    cm.save(path)
+    cm = CompressedModel.load(path)
+    os.remove(path)
+    save_load_s = time.perf_counter() - t0
+
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
+    eng, out, logits, launches, fields = dense_serve(cfg, cm, host, SPEC,
+                                                     prompt, dev)
+    emit("serve", **fields, reduced={"n_layers": [full.n_layers, DEPTH]},
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd], d_ff=cfg.d_ff,
+         init_s=init_s, compress_s=compress_s, save_load_s=save_load_s)
     return cm, launches, eng, prompt, logits.float().cpu(), out.cpu()
 
 
@@ -442,17 +536,22 @@ def device_profile(steps):
                           "calls": e.count} for e in ops])
 
 
+def prompt_tokens(prompt):
+    return prompt["tokens"] if isinstance(prompt, dict) else prompt
+
+
 def profile_decode(eng, prompt, dev, what="decode steps"):
     """Where a lockstep decode step's time goes: ``PROFILE_STEPS`` greedy
     steps after a prefill (:func:`device_profile`)."""
     import torch
-    S = prompt.shape[1]
+    from repro_torch.serving import engine
+    S = prompt_tokens(prompt).shape[1]
 
     def steps(window):
         """Prefill, then the decode steps alone inside ``window``."""
         with torch.inference_mode():
             logits, cache = eng.steps.prefill_fn(
-                eng.params, torch.as_tensor(prompt, device=dev))
+                eng.params, engine.lockstep_batch(prompt, dev))
             tok = logits[:, -1].argmax(-1, keepdim=True)
             torch.cuda.synchronize()
             with window as prof:
@@ -1036,19 +1135,16 @@ def reference_check(dev):
     import numpy as np
     import torch
     from repro_torch.configs import registry
-    from repro_torch.core.quant import Granularity
-    from repro_torch.core.spec import CompressionSpec
     from repro_torch.core.store import CompressedModel
     from repro_torch.models import dense
     from repro_torch.serving import engine
     from repro_torch.serving.resident import CompressedResidentWeights
 
     cfg = registry.reduced(registry.get("qwen3-1.7b"))
-    spec = CompressionSpec.parse(SPEC + "; defaults:segment_symbols=4096",
-                                 default_granularity=Granularity.PER_CHANNEL)
     host = {k: v.float().numpy()
             for k, v in dense.init(cfg, 1, torch.device("cpu")).items()}
-    cm = CompressedModel.compress(host, spec=spec)
+    cm = CompressedModel.compress(host, spec=parse_spec(SPEC
+                                                        + REDUCED_SEGMENTS))
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, (2, 8))
     runs = {}
     for d, backend in ((dev, "cuda"), (torch.device("cpu"), "torch")):
@@ -1569,80 +1665,75 @@ def dequant_matmul_phase(cm, params, clock_mhz, dev):
 
 # ------------------------------------------------------------------ moe phase
 
-def moe_config():
-    """(published config, the moe phase's depth cut of it)."""
-    from repro_torch.configs import registry
-    full = registry.get(MOE_ARCH)
-    return full, dataclasses.replace(full, n_layers=MOE_DEPTH)
-
-
-def moe_host_weights(cfg):
-    """The moe phase's seeded random weights, made on the host: the child
-    that compresses them and the phase that checks the card's decode make
-    the same ones."""
-    import torch
-    from repro_torch.models import moe
-    params = moe.init(cfg, 0, torch.device("cpu"))
-    return {k: v.float().numpy() for k, v in params.items()}
-
-
-def write_moe_container(path):
-    """Child process (``--moe-container PATH``): the moe phase's weights
-    compressed under ``SPEC`` and saved to ``path``, its timings beside it
-    (``PATH.json``).  Runs on the host alone, beside the qwen3 phases."""
+def write_containers(dirpath, families):
+    """Child process (``--containers DIR FAMILY...``): each family's phase
+    config (:func:`family_config`) with seeded weights made on the host,
+    compressed under its ``FAMILY_SPEC`` and saved to ``DIR/FAMILY.npz``,
+    its timings beside it (``.json``).  Runs on the host alone, beside the
+    phases on the card."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.core.quant import Granularity
-    from repro_torch.core.spec import CompressionSpec
     from repro_torch.core.store import CompressedModel
-    _, cfg = moe_config()
-    t0 = time.perf_counter()
-    host = moe_host_weights(cfg)
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cm = CompressedModel.compress(host, spec=CompressionSpec.parse(
-        SPEC, default_granularity=Granularity.PER_CHANNEL))
-    compress_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cm.save(path)
-    with open(path + ".json", "w") as f:
-        json.dump(dict(init_s=init_s, compress_s=compress_s,
-                       save_s=time.perf_counter() - t0), f)
+    for family in families:
+        _, cfg = family_config(family)
+        t0 = time.perf_counter()
+        host = family_host_weights(cfg)
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cm = CompressedModel.compress(host,
+                                      spec=parse_spec(FAMILY_SPEC[family]))
+        compress_s = time.perf_counter() - t0
+        del host
+        path = os.path.join(dirpath, f"{family}.npz")
+        t0 = time.perf_counter()
+        cm.save(path)
+        with open(path + ".json", "w") as f:
+            json.dump(dict(init_s=init_s, compress_s=compress_s,
+                           save_s=time.perf_counter() - t0), f)
+        del cm
 
 
-def start_moe_container():
-    """Start the child that writes the moe container; returns (process,
-    path).  Its errors go to ``PATH.log``."""
-    path = os.path.join(ROOT, "build", "chip_smoke", f"{MOE_ARCH}.npz")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    for p in (path, path + ".json"):
-        if os.path.exists(p):
-            os.remove(p)
-    with open(path + ".log", "w") as log:
+def start_containers(*families):
+    """Start this script as a child that writes ``families``' containers;
+    returns (process, directory, families).  Its errors go to
+    ``DIR/child.log``."""
+    dirpath = os.path.join(ROOT, "build", "chip_smoke", "-".join(families))
+    os.makedirs(dirpath, exist_ok=True)
+    for name in os.listdir(dirpath):
+        os.remove(os.path.join(dirpath, name))
+    with open(os.path.join(dirpath, "child.log"), "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--moe-container",
-             path], stdout=subprocess.DEVNULL, stderr=log, cwd=ROOT)
-    return proc, path
+            [sys.executable, os.path.abspath(__file__), "--containers",
+             dirpath, *families],
+            stdout=subprocess.DEVNULL, stderr=log, cwd=ROOT)
+    return proc, dirpath, families
 
 
-def moe_container(proc, path):
-    """Wait for the child; returns (container, its timings, seconds
-    waited)."""
+def containers(proc, dirpath, families):
+    """Wait for a :func:`start_containers` child; returns {family:
+    (container, its timings and the seconds waited)}."""
     from repro_torch.core.store import CompressedModel
     t0 = time.perf_counter()
     rc = proc.wait()
     waited = time.perf_counter() - t0
+    log = os.path.join(dirpath, "child.log")
     if rc != 0:
-        with open(path + ".log") as f:
-            raise AssertionError(f"moe container child exited {rc}: "
+        with open(log) as f:
+            raise AssertionError(f"container child {families} exited {rc}: "
                                  f"{f.read()[-2000:]}")
-    with open(path + ".json") as f:
-        made = json.load(f)
-    t0 = time.perf_counter()
-    cm = CompressedModel.load(path)
-    made["load_s"] = time.perf_counter() - t0
-    for p in (path, path + ".json", path + ".log"):
-        os.remove(p)
-    return cm, made, waited
+    out = {}
+    for family in families:
+        path = os.path.join(dirpath, f"{family}.npz")
+        with open(path + ".json") as f:
+            made = json.load(f)
+        t0 = time.perf_counter()
+        cm = CompressedModel.load(path)
+        made["load_s"] = time.perf_counter() - t0
+        made["waited_s"] = waited
+        out[family] = (cm, made)
+        for p in (path, path + ".json"):
+            os.remove(p)
+    os.remove(log)
+    return out
 
 
 @contextlib.contextmanager
@@ -1686,74 +1777,20 @@ def route_flips(routes, want):
 
 
 def moe_dense(cm, made, cfg, full, dev):
-    """Step 1: the container decoded onto the card through both decode
-    kernels, every tensor held bitwise to ``quant.quantize``, then
-    ``Engine.generate`` as the serve phase runs it."""
+    """Step 1: :func:`dense_serve` on the moe container, and a ``profile``
+    of its decode steps."""
     import numpy as np
-    import torch
-    from repro_torch.core.quant import Granularity
-    from repro_torch.core.spec import CompressionSpec
-    from repro_torch.kernels import build
-    from repro_torch.serving import engine
-    spec = CompressionSpec.parse(SPEC,
-                                 default_granularity=Granularity.PER_CHANNEL)
-    st = cm.stats()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in build.launches:
-        build.launches[k] = 0
-    load = {}
-    params = engine.load_params_from_compressed(
-        cm, backend="cuda", device=dev, metrics=load)
-    eng = engine.Engine(cfg, params, engine.ServeConfig(max_len=PROMPT + GEN),
-                        device=dev)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
-    t0 = time.perf_counter()
-    eng.generate(prompt, 2)          # first call: allocator and caches
-    first_generate_s = time.perf_counter() - t0
-    out, met = eng.generate(prompt, GEN, echo_metrics=True)
-    launches = dict(build.launches)
-    peak = torch.cuda.max_memory_allocated(dev)
-    for k in ("huffman_decode", "ans_decode"):
-        if launches[k] <= 0:
-            raise AssertionError(f"{k} was not launched on the moe load")
-    t0 = time.perf_counter()
-    n_checked = check_decoded(cm, moe_host_weights(cfg), params, spec, dev)
-    check_s = time.perf_counter() - t0
-    Vp = cfg.padded_vocab()
-    if tuple(out.shape) != (BATCH, GEN) or out.dtype != torch.int32:
-        raise AssertionError(f"moe tokens {tuple(out.shape)} {out.dtype}")
-    if not bool(((out >= 0) & (out < Vp)).all()):
-        raise AssertionError("moe token outside the padded vocabulary")
-    with torch.inference_mode():
-        logits, _ = eng.steps.prefill_fn(params,
-                                         torch.as_tensor(prompt, device=dev))
-    if not bool(torch.isfinite(logits.float()).all()):
-        raise AssertionError("moe: non-finite prefill logits")
+    eng, out, _, launches, fields = dense_serve(
+        cfg, cm, family_host_weights(cfg), SPEC, prompt, dev)
     profile_decode(eng, prompt, dev, what=f"{cfg.name} decode steps")
-    emit("moe", step="dense", arch=cfg.name,
+    emit("moe", step="dense", **fields,
          reduced={"n_layers": [full.n_layers, MOE_DEPTH]},
-         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd],
-         d_ff=cfg.d_ff, experts=[cfg.moe.num_experts,
-                                 cfg.moe.padded_experts(16)],
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd], d_ff=cfg.d_ff,
+         experts=[cfg.moe.num_experts, cfg.moe.padded_experts(16)],
          top_k=cfg.moe.top_k, shared_experts=cfg.moe.shared_experts,
-         capacity_factor=cfg.moe.capacity_factor, padded_vocab=Vp,
-         spec=SPEC, params=st.param_count, effective_bits=st.effective_bits,
-         groups={g.table_id: {"params": g.param_count,
-                              "achieved_bits": g.effective_bits,
-                              "entropy_bits": g.entropy_bits}
-                 for g in st.groups},
-         encoded_bytes=st.encoded_bytes, container=made,
-         first_generate_s=first_generate_s,
-         decode_backend=load["decode_backend"],
-         decode_load_s=load["decode_load_s"],
-         ttfw_s=load["time_to_first_weight_s"], ttft_s=met["ttft_s"],
-         prefill_s=met["prefill_s"], decode_s=met["decode_s"],
-         decode_tok_per_s=met["decode_tok_per_s"],
-         e2e_tok_per_s=met["e2e_tok_per_s"], peak_bytes=peak,
-         launches=launches, tensors_checked=n_checked, check_s=check_s,
-         tokens=out[0].tolist())
-    return params, prompt, out.cpu(), launches
+         capacity_factor=cfg.moe.capacity_factor, container=made)
+    return eng.params, prompt, out.cpu(), launches
 
 
 def serve_all(cfg, params, dev, trace, **engine_kw):
@@ -1937,15 +1974,14 @@ def moe_resident(cm, cfg, prompt, dense_tokens, dev):
     return rw, launches
 
 
-def moe_phase(proc, path, clock_mhz, dev):
+def moe_phase(child, clock_mhz, dev):
     """qwen2-moe-a2.7b at full width, ``MOE_DEPTH`` layers: the child's
     container dense-resident, continuous, paged, then compressed-resident
     fused and the fused kernels at the router's and ``shared_w_down``'s
     shapes.  Returns each kernel's launches by residency."""
     import torch
-    full, cfg = moe_config()
-    cm, made, waited = moe_container(proc, path)
-    made["waited_s"] = waited
+    full, cfg = family_config("moe")
+    cm, made = containers(*child)["moe"]
     params, prompt, tokens, dense_launches = moe_dense(cm, made, cfg, full,
                                                        dev)
     moe_continuous(cfg, params, dev)
@@ -1957,57 +1993,276 @@ def moe_phase(proc, path, clock_mhz, dev):
     return {"dense": dense_launches, "resident": resident_launches}
 
 
-def moe_reference_check(dev):
-    """Reduced qwen2-moe-a2.7b: the port on the card against the port on
-    the CPU, from one container: decoded weights identical, every router
-    choice compared (one that differs must be a near-tie), and prefill
-    logits within ``REF_ATOL`` when every choice agrees."""
+def family_config(family):
+    """(published config, the config its phase serves: the moe cut to
+    ``MOE_DEPTH`` layers, encdec to ``ENCDEC_DEPTH`` encoder and decoder
+    layers, the others whole)."""
+    from repro_torch.configs import registry
+    full = registry.get(FAMILY_ARCHS[family])
+    if family == "moe":
+        return full, dataclasses.replace(full, n_layers=MOE_DEPTH)
+    if family == "encdec":
+        return full, dataclasses.replace(full, n_layers=ENCDEC_DEPTH,
+                                         enc_layers=ENCDEC_DEPTH)
+    return full, full
+
+
+def family_host_weights(cfg, seed=0):
+    """Seeded random weights of ``cfg``'s family, made on the host: the
+    child that compresses them and the phase that checks the card's decode
+    make the same ones."""
+    import torch
+    from repro_torch.models import api
+    params = api.build(cfg).init(cfg, seed, torch.device("cpu"))
+    return {k: v.float().numpy() for k, v in params.items()}
+
+
+def carve_outs(host):
+    """The names ``SSM_CARVE_OUTS`` keeps float32, sorted."""
+    import fnmatch
+    return sorted(n for n in host if any(fnmatch.fnmatchcase(n, p)
+                                         for p in SSM_CARVE_OUTS))
+
+
+def decode_launches_from_plan(cm):
+    """The decode kernels' launches of a dense-resident load: one a chunk
+    of the streamed load's plan, by the chunk's table."""
+    kernel = {"prefix": "huffman_decode", "tans": "ans_decode"}
+    want = {"huffman_decode": 0, "ans_decode": 0}
+    for chunk in cm.scheduler(backend="numpy", first=("embed",)).plan():
+        want[kernel[cm.table_for(chunk.segs[0].tensor).kernel]] += 1
+    return want
+
+
+def extension_check(eng, prompt, dev):
+    """decode_step of the last token at position S-1, after a prefill of
+    S-1 tokens, against prefill over all S tokens (the JAX package's
+    teacher-forcing check): the logits within ``EXTEND_TOL``, and every
+    leaf of the cache the step leaves (the SSM and conv states; the
+    self-attention and cross K / V) within ``EXTEND_STATE_RTOL`` of the
+    prefill's, layer by layer, relative to the layer's largest |value|.
+    Returns the readings, and the bytes of the prefill's cache (the one
+    ``Engine.generate`` fills)."""
     import numpy as np
     import torch
-    from repro_torch.configs import registry
-    from repro_torch.core.quant import Granularity
-    from repro_torch.core.spec import CompressionSpec
-    from repro_torch.core.store import CompressedModel
-    from repro_torch.models import moe
     from repro_torch.serving import engine
+    full = engine.lockstep_batch(prompt, dev)
+    toks = prompt_tokens(full)
+    part = (dict(full, tokens=toks[:, :-1]) if isinstance(full, dict)
+            else toks[:, :-1])
+    with torch.inference_mode():
+        want, want_cache = eng.steps.prefill_fn(eng.params, full)
+        _, cache = eng.steps.prefill_fn(eng.params, part)
+        got, cache = eng.steps.decode_fn(eng.params, toks[:, -1:], cache,
+                                         toks.shape[1] - 1)
+    a = want[:, -1].float().cpu().numpy()
+    b = got[:, -1].float().cpu().numpy()
+    ok = bool(np.all(np.abs(a - b) <= EXTEND_TOL["atol"]
+                     + EXTEND_TOL["rtol"] * np.abs(b)))
+    states = {}
+    for key, w in want_cache.items():
+        w = w.float().reshape(w.shape[0], -1)
+        size = w.abs().amax(1)
+        err = (cache[key].float().reshape(w.shape) - w).abs().amax(1)
+        held = bool((size > 0).all()
+                    and (err <= EXTEND_STATE_RTOL * size).all())
+        states[key] = dict(max_rel_err=float((err / size).max()),
+                           min_size=float(size.min()), within=held)
+        ok = ok and held
+    return dict(max_abs_err=float(np.abs(a - b).max()), tol=EXTEND_TOL,
+                state_rtol=EXTEND_STATE_RTOL, states=states, within=ok,
+                positions=int(toks.shape[1]),
+                cache_bytes=sum(v.nbytes for v in want_cache.values()))
 
-    cfg = registry.reduced(registry.get(MOE_ARCH))
-    spec = CompressionSpec.parse(SPEC + "; defaults:segment_symbols=4096",
-                                 default_granularity=Granularity.PER_CHANNEL)
-    host = {k: v.float().numpy()
-            for k, v in moe.init(cfg, 1, torch.device("cpu")).items()}
-    cm = CompressedModel.compress(host, spec=spec)
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (2, 8))
-    runs = []
-    for d, backend in ((dev, "cuda"), (torch.device("cpu"), "torch")):
-        params = engine.load_params_from_compressed(cm, backend=backend,
-                                                    device=d)
-        eng = engine.Engine(cfg, params, engine.ServeConfig(max_len=16),
-                            device=d)
-        with torch.inference_mode(), recorded_routes() as routes:
-            logits, _ = eng.steps.prefill_fn(
-                params, torch.as_tensor(prompt, device=d))
-        runs.append((params, logits.float().cpu(), routes,
-                     eng.generate(prompt, 8).cpu()))
-    (pc, lc, rc, tc), (pp, lp, rp, tp) = runs
-    for name in pp:
-        a, b = pc[name], pp[name]
-        parts = zip(a, b) if isinstance(a, tuple) else [(a, b)]
-        for x, y in parts:
-            assert torch.equal(x.cpu(), y), name
-    flips = route_flips(rc, rp)
-    err = float((lc - lp).abs().max())
-    emit("reference", arch=cfg.name, router_calls=len(rp),
-         router_choices_compared=sum(r[1].shape[0] * r[1].shape[1]
-                                     for r in rp),
-         router_flips=flips, logits_max_abs_err=err, atol=REF_ATOL,
-         logits_held=not flips,
-         greedy_token_agreement=float((tc == tp).float().mean()))
-    if not all(f["near_tie"] for f in flips):
-        raise AssertionError(f"moe router choices differ beyond a near-tie: "
-                             f"{flips}")
-    if not flips and not err <= REF_ATOL:
-        raise AssertionError(f"moe card vs CPU logits differ by {err}")
+
+def family_prompt(cfg, batch, length, seed=0):
+    """Seeded lockstep prompt: tokens, and for encdec the stub frontend's
+    ``SRC_FRAMES`` frames (normal, bf16) drawn after them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (batch, length))
+    if cfg.family != "encdec":
+        return toks
+    return {"tokens": toks, "src_embeds": torch.from_numpy(rng.normal(
+        0, 1, (batch, SRC_FRAMES, cfg.d_model))).to(torch.bfloat16)}
+
+
+def family_dense(family, cm, made, dev):
+    """:func:`dense_serve` on a family's container (its float32 carve-outs
+    unquantized), the prefill-extension check and a decode-step profile.
+    Returns (engine, the phase's fields, launches)."""
+    full, cfg = family_config(family)
+    prompt = family_prompt(cfg, BATCH, PROMPT)
+    host = family_host_weights(cfg)
+    carved = carve_outs(host)
+    if not set(carved) <= set(cm.unquantized):
+        raise AssertionError(f"{family}: carve-outs quantized: "
+                             f"{sorted(set(carved) - set(cm.unquantized))}")
+    eng, _, _, launches, fields = dense_serve(cfg, cm, host,
+                                              FAMILY_SPEC[family], prompt, dev)
+    del host
+    ext = extension_check(eng, prompt, dev)
+    if not ext["within"]:
+        raise AssertionError(f"{family} decode vs prefill extension {ext}")
+    profile_decode(eng, prompt, dev, what=f"{cfg.name} decode steps")
+    fields.update(family=family, container=made, fp32_carve_outs=len(carved),
+                  cache_bytes=ext.pop("cache_bytes"), extension=ext)
+    if family == "encdec":
+        fields.update(reduced={"enc_layers": [full.enc_layers, ENCDEC_DEPTH],
+                               "n_layers": [full.n_layers, ENCDEC_DEPTH]},
+                      heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+                      d_ff=cfg.d_ff, src_frames=SRC_FRAMES)
+    else:
+        fields.update(reduced={}, n_layers=cfg.n_layers,
+                      ssm=dataclasses.asdict(cfg.ssm),
+                      ssm_heads=cfg.ssm.n_heads(cfg.d_model))
+    return eng, fields, launches
+
+
+def ssd_check(cfg, dev):
+    """``ssd_chunked`` against a loop of ``ssd_step`` at ``SSD_SHAPE`` (the
+    model's heads, state and chunk; a partial last chunk; an initial state),
+    in float32 on the card, with each one's time."""
+    import numpy as np
+    import torch
+    from repro_torch.models import mamba2
+    B, S, H, P, N = (SSD_SHAPE[k] for k in "BSHPN")
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = t(rng.normal(size=(B, S, H, P)))
+    dt = t(rng.uniform(0.01, 0.2, size=(B, S, H)))
+    A = t(-rng.uniform(0.5, 4.0, size=(H,)))
+    Bm, Cm = t(rng.normal(size=(B, S, N))), t(rng.normal(size=(B, S, N)))
+    h0 = t(rng.normal(size=(B, H, P, N)))
+
+    def stepwise():
+        h, ys = h0, []
+        for i in range(S):
+            y, h = mamba2.ssd_step(x[:, i], dt[:, i], A, Bm[:, i], Cm[:, i],
+                                   h)
+            ys.append(y)
+        return torch.stack(ys, 1), h
+
+    chunked = lambda: mamba2.ssd_chunked(  # noqa: E731
+        x, dt, A, Bm, Cm, cfg.ssm.chunk, h0=h0)
+    chunked()
+    ms, (y, h) = cuda_ms(chunked, 3)
+    step_ms, (ys, hs) = cuda_ms(stepwise, 1)
+    errs = {}
+    for name, got, want in (("y", y, ys), ("h", h, hs)):
+        d = (got - want).abs()
+        errs[name] = dict(
+            max_abs_err=float(d.max()), max_abs=float(want.abs().max()),
+            within=bool((d <= SSD_TOL["atol"]
+                         + SSD_TOL["rtol"] * want.abs()).all()))
+    row = dict(shape=SSD_SHAPE, chunk=cfg.ssm.chunk, tol=SSD_TOL,
+               chunked_ms=ms, stepwise_ms=step_ms, **errs)
+    if not (errs["y"]["within"] and errs["h"]["within"]):
+        raise AssertionError(f"ssd_chunked vs stepwise {row}")
+    return row
+
+
+def ssm_phase(cm, made, dev):
+    """mamba2-370m whole: :func:`family_dense`, then a prompt of
+    ``LONG_PROMPT`` tokens (three SSD chunks, the last partial) and the
+    full-shape SSD check.  Returns the kernels' launches."""
+    import torch
+    from repro_torch.serving import engine
+    eng, fields, launches = family_dense("ssm", cm, made, dev)
+    cfg = eng.cfg
+    long_eng = engine.Engine(cfg, eng.params,
+                             engine.ServeConfig(max_len=LONG_PROMPT + GEN),
+                             device=dev)
+    long_prompt = family_prompt(cfg, BATCH, LONG_PROMPT, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    out, met = long_eng.generate(long_prompt, GEN, echo_metrics=True)
+    if tuple(out.shape) != (BATCH, GEN):
+        raise AssertionError(f"ssm long prompt tokens {tuple(out.shape)}")
+    long = dict(prompt=LONG_PROMPT, ttft_s=met["ttft_s"],
+                prefill_s=met["prefill_s"],
+                decode_tok_per_s=met["decode_tok_per_s"],
+                e2e_tok_per_s=met["e2e_tok_per_s"],
+                decode_tok_per_s_vs_short=met["decode_tok_per_s"]
+                / fields["decode_tok_per_s"],
+                peak_bytes=torch.cuda.max_memory_allocated(dev))
+    rows = fields["cache_bytes"] / (cfg.n_layers * BATCH)
+    emit("ssm", **fields, cache_bytes_per_layer_row=rows, long=long,
+         ssd=ssd_check(cfg, dev))
+    return launches
+
+
+def encdec_phase(cm, made, dev):
+    """seamless-m4t-medium at full width, ``ENCDEC_DEPTH`` encoder and
+    decoder layers: :func:`family_dense` on the batch of ``SRC_FRAMES``
+    frames and the target prompt.  Returns the kernels' launches."""
+    _, fields, launches = family_dense("encdec", cm, made, dev)
+    emit("encdec", **fields)
+    return launches
+
+
+def families_phase(child, dev):
+    """The ssm and encdec phases on the families child's containers."""
+    import torch
+    made = containers(*child)
+    launches = {"ssm": ssm_phase(*made.pop("ssm"), dev)}
+    torch.cuda.empty_cache()
+    launches["encdec"] = encdec_phase(*made.pop("encdec"), dev)
+    return launches
+
+
+def reduced_reference_check(dev):
+    """The reduced qwen2-moe-a2.7b (under ``SPEC``) and the reduced ssm,
+    hybrid and encdec families (under ``FAMILY_SPEC``): the port on the
+    card against the port on the CPU, from one container each: decoded
+    weights identical, every router choice compared (one that differs must
+    be a near-tie), prefill logits within ``REF_ATOL`` when every choice
+    agrees; greedy token agreement reported."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.store import CompressedModel
+    from repro_torch.serving import engine
+    for family, arch in FAMILY_ARCHS.items():
+        cfg = registry.reduced(registry.get(arch))
+        host = family_host_weights(cfg, seed=1)
+        cm = CompressedModel.compress(host, spec=parse_spec(
+            FAMILY_SPEC[family] + REDUCED_SEGMENTS))
+        quantized = sorted(set(carve_outs(host)) - set(cm.unquantized))
+        if quantized:
+            raise AssertionError(f"{family}: carve-outs quantized {quantized}")
+        prompt = family_prompt(cfg, 2, 8, seed=1)
+        runs = []
+        for d, backend in ((dev, "cuda"), (torch.device("cpu"), "torch")):
+            params = engine.load_params_from_compressed(cm, backend=backend,
+                                                        device=d)
+            eng = engine.Engine(cfg, params, engine.ServeConfig(max_len=16),
+                                device=d)
+            with torch.inference_mode(), recorded_routes() as routes:
+                logits, _ = eng.steps.prefill_fn(
+                    params, engine.lockstep_batch(prompt, d))
+            runs.append((params, logits.float().cpu(), routes,
+                         eng.generate(prompt, 8).cpu()))
+        (pc, lc, rc, tc), (pp, lp, rp, tp) = runs
+        for name in pp:
+            a, b = pc[name], pp[name]
+            parts = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+            for x, y in parts:
+                assert torch.equal(x.cpu(), y), name
+        flips = route_flips(rc, rp)
+        err = float((lc - lp).abs().max())
+        emit("reference", arch=cfg.name, family=family, router_calls=len(rp),
+             router_choices_compared=sum(r[1].shape[0] * r[1].shape[1]
+                                         for r in rp),
+             router_flips=flips, logits_max_abs_err=err, atol=REF_ATOL,
+             logits_held=not flips,
+             greedy_token_agreement=float((tc == tp).float().mean()),
+             argmax_equal_first_token=bool((tc[:, 0] == tp[:, 0]).all()))
+        if not all(f["near_tie"] for f in flips):
+            raise AssertionError(f"{family} router choices differ beyond a "
+                                 f"near-tie: {flips}")
+        if not flips and not err <= REF_ATOL:
+            raise AssertionError(f"{family} card vs CPU logits differ by "
+                                 f"{err}")
 
 
 def main():
@@ -2030,18 +2285,20 @@ def main():
          cuda=torch.version.cuda, max_sm_clock_mhz=clock_mhz)
     print(smi_line, flush=True)
 
-    moe_child, moe_path = start_moe_container()
+    children = [start_containers("moe")]
     try:
-        return run_phases(moe_child, moe_path, kind, count, smi_line,
-                          clock_mhz, dev)
+        return run_phases(children, kind, count, smi_line, clock_mhz, dev)
     finally:
-        if moe_child.poll() is None:
-            moe_child.kill()
-            moe_child.wait()
+        for child, *_ in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
 
 
-def run_phases(moe_child, moe_path, kind, count, smi_line, clock_mhz, dev):
-    """Every phase in order; the moe container's child runs meanwhile."""
+def run_phases(children, kind, count, smi_line, clock_mhz, dev):
+    """Every phase in order; the container children run meanwhile (the
+    families' child starts once the serve phase has been measured, so that
+    one encoder, not two, shares the host with it)."""
     import torch
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -2055,6 +2312,7 @@ def run_phases(moe_child, moe_path, kind, count, smi_line, clock_mhz, dev):
     cm, launches, eng, prompt, dense_logits, dense_tokens = \
         serve_main_path(dev)
     serve_s = time.perf_counter() - t0
+    children.append(start_containers("ssm", "encdec"))
     profile_decode(eng, prompt, dev)
     t0 = time.perf_counter()
     continuous_launches = continuous_phase(cm, eng.params, dev)
@@ -2069,23 +2327,30 @@ def run_phases(moe_child, moe_path, kind, count, smi_line, clock_mhz, dev):
                                            dense_tokens, dev)
     resident_s = time.perf_counter() - t0
     reference_check(dev)
-    moe_reference_check(dev)
+    reduced_reference_check(dev)
     rows = kernel_phase(cm, launches, clock_mhz, dev)
     rows += fused_kernel_rows(rw, resident_launches, clock_mhz, dev)
     rows.append(dq_row)
     del rw, cm
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    moe_launches = moe_phase(moe_child, moe_path, clock_mhz, dev)
+    moe_launches = moe_phase(children[0], clock_mhz, dev)
     moe_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    family_launches = families_phase(children[1], dev)
+    families_s = time.perf_counter() - t0
     for row in rows:
         row["launches_continuous"] = continuous_launches.get(row["name"], 0)
         row["launches_paged"] = paged_launches.get(row["name"], 0)
         row["launches_moe"] = {k: v.get(row["name"], 0)
                                for k, v in moe_launches.items()}
+        for family, got in family_launches.items():
+            row[f"launches_{family}"] = got.get(row["name"], 0)
     emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
          paged_phase_s=paged_s, resident_phase_s=resident_s,
-         moe_phase_s=moe_s)
+         moe_phase_s=moe_s, families_phase_s=families_s,
+         script_s=time.perf_counter() - START)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2094,7 +2359,7 @@ def run_phases(moe_child, moe_path, kind, count, smi_line, clock_mhz, dev):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--moe-container"]:
-        write_moe_container(sys.argv[2])
+    if sys.argv[1:2] == ["--containers"]:
+        write_containers(sys.argv[2], sys.argv[3:])
         sys.exit(0)
     sys.exit(main())

@@ -34,6 +34,14 @@ through the paged KV block pool (dense residency, one device); with
         --batch-slots 3 --traffic 4 --prefix-sharing \\
         --kv-spec bits=4,codec=rans [--device cpu]
 
+Every family of the registry is ported: dense and moe through every mode
+above; ssm (mamba2-370m), hybrid (jamba-1.5-large-398b) and encdec
+(seamless-m4t-medium, its batch the target tokens and stub frontend
+frames) lockstep and dense-resident only, as in the JAX package:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        --batch 2 --prompt-len 8 --gen 4 [--device cpu]
+
 It serves the reduced variant of ``--arch`` (``registry.reduced``), like the
 JAX launcher; ``chip_smoke.py`` drives the full width.  Runs on the card
 unless ``--device cpu`` is given.  The JAX launcher's other serving modes
@@ -216,6 +224,7 @@ def main(argv=None):
                                          codec=args.codec)
 
     import numpy as np
+    import torch
     from repro_torch import device as _device
     from repro_torch.configs import registry
     from repro_torch.core.store import CompressedModel
@@ -327,6 +336,13 @@ def main(argv=None):
     eng = engine.Engine(cfg, serve_params, sc, device=dev,
                         resident=args.resident)
     prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    if cfg.family == "encdec":
+        # the stub frontend's frames, drawn after the tokens from the same
+        # generator (the JAX launcher's batch, value for value)
+        prompt = {"tokens": prompt,
+                  "src_embeds": torch.from_numpy(rng.normal(
+                      0, 1, (args.batch, args.prompt_len, cfg.d_model))
+                  ).to(torch.bfloat16)}
     out, metrics = eng.generate(prompt, args.gen, echo_metrics=True)
     if args.resident == "compressed":
         serve_params.close()

@@ -12,8 +12,9 @@ positions), for the paged KV cache ``init_kv_pool`` and the block-table
 twins ``paged_prefill_chunk`` / ``paged_decode_step``, and for
 compressed-resident serving, the per-layer weight-slot twins
 ``embed_step`` / ``head_step`` / ``resident_prefill_block`` /
-``resident_block``.  The dense and moe families are ported so far; the
-others raise.
+``resident_block``.  Every family is ported; as in the JAX package, only
+dense and moe meet those three contracts, and the ssm, hybrid and encdec
+families (recurrent states, cross-attention) serve lockstep.
 """
 from __future__ import annotations
 
@@ -22,20 +23,19 @@ from typing import Dict, Tuple
 
 from repro_torch.configs.base import ArchConfig
 
-_NOT_PORTED = ("ssm", "hybrid", "encdec")
-
 
 def build(cfg: ArchConfig) -> types.ModuleType:
-    if cfg.family == "dense":
-        from . import dense
-        return dense
-    if cfg.family == "moe":
-        from . import moe
-        return moe
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet")
-    raise KeyError(f"unknown model family {cfg.family!r}")
+    from . import dense, encdec, hybrid, mamba2, moe
+    try:
+        return {
+            "dense": dense,
+            "moe": moe,
+            "ssm": mamba2,
+            "hybrid": hybrid,
+            "encdec": encdec,
+        }[cfg.family]
+    except KeyError:
+        raise KeyError(f"unknown model family {cfg.family!r}") from None
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
@@ -50,30 +50,21 @@ def supports_continuous_batching(cfg: ArchConfig) -> bool:
     """True when the family implements the slot-batch cache contract
     (``prefill_chunk`` + per-slot ``decode_step`` positions); dense and
     moe."""
-    try:
-        return hasattr(build(cfg), "prefill_chunk")
-    except NotImplementedError:
-        return False
+    return hasattr(build(cfg), "prefill_chunk")
 
 
 def supports_paged_kv(cfg: ArchConfig) -> bool:
     """True when the family implements the paged block-pool cache contract
     (``init_kv_pool`` + ``paged_decode_step`` / ``paged_prefill_chunk``
     through a block table); dense and moe."""
-    try:
-        return hasattr(build(cfg), "paged_decode_step")
-    except NotImplementedError:
-        return False
+    return hasattr(build(cfg), "paged_decode_step")
 
 
 def supports_resident_serving(cfg: ArchConfig) -> bool:
     """True when the family implements the per-layer weight-slot contract
     of compressed-resident serving (``embed_step`` / ``head_step`` /
     ``resident_prefill_block`` / ``resident_block``); dense and moe."""
-    try:
-        return hasattr(build(cfg), "resident_block")
-    except NotImplementedError:
-        return False
+    return hasattr(build(cfg), "resident_block")
 
 
 def supports_fused_resident(cfg: ArchConfig) -> bool:

@@ -1,0 +1,230 @@
+"""Jamba-style hybrid decoder: Mamba-2 and attention interleaved, with MoE
+feed-forwards (PyTorch port of ``repro/models/hybrid.py``, one device).
+
+Layers are grouped into *periods* of ``attn_period`` blocks (arXiv:
+2403.19887): each period holds ONE attention block, at its middle
+position, and ``attn_period - 1`` Mamba-2 blocks.  Every block carries a
+feed-forward: MoE at every ``every_n``-th position, a dense SwiGLU
+elsewhere.  Parameters are stacked over periods (``periods/pos{j}/...``),
+as in the JAX package; where it runs ``lax.scan`` over the periods, the
+port loops over them in Python.
+
+The attention blocks are the dense family's and hold a KV cache, the Mamba
+blocks an O(1) conv and SSM state; the MoE dispatch is
+:func:`repro_torch.models.moe.moe_mlp`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from . import dense, mamba2
+from .layers import (Schema, Spec, init_params, layer_slice, matmul,
+                     rms_norm, swiglu, take_rows)
+from .moe import _padded_experts, moe_block_schema, moe_mlp
+
+f32 = torch.float32
+
+
+def _layout(cfg: ArchConfig) -> List[Tuple[str, str]]:
+    """Per-period position layout: a list of (mixer, ffn) strings."""
+    period = cfg.attn_period
+    assert cfg.n_layers % period == 0, (cfg.n_layers, period)
+    every = cfg.moe.every_n if cfg.moe else 0
+    if every:
+        assert period % every == 0, (period, every)
+    attn_idx = period // 2
+    out = []
+    for j in range(period):
+        mixer = "attn" if j == attn_idx else "mamba"
+        ffn = "moe" if (every and j % every == every - 1) else "mlp"
+        out.append((mixer, ffn))
+    return out
+
+
+def schema(cfg: ArchConfig) -> Schema:
+    D, F = cfg.d_model, cfg.d_ff
+    nP = cfg.n_layers // cfg.attn_period
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Vp = cfg.padded_vocab()
+    resid = 0.02 / (2 * cfg.n_layers) ** 0.5
+    s: Schema = {
+        "embed": Spec((Vp, D), ("vocab", "embed"), 0.02),
+        "final_norm": Spec((D,), (None,), "ones", f32),
+        "lm_head": Spec((D, Vp), ("embed", "vocab"), 0.02),
+    }
+    for j, (mixer, ffn) in enumerate(_layout(cfg)):
+        p = f"periods/pos{j}"
+        if mixer == "attn":
+            s[f"{p}/attn_norm"] = Spec((nP, D), ("layers", None), "ones", f32)
+            s[f"{p}/wq"] = Spec((nP, D, H * hd), ("layers", "embed", "heads"))
+            s[f"{p}/wk"] = Spec((nP, D, KV * hd), ("layers", "embed", "kv"))
+            s[f"{p}/wv"] = Spec((nP, D, KV * hd), ("layers", "embed", "kv"))
+            s[f"{p}/wo"] = Spec((nP, H * hd, D), ("layers", "heads", "embed"),
+                                resid)
+        else:
+            s.update(mamba2.mamba_schema(p, nP, D, cfg.ssm, resid))
+        s[f"{p}/mlp_norm"] = Spec((nP, D), ("layers", None), "ones", f32)
+        if ffn == "moe":
+            s.update(moe_block_schema(f"{p}/moe", nP, D, F, cfg.moe,
+                                      _padded_experts(cfg), resid))
+        else:
+            s[f"{p}/w_gate"] = Spec((nP, D, F), ("layers", "embed", "mlp"))
+            s[f"{p}/w_up"] = Spec((nP, D, F), ("layers", "embed", "mlp"))
+            s[f"{p}/w_down"] = Spec((nP, F, D), ("layers", "mlp", "embed"),
+                                    resid)
+    return s
+
+
+def init(cfg: ArchConfig, seed: int = 0,
+         device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+    """Seeded random parameters on ``device`` (``cuda`` unless the caller
+    names the CPU)."""
+    from repro_torch import device as _device
+    return init_params(schema(cfg), seed, _device.resolve(device))
+
+
+def _period(params: Dict[str, Any], p: int) -> Dict[str, Any]:
+    """Period ``p`` of the stacked ``periods/*`` parameters."""
+    return {k.split("/", 1)[1]: layer_slice(v, p)
+            for k, v in params.items() if k.startswith("periods/")}
+
+
+def _pos_params(pp: Dict[str, Any], j: int) -> Dict[str, Any]:
+    pre = f"pos{j}/"
+    return {k[len(pre):]: v for k, v in pp.items() if k.startswith(pre)}
+
+
+def _ffn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, ffn_kind: str):
+    h = rms_norm(x, lp["mlp_norm"])
+    if ffn_kind == "moe":
+        wts = {k.split("/", 1)[1]: v for k, v in lp.items()
+               if k.startswith("moe/")}
+        y, aux = moe_mlp(h, wts, cfg.moe, _padded_experts(cfg))
+        return x + y, aux
+    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), \
+        torch.zeros((), dtype=f32, device=x.device)
+
+
+def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
+                 positions, caches: Optional[Dict[str, torch.Tensor]] = None,
+                 pos=None, chunk: Optional[int] = None,
+                 collect: bool = False):
+    """Apply one period's blocks.  ``caches``: the period's {"k", "v",
+    "conv_x", "conv_bc", "ssm"} (a decode step updates them in place).
+    Returns (x, the period's new caches | None, the summed MoE aux)."""
+    new_kv = None
+    new_conv_x, new_conv_bc, new_ssm = [], [], []
+    aux_total = torch.zeros((), dtype=f32, device=x.device)
+    mamba_i = 0
+    decode = caches is not None and x.shape[1] == 1 and pos is not None
+    for j, (mixer, ffn_kind) in enumerate(_layout(cfg)):
+        lp = _pos_params(pp, j)
+        if mixer == "attn":
+            # the dense family's attention (no qk-norm on these configs):
+            # a decode step writes its (k, v) in place at ``pos``
+            cache = (caches["k"], caches["v"]) if decode else None
+            out, new_kv = dense._attn(cfg, lp, x, positions=positions,
+                                      cache=cache, pos=pos)
+            x = x + out
+        else:
+            cs = ((caches["conv_x"][mamba_i], caches["conv_bc"][mamba_i])
+                  if decode else None)
+            hs = caches["ssm"][mamba_i] if decode else None
+            out, ((cx2, cbc2), hs2) = mamba2._mamba_block(
+                cfg, lp, x, conv_state=cs, ssm_state=hs, chunk=chunk)
+            x = x + out
+            if decode or collect:
+                new_conv_x.append(cx2)
+                new_conv_bc.append(cbc2)
+                new_ssm.append(hs2)
+            mamba_i += 1
+        x, aux = _ffn(cfg, lp, x, ffn_kind)
+        aux_total = aux_total + aux
+    out_caches = None
+    if decode or collect:
+        out_caches = {"k": new_kv[0], "v": new_kv[1],
+                      "conv_x": torch.stack(new_conv_x),
+                      "conv_bc": torch.stack(new_conv_bc),
+                      "ssm": torch.stack(new_ssm)}
+    return x, out_caches, aux_total
+
+
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            collect_cache: bool = False, chunk: Optional[int] = None):
+    """Full-sequence forward.  Returns (hidden, [period caches] | None, the
+    MoE aux averaged over the layers)."""
+    S = tokens.shape[1]
+    x = take_rows(params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device)
+    aux_sum = torch.zeros((), dtype=f32, device=tokens.device)
+    caches = []
+    for p in range(cfg.n_layers // cfg.attn_period):
+        x, c, aux = _period_body(cfg, _period(params, p), x,
+                                 positions=positions, chunk=chunk,
+                                 collect=collect_cache)
+        aux_sum = aux_sum + aux
+        if collect_cache:
+            caches.append(c)
+    x = rms_norm(x, params["final_norm"])
+    return x, (caches if collect_cache else None), aux_sum / cfg.n_layers
+
+
+def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+    return matmul(x, params["lm_head"])
+
+
+# ------------------------------------------------------------------------- serving
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    """KV rows for the attention blocks, conv and SSM states for the Mamba
+    blocks, stacked over periods (and over a period's Mamba positions)."""
+    ssm = cfg.ssm
+    nP = cfg.n_layers // cfg.attn_period
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    Din = ssm.d_inner(cfg.d_model)
+    Hs, N, G = ssm.n_heads(cfg.d_model), ssm.d_state, 1
+    n_mamba = cfg.attn_period - 1
+    z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt,  # noqa: E731
+                                            device=device)
+    return {
+        "k": z((nP, batch, max_len, KV, hd)),
+        "v": z((nP, batch, max_len, KV, hd)),
+        "conv_x": z((nP, n_mamba, batch, ssm.d_conv - 1, Din)),
+        "conv_bc": z((nP, n_mamba, batch, ssm.d_conv - 1, 2 * G * N)),
+        "ssm": z((nP, n_mamba, batch, Hs, ssm.head_dim, N), f32),
+    }
+
+
+def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None, chunk: Optional[int] = None):
+    """Run the prompt; return (last-position logits, the cache with KV rows
+    padded to ``max_len``)."""
+    B, S = tokens.shape
+    x, caches, _ = forward(cfg, params, tokens, collect_cache=True,
+                           chunk=chunk)
+    cache = init_cache(cfg, B, max_len or S, dtype=x.dtype, device=x.device)
+    for p, c in enumerate(caches):
+        cache["k"][p, :, :S] = c["k"]
+        cache["v"][p, :, :S] = c["v"]
+        for key in ("conv_x", "conv_bc", "ssm"):
+            cache[key][p] = c[key]
+    return logits_fn(cfg, params, x[:, -1:, :]), cache
+
+
+def decode_step(cfg: ArchConfig, params, token: torch.Tensor, cache, pos):
+    """One generation step at position ``pos`` (an int: lockstep); the
+    cache is updated in place."""
+    x = take_rows(params["embed"], token)
+    positions = pos + torch.arange(1, device=token.device)
+    for p in range(cfg.n_layers // cfg.attn_period):
+        period = {k: v[p] for k, v in cache.items()}
+        x, nc, _ = _period_body(cfg, _period(params, p), x,
+                                positions=positions, caches=period, pos=pos)
+        for key in ("conv_x", "conv_bc", "ssm"):
+            cache[key][p] = nc[key]
+    x = rms_norm(x, params["final_norm"])
+    return logits_fn(cfg, params, x), cache

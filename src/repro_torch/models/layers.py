@@ -36,8 +36,8 @@ Axes = Tuple[Optional[str], ...]
 class Spec:
     shape: Tuple[int, ...]
     axes: Axes                      # logical axis names, len == len(shape)
-    init: Any = 0.02                # float std | "zeros" | "ones"
-    dtype: torch.dtype = torch.bfloat16   # norms use f32
+    init: Any = 0.02     # float std | "zeros" | "ones" | "a_log" | "dt_bias"
+    dtype: torch.dtype = torch.bfloat16   # norms / ssm-sensitive params use f32
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -52,6 +52,14 @@ def init_param(gen: torch.Generator, spec: Spec,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init in ("a_log", "dt_bias"):
+        # mamba2: A = -exp(A_log) in [-16, -1]; dt_bias the softplus
+        # inverse of a step in [1e-3, 1e-1]
+        lo, hi = (1.0, 16.0) if spec.init == "a_log" else (1e-3, 1e-1)
+        u = torch.empty(spec.shape, dtype=torch.float32, device=device)
+        u.uniform_(lo, hi, generator=gen)
+        w = torch.log(u if spec.init == "a_log" else torch.expm1(u))
+        return w.to(spec.dtype)
     std = float(spec.init)
     w = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)
@@ -188,6 +196,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     add, divide, multiply, each rounded to ``x.dtype``); ``F.silu`` rounds
     once and differs in the last bf16 bit on about a third of the inputs."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it
+    (``logaddexp(x, 0)``: ``max(x, 0) + log1p(exp(-|x|))``, NaN passed
+    through); ``F.softplus`` returns ``x`` itself above its threshold of
+    20."""
+    y = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, y)
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -1,0 +1,346 @@
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) decoder (PyTorch
+port of ``repro/models/mamba2.py``, one device).
+
+Chunked SSD, as in the JAX package:
+
+  * split the sequence into chunks of length ``Q``;
+  * intra-chunk: a quadratic attention-like term with the decay mask
+    ``L[i, j] = exp(segsum(a))``;
+  * inter-chunk: a per-chunk state ``(H, P, N)`` carried by the recurrence
+    ``h_c = decay_c * h_{c-1} + states_c``.  The JAX package runs it as
+    ``jax.lax.associative_scan`` (a tree of combines); the port loops over
+    the chunks in order, so its float32 sums associate differently.
+
+The decode step is the O(1) recurrence ``h = exp(a dt) h + dt B x`` with
+output ``C^T h``: the SSM state takes the KV cache's place and does not
+grow with the sequence.  The conv and the SSD run in float32 and round to
+bf16 where the JAX package casts; their float32 products never run in
+TF32, whatever the caller set (:func:`ieee_f32`).
+
+``A_log``, ``dt_bias``, ``D_skip`` and the conv weights stay float32; a
+compression spec must carve them out ahead of any catch-all rule
+(``core.spec``: a matching rule overrides the keep-fp32 predicate).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, Iterator, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, SSMConfig
+from .layers import (Schema, Spec, deq, init_params, layer_slice, matmul,
+                     rms_norm, silu, softplus, take_rows)
+
+f32 = torch.float32
+
+
+@contextlib.contextmanager
+def ieee_f32() -> Iterator[None]:
+    """Float32 products in full precision inside the block: TF32 would round
+    the SSD's operands to 10 mantissa bits on the card.  Restores the
+    caller's setting on exit."""
+    m = torch.backends.cuda.matmul
+    prev = m.allow_tf32
+    m.allow_tf32 = False
+    try:
+        yield
+    finally:
+        m.allow_tf32 = prev
+
+
+def mamba_schema(prefix: str, L: int, D: int, ssm: SSMConfig,
+                 resid: float) -> Schema:
+    """One stacked Mamba-2 block's parameters: the projection split into a
+    ``[z | x]`` tensor and a small ``[B | C | dt]`` one, and the depthwise
+    conv split the same way (the JAX package's layout, name for name)."""
+    Din = ssm.d_inner(D)
+    H = ssm.n_heads(D)
+    N = ssm.d_state
+    G = 1                            # n_groups = 1 for B / C
+    K = ssm.d_conv
+    return {
+        f"{prefix}/norm": Spec((L, D), ("layers", None), "ones", f32),
+        f"{prefix}/in_zx": Spec((L, D, 2 * Din), ("layers", "embed", "mlp")),
+        f"{prefix}/in_bcdt": Spec((L, D, 2 * G * N + H),
+                                  ("layers", "embed", None)),
+        f"{prefix}/conv_x_w": Spec((L, K, Din), ("layers", None, "mlp"), 0.02,
+                                   f32),
+        f"{prefix}/conv_x_b": Spec((L, Din), ("layers", "mlp"), "zeros", f32),
+        f"{prefix}/conv_bc_w": Spec((L, K, 2 * G * N), ("layers", None, None),
+                                    0.02, f32),
+        f"{prefix}/conv_bc_b": Spec((L, 2 * G * N), ("layers", None), "zeros",
+                                    f32),
+        f"{prefix}/A_log": Spec((L, H), ("layers", "heads"), "a_log", f32),
+        f"{prefix}/dt_bias": Spec((L, H), ("layers", "heads"), "dt_bias",
+                                  f32),
+        f"{prefix}/D_skip": Spec((L, H), ("layers", "heads"), "ones", f32),
+        f"{prefix}/ssm_norm": Spec((L, Din), ("layers", "mlp"), "ones", f32),
+        f"{prefix}/out_proj": Spec((L, Din, D), ("layers", "mlp", "embed"),
+                                   resid),
+    }
+
+
+def schema(cfg: ArchConfig) -> Schema:
+    L, D = cfg.n_layers, cfg.d_model
+    Vp = cfg.padded_vocab()
+    resid = 0.02 / (2 * L) ** 0.5
+    s: Schema = {
+        "embed": Spec((Vp, D), ("vocab", "embed"), 0.02),
+        "final_norm": Spec((D,), (None,), "ones", f32),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = Spec((D, Vp), ("embed", "vocab"), 0.02)
+    s.update(mamba_schema("layers", L, D, cfg.ssm, resid))
+    return s
+
+
+def init(cfg: ArchConfig, seed: int = 0,
+         device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+    """Seeded random parameters on ``device`` (``cuda`` unless the caller
+    names the CPU)."""
+    from repro_torch import device as _device
+    return init_params(schema(cfg), seed, _device.resolve(device))
+
+
+def _layer(params: Dict[str, Any], l: int) -> Dict[str, Any]:
+    """Layer ``l`` of the stacked ``layers/*`` parameters (the slice the
+    JAX package's ``lax.scan`` hands each iteration)."""
+    return {k.split("/", 1)[1]: layer_slice(v, l)
+            for k, v in params.items() if k.startswith("layers/")}
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d.  xBC: (B, S, C); w: (K, C); returns (y,
+    new_state): ``K`` shifted adds in float32, SiLU, rounded to xBC's
+    dtype; ``new_state`` is the last K-1 inputs (B, K-1, C), the
+    streaming state of the next call."""
+    B, S, C = xBC.shape
+    K = w.shape[0]
+    if state is None:
+        pad = torch.zeros((B, K - 1, C), dtype=xBC.dtype, device=xBC.device)
+    else:
+        pad = state.to(xBC.dtype)
+    xp = torch.cat([pad, xBC], dim=1)                   # (B, S+K-1, C)
+    y = torch.zeros((B, S, C), dtype=f32, device=xBC.device)
+    for k in range(K):
+        y = y + xp[:, k: k + S, :].float() * w[k].float()
+    y = silu(y + b.float())
+    return y.to(xBC.dtype), xp[:, S:, :]
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Stable segment sum: ``out[..., i, j] = sum a[..., j+1..i]``, -inf for
+    j > i (so that ``exp`` gives 0 there)."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, d, torch.tensor(float("-inf"), dtype=d.dtype,
+                                             device=a.device))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None):
+    """Chunked SSD scan.
+
+    x: (B, S, H, P) value-like input; dt: (B, S, H) softplus'd step (> 0);
+    A: (H,) negative decay rate; Bm, Cm: (B, S, N) input and output
+    projections (one group, broadcast over heads); h0: (B, H, P, N)
+    initial state, None for zeros.
+
+    Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) float32).
+    """
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        # pad with dt = 0 positions: decay exp(0) = 1 and input x * dt = 0,
+        # so the padded tail perturbs neither the carried state nor the
+        # first S outputs
+        pad = chunk - S % chunk
+        y, h = ssd_chunked(
+            torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)),
+            torch.nn.functional.pad(dt, (0, 0, 0, pad)), A,
+            torch.nn.functional.pad(Bm, (0, 0, 0, pad)),
+            torch.nn.functional.pad(Cm, (0, 0, 0, pad)), chunk, h0=h0)
+        return y[:, :S], h
+    nc = S // chunk
+    with ieee_f32():
+        xb = x.reshape(B, nc, chunk, H, P).float()
+        dtb = dt.reshape(B, nc, chunk, H).float()
+        Bb = Bm.reshape(B, nc, chunk, N).float()
+        Cb = Cm.reshape(B, nc, chunk, N).float()
+
+        a = dtb * A[None, None, None, :]                 # (B,nc,Q,H) log-decay
+        a_hq = torch.movedim(a, -1, -2)                  # (B,nc,H,Q)
+
+        # intra-chunk (quadratic)
+        Lmat = torch.exp(_segsum(a_hq))                  # (B,nc,H,Q,Q)
+        scores = torch.einsum("bcin,bcjn->bcij", Cb, Bb)  # (B,nc,Q,Q)
+        M = scores[:, :, None] * Lmat                    # (B,nc,H,Q,Q)
+        xdt = xb * dtb[..., None]                        # (B,nc,Q,H,P)
+        y_diag = torch.einsum("bchij,bcjhp->bcihp", M, xdt)
+
+        # chunk states
+        a_cum = torch.cumsum(a_hq, dim=-1)               # (B,nc,H,Q)
+        a_tot = a_cum[..., -1]                           # (B,nc,H)
+        decay_in = torch.exp(a_tot[..., None] - a_cum)   # decay from t to end
+        states = torch.einsum("bcjn,bchj,bcjhp->bchpn", Bb, decay_in, xdt)
+
+        # inter-chunk recurrence, chunk by chunk: the state after chunk c
+        # from zeros, and the decay accumulated since the start (h0's share
+        # is added after, as the JAX package adds it to its scan)
+        decay_chunk = torch.exp(a_tot)                   # (B,nc,H)
+        h_after, d_all = [states[:, 0]], [decay_chunk[:, 0]]
+        for c in range(1, nc):
+            dc = decay_chunk[:, c]
+            h_after.append(states[:, c] + h_after[-1] * dc[..., None, None])
+            d_all.append(d_all[-1] * dc)
+        h_after = torch.stack(h_after, dim=1)            # (B,nc,H,P,N)
+        d_all = torch.stack(d_all, dim=1)                # (B,nc,H)
+        if h0 is not None:
+            h_after = h_after + d_all[..., None, None] * h0[:, None].float()
+        # the state entering chunk c
+        first = (h0[:, None].float() if h0 is not None
+                 else torch.zeros_like(h_after[:, :1]))
+        h_in = torch.cat([first, h_after[:, :-1]], dim=1)
+
+        # inter-chunk output: y_off[t] = C_t . exp(a_cum[t]) h_in
+        decay_out = torch.exp(a_cum)                     # (B,nc,H,Q)
+        y_off = torch.einsum("bcin,bchpn,bchi->bcihp", Cb, h_in, decay_out)
+
+    y = (y_diag + y_off).reshape(B, S, H, P)
+    return y.to(x.dtype), h_after[:, -1]
+
+
+def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, h: torch.Tensor):
+    """The O(1) decode recurrence.  x: (B, H, P); dt: (B, H); Bm, Cm:
+    (B, N); h: (B, H, P, N).  Returns (y (B, H, P) in x's dtype, the new
+    float32 state)."""
+    xf, dtf, Bf, Cf, hf = (t.float() for t in (x, dt, Bm, Cm, h))
+    with ieee_f32():
+        da = torch.exp(dtf * A[None])                    # (B,H)
+        h_new = hf * da[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", xf * dtf[..., None], Bf)
+        y = torch.einsum("bhpn,bn->bhp", h_new, Cf)
+    return y.to(x.dtype), h_new
+
+
+def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
+                 conv_state=None, ssm_state=None, chunk: Optional[int] = None):
+    """One mamba2 block.  Returns (out, ((new_conv_x, new_conv_bc),
+    new_ssm_state)); ``conv_state`` is the pair of the split projections'
+    conv states."""
+    ssm = cfg.ssm
+    B, S, D = x.shape
+    Din = ssm.d_inner(D)
+    H, P, N, G = ssm.n_heads(D), ssm.head_dim, ssm.d_state, 1
+    chunk = chunk or ssm.chunk
+
+    h = rms_norm(x, lp["norm"])
+    z, xs = torch.split(matmul(h, lp["in_zx"]), [Din, Din], dim=-1)
+    BC, dt = torch.split(matmul(h, lp["in_bcdt"]), [2 * G * N, H], dim=-1)
+    cs_x, cs_bc = conv_state if conv_state is not None else (None, None)
+    xs, new_conv_x = _causal_conv(xs, lp["conv_x_w"], lp["conv_x_b"], cs_x)
+    BC, new_conv_bc = _causal_conv(BC, lp["conv_bc_w"], lp["conv_bc_b"],
+                                   cs_bc)
+    Bm, Cm = torch.split(BC, [G * N, G * N], dim=-1)
+    dt = softplus(dt.float() + lp["dt_bias"].float())
+    A = -torch.exp(lp["A_log"].float())                  # (H,) negative
+
+    xh = xs.reshape(B, S, H, P)
+    if S == 1 and ssm_state is not None:
+        y, h_new = ssd_step(xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0],
+                            ssm_state)
+        y = y[:, None]
+    else:
+        y, h_new = ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=ssm_state)
+    y = y + xh * lp["D_skip"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, Din)
+    y = rms_norm(y * silu(z.float()).to(y.dtype), lp["ssm_norm"])
+    out = matmul(y, lp["out_proj"])
+    return out, ((new_conv_x, new_conv_bc), h_new)
+
+
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            collect_cache: bool = False, chunk: Optional[int] = None):
+    """Full-sequence forward.  Returns (hidden, [((conv_x, conv_bc), ssm)
+    per layer] | None)."""
+    x = take_rows(params["embed"], tokens)
+    caches = []
+    for l in range(cfg.n_layers):
+        out, st = _mamba_block(cfg, _layer(params, l), x, chunk=chunk)
+        x = x + out
+        if collect_cache:
+            caches.append(st)
+    x = rms_norm(x, params["final_norm"])
+    return x, (caches if collect_cache else None)
+
+
+def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return matmul(x, deq(params["embed"]).T)
+    return matmul(x, params["lm_head"])
+
+
+# ------------------------------------------------------------------------- serving
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    """The state cache: bf16 conv states (the last K-1 inputs of each split
+    projection) and the float32 SSM state, a layer and row each.  O(1) in
+    sequence length: ``max_len`` is taken for the API's sake."""
+    ssm = cfg.ssm
+    L, D = cfg.n_layers, cfg.d_model
+    Din = ssm.d_inner(D)
+    H, P, N, G = ssm.n_heads(D), ssm.head_dim, ssm.d_state, 1
+    return {
+        "conv_x": torch.zeros((L, batch, ssm.d_conv - 1, Din), dtype=dtype,
+                              device=device),
+        "conv_bc": torch.zeros((L, batch, ssm.d_conv - 1, 2 * G * N),
+                               dtype=dtype, device=device),
+        "ssm": torch.zeros((L, batch, H, P, N), dtype=f32, device=device),
+    }
+
+
+def _write_state(cache: Dict[str, torch.Tensor], l: int, st) -> None:
+    """Layer ``l``'s new ((conv_x, conv_bc), ssm) into the stacked cache,
+    in place."""
+    (cx, cbc), hs = st
+    cache["conv_x"][l] = cx
+    cache["conv_bc"][l] = cbc
+    cache["ssm"][l] = hs
+
+
+def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None, chunk: Optional[int] = None):
+    """Run the prompt; return (last-position logits, the state cache)."""
+    x = take_rows(params["embed"], tokens)
+    cache = init_cache(cfg, tokens.shape[0], max_len or tokens.shape[1],
+                       dtype=x.dtype, device=x.device)
+    for l in range(cfg.n_layers):
+        out, st = _mamba_block(cfg, _layer(params, l), x, chunk=chunk)
+        x = x + out
+        _write_state(cache, l, st)
+    x = rms_norm(x, params["final_norm"])
+    return logits_fn(cfg, params, x[:, -1:, :]), cache
+
+
+def decode_step(cfg: ArchConfig, params, token: torch.Tensor, cache, pos):
+    """One generation step: each layer's conv and SSM state advance by one
+    token, in place.  ``pos`` is taken for the API's sake (the state
+    carries the position)."""
+    x = take_rows(params["embed"], token)
+    for l in range(cfg.n_layers):
+        out, st = _mamba_block(
+            cfg, _layer(params, l), x,
+            conv_state=(cache["conv_x"][l], cache["conv_bc"][l]),
+            ssm_state=cache["ssm"][l])
+        x = x + out
+        _write_state(cache, l, st)
+    x = rms_norm(x, params["final_norm"])
+    return logits_fn(cfg, params, x), cache
+

@@ -151,6 +151,19 @@ def load_params_from_compressed(model: CompressedModel, *,
     return out
 
 
+def lockstep_batch(prompt: Any, device) -> Any:
+    """A lockstep prompt on ``device``: (B, S) int64 tokens from a tensor
+    or array, or encdec's batch dict with int64 ``tokens`` and bf16
+    ``src_embeds`` (the stub frontend's frames)."""
+    if isinstance(prompt, dict):
+        return {"tokens": torch.as_tensor(prompt["tokens"], dtype=torch.int64,
+                                          device=device),
+                "src_embeds": torch.as_tensor(prompt["src_embeds"],
+                                              device=device).to(
+                                                  torch.bfloat16)}
+    return torch.as_tensor(prompt, dtype=torch.int64, device=device)
+
+
 def sample(logits: torch.Tensor, temperature: float,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """(B, S, V) logits -> (B,) int32 tokens from the last position: argmax
@@ -294,15 +307,17 @@ class Engine:
     @torch.inference_mode()
     def generate(self, prompt, steps: int, *, seed: int = 0,
                  echo_metrics: bool = False):
-        """prompt: (B, S) int tokens (tensor or array).  Returns (B, steps)
-        int32 tokens on the engine's device (and the metrics view when
-        ``echo_metrics``)."""
+        """prompt: (B, S) int tokens (tensor or array), or for encdec the
+        batch dict ``{"tokens": (B, S), "src_embeds": (B, S_src, D)}``.
+        Returns (B, steps) int32 tokens on the engine's device (and the
+        metrics view when ``echo_metrics``)."""
         dev = self.device
         sync: Callable[[], None] = lambda: _device.synchronize(dev)
-        prompt = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+        prompt = lockstep_batch(prompt, dev)
+        B, S = (prompt["tokens"] if isinstance(prompt, dict)
+                else prompt).shape
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        B, S = prompt.shape
         t0 = time.perf_counter()
         with obs_trace.span("serve.prefill"):
             logits, cache = self.steps.prefill_fn(self.params, prompt)
