@@ -63,6 +63,27 @@ Phases, each printing one JSON line:
    ``int8_cache`` line runs the lockstep prompt on the int8 slot cache
    against bf16 (logits within ``KV_LOGITS_TOL``).  Launch counts are
    zeroed before the phase and must read 0 after it.
+   Then ``fleet``: ``TRAFFIC``'s 16 jobs through ``FleetDriver`` replicas
+   of ``FLEET_SLOTS`` slots (prefill chunks of 16, ``max_len`` 64) on the
+   same decoded weights, each request's tokens asserted **bitwise** those
+   of a single ``ContinuousEngine`` with as many slots (the same step
+   shapes), every request dispatched and finished once, none shed; one
+   ``fleet`` line a run with its wall time, fleet steps and aggregate
+   tok/s.  Runs: ``dp`` (1, 2 and 3 replicas sharing one weight tree, under
+   ``round-robin`` and ``least-loaded``, lockstep); ``kill`` (3 replicas,
+   replica 1 killed once its engine has taken 3 decode steps: evacuated >=
+   1, ``fleet.redrives`` equal to it); ``disagg`` (a 1:1 prefill / decode
+   split on bf16 blocks of 16 and a 1:2 on 8-bit rANS blocks, against a
+   single paged engine with the same spec; 16 handoffs, 16 delivered; the
+   bytes on the wire against the exported blocks' raw bytes, and the
+   summed ``fleet.handoff_encode`` / ``fleet.handoff_adopt`` spans), plus
+   one sampled request (temperature 0.8, seed 7) through the 1:1 split
+   against its single paged run; ``weights`` (``from_container`` with one
+   copy a replica: the decode kernels launched twice the load plan's
+   chunks, ``weight_bytes`` two copies where sharing gives one, peak device
+   memory); ``threaded`` (1 and 2 replicas, one worker thread each, on
+   ``TRAFFIC``'s arrival times: recorded, nothing gated on speed).  Launch
+   counts are zeroed before the phase.
 4. dequant_matmul — the third path: the weights the serve phase decoded
    on the card through the decode kernels go through
    ``kernels.ops.dequant_matmul`` (the port of the JAX package's
@@ -166,6 +187,7 @@ Phases, each printing one JSON line:
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
 compressed-resident run; ``launches_paged``: on the paged phase, 0;
+``launches_fleet``: on the fleet phase, its per-replica load's;
 ``launches_moe``: on the moe phase's dense-resident load and generate and
 on its compressed-resident generate; ``launches_ssm`` /
 ``launches_encdec``: on those phases' load and generate), and as the last
@@ -247,6 +269,17 @@ PAGED_DRIFT = 0.6
 # histories); the wrong context at least 5.06
 KV_LOGITS_TOL = {"bits8": 0.5, "bits4": 2.0, "int8": 0.5}
 KV_CONTEXT_MARGIN = 2.0
+# the fleet phase: TRAFFIC's 16 jobs (max_len CONT_MAX_LEN, chunks of
+# PREFILL_CHUNK) through replicas of FLEET_SLOTS slots (the JAX package's
+# default), against a single engine with as many slots: the same step shapes
+# (all lanes a decode step, (1, chunk) a prefill chunk), so each request's
+# tokens must be bitwise the single engine's
+FLEET_SLOTS = 4
+FLEET_REPLICAS = (1, 2, 3)
+FLEET_KILL = dict(replicas=3, victim=1, after_decode_steps=3)
+FLEET_DISAGG = (((1, 1), "bits=16,block=16"),
+                ((1, 2), "bits=8,codec=rans,block=16"))
+FLEET_SAMPLED = dict(temperature=0.8, seed=7)
 # row counts of the fused rows: lockstep decode and prefill, then the
 # continuous engine's decode batch and prefill chunk
 FUSED_M = (BATCH, BATCH * PROMPT, N_SLOTS, PREFILL_CHUNK)
@@ -831,6 +864,209 @@ def paged_phase(params, dev):
     if any(launches.values()):
         raise AssertionError(f"paged phase launched kernels: {launches}")
     return launches
+
+
+def fleet_jobs(cfg):
+    from repro_torch.serving.batching import poisson_trace
+    trace = poisson_trace(vocab=cfg.vocab, **TRAFFIC)
+    return trace, [(p, g, {}) for _, p, g in trace]
+
+
+def run_single(ce, jobs):
+    """Every job through one ``ContinuousEngine``: the outputs in job
+    order."""
+    reqs = [ce.submit(p, g, **kw) for p, g, kw in jobs]
+    ce.run()
+    return [r.output for r in reqs]
+
+
+def run_fleet(fd, jobs):
+    """Submit every job to the fleet and drive it in lockstep to the end;
+    returns the requests in job order and the wall time."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [fd.submit(p, g, **kw) for p, g, kw in jobs]
+    fd.run()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def fleet_line(fd, reqs, wall, label, want, redrives=0, **fields):
+    """Emit a run's ``fleet`` line and hold it: every request dispatched
+    once (again once per redrive) and finished once, none shed, each
+    bitwise ``want``."""
+    outs = [r.output for r in reqs]
+    equal = sum(a == b for a, b in zip(outs, want))
+    rids = [r.rid for h in fd.replicas for r in h.engine.finished]
+    toks = sum(len(o) for o in outs)
+    emit("fleet", run=label, replicas=len(fd.replicas),
+         policy=fd.router.policy, n_slots=FLEET_SLOTS, submitted=len(reqs),
+         dispatched=fd.router.n_dispatched, finished=len(rids),
+         finished_unique=len(set(rids)), shed=len(fd.shed), wall_s=wall,
+         tokens=toks, tok_per_s=toks / wall,
+         per_replica_finished=[len(h.engine.finished) for h in fd.replicas],
+         per_replica_decode_steps=[h.engine.n_decode_steps
+                                   for h in fd.replicas],
+         fleet_steps=fd.n_steps, requests_equal_single=equal,
+         redrives=redrives, **fields)
+    if len(rids) != len(reqs) or set(rids) != {r.rid for r in reqs} \
+            or fd.shed:
+        raise AssertionError(f"fleet {label}: {len(set(rids))} of "
+                             f"{len(reqs)} requests finished ({len(rids)} "
+                             f"finishes, {len(fd.shed)} shed)")
+    if fd.router.n_dispatched != len(reqs) + redrives:
+        raise AssertionError(f"fleet {label}: {fd.router.n_dispatched} "
+                             f"dispatched, expected {len(reqs)} + "
+                             f"{redrives} redrives")
+    if outs != want:
+        raise AssertionError(f"fleet {label}: {len(reqs) - equal} requests' "
+                             f"tokens differ from the single engine's")
+
+
+def fleet_phase(cm, params, dev):
+    """The fleet over the serve phase's decoded weights: data-parallel
+    replicas, a killed replica, disaggregated prefill / decode splits, a
+    per-replica weight load, and threaded replicas; every request held
+    bitwise to a single engine.  Launch counts are zeroed just before the
+    phase; only the per-replica load launches kernels."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.spec import KVCompressionSpec
+    from repro_torch.kernels import build
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serving import engine
+    from repro_torch.serving.batching import (ContinuousEngine,
+                                              SamplingParams, replay_fleet)
+    from repro_torch.serving.fleet import POLICIES, FleetDriver
+
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=DEPTH)
+    sc = engine.ServeConfig(max_len=CONT_MAX_LEN)
+    steps = engine.ServeSteps(cfg, sc)
+    trace, jobs = fleet_jobs(cfg)
+    common = dict(n_slots=FLEET_SLOTS, prefill_chunk=PREFILL_CHUNK,
+                  steps=steps)
+    torch.cuda.synchronize()
+    for k in build.launches:
+        build.launches[k] = 0
+    want = run_single(ContinuousEngine(cfg, params, sc, device=dev, **common),
+                      jobs)
+
+    # data parallel, shared weights, lockstep
+    for n in FLEET_REPLICAS:
+        for policy in POLICIES:
+            fd = FleetDriver(cfg, params, sc, n_replicas=n, policy=policy,
+                             devices=[dev], **common)
+            fleet_line(fd, *run_fleet(fd, jobs), "dp", want)
+
+    # a replica killed once its engine has taken a few decode steps
+    fd = FleetDriver(cfg, params, sc, n_replicas=FLEET_KILL["replicas"],
+                     policy="least-loaded", devices=[dev], **common)
+    victim = fd.replicas[FLEET_KILL["victim"]].engine
+    redrives0 = obs_metrics.counter("fleet.redrives").total()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [fd.submit(p, g) for p, g, _ in jobs]
+    while victim.n_decode_steps < FLEET_KILL["after_decode_steps"]:
+        if not fd.step():
+            raise AssertionError("fleet kill: the victim never decoded")
+    evacuated = fd.kill_replica(FLEET_KILL["victim"])
+    fd.run()
+    torch.cuda.synchronize()
+    redrives = obs_metrics.counter("fleet.redrives").total() - redrives0
+    fleet_line(fd, reqs, time.perf_counter() - t0, "kill", want,
+               victim=FLEET_KILL["victim"],
+               killed_after_decode_steps=FLEET_KILL["after_decode_steps"],
+               redrives=redrives, evacuated=len(evacuated))
+    if not evacuated or redrives != len(evacuated):
+        raise AssertionError(f"fleet kill: {len(evacuated)} evacuated, "
+                             f"{redrives} redrives")
+
+    # disaggregated prefill / decode over paged blocks; the sampled request
+    # goes through the first split, against its own single paged run
+    for (split, text) in FLEET_DISAGG:
+        spec = KVCompressionSpec.parse(text)
+        paged = dict(common, kv_spec=spec)
+        pwant = run_single(ContinuousEngine(cfg, params, sc, device=dev,
+                                            **paged), jobs)
+        sent = []
+        fd = FleetDriver(cfg, params, sc, n_replicas=sum(split),
+                         disaggregate=split, devices=[dev],
+                         handoff_transport=lambda pl: sent.append(pl) or 0,
+                         **paged)
+        pool = fd.replicas[0].engine.slots.pool
+        block_bytes = sum(c[:, 0].numel() * c.element_size()
+                          for c in pool.values())
+        tracer = obs_trace.enable()
+        try:
+            reqs, wall = run_fleet(fd, jobs)
+        finally:
+            obs_trace.disable()
+        n_blocks = sum(len(pl.blocks) for pl in sent)
+        fleet_line(fd, reqs, wall, "disagg", pwant, split=list(split),
+                   kv_spec=spec.describe(), handoffs=fd.handoff.n_handoffs,
+                   delivered=fd.handoff.n_delivered,
+                   bytes_on_wire=fd.handoff.bytes_on_wire,
+                   exported_blocks=n_blocks,
+                   raw_block_bytes=block_bytes * n_blocks,
+                   span_ms={n: 1e-3 * sum(e.dur_us for e in tracer.spans(n))
+                            for n in ("fleet.handoff_encode",
+                                      "fleet.handoff_adopt")})
+        if not fd.handoff.n_handoffs == fd.handoff.n_delivered == len(jobs):
+            raise AssertionError(f"fleet disagg {split}: "
+                                 f"{fd.handoff.n_handoffs} handoffs, "
+                                 f"{fd.handoff.n_delivered} delivered")
+        if split == FLEET_DISAGG[0][0]:
+            sampled = [(jobs[0][0], GEN,
+                        dict(sampling=SamplingParams(**FLEET_SAMPLED)))]
+            swant = run_single(ContinuousEngine(cfg, params, sc, device=dev,
+                                                **paged), sampled)
+            fd = FleetDriver(cfg, params, sc, n_replicas=sum(split),
+                             disaggregate=split, devices=[dev], **paged)
+            fleet_line(fd, *run_fleet(fd, sampled), "disagg-sampled", swant,
+                       split=list(split), kv_spec=spec.describe(),
+                       sampling=FLEET_SAMPLED, tokens_sampled=swant[0])
+
+    # one weight copy per replica, decoded through the kernels twice
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fd = FleetDriver.from_container(cm, cfg, sc, weights="per-replica",
+                                    n_replicas=2, backend="cuda",
+                                    policy="least-loaded", devices=[dev],
+                                    **common)
+    load_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    plan = decode_launches_from_plan(cm)
+    per = fd.weight_bytes()
+    shared = FleetDriver(cfg, params, sc, n_replicas=2, devices=[dev],
+                         **common).weight_bytes()
+    fleet_line(fd, *run_fleet(fd, jobs), "weights", want, weights=per,
+               weights_share=shared, load_s=load_s, launches=launches,
+               launches_per_copy=plan,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    if launches != dict({k: 0 for k in launches},
+                        **{k: 2 * v for k, v in plan.items()}):
+        raise AssertionError(f"per-replica load launches {launches}, "
+                             f"expected 2 x the plan's {plan}")
+    if not (per["copies"] == 2 and per["total_bytes"]
+            == 2 * per["bytes_per_copy"] == 2 * shared["total_bytes"]
+            and shared["copies"] == 1 and shared["total_bytes"] > 0):
+        raise AssertionError(f"weight_bytes: per-replica {per}, share "
+                             f"{shared}")
+    del fd
+
+    # threaded replicas on TRAFFIC's arrival times: one worker a replica,
+    # all queueing onto the card's one stream
+    for n in (1, 2):
+        fd = FleetDriver(cfg, params, sc, n_replicas=n, devices=[dev],
+                         **common)
+        torch.cuda.synchronize()
+        reqs, shed, makespan = replay_fleet(fd, trace, threaded=True)
+        torch.cuda.synchronize()
+        fleet_line(fd, reqs, makespan, "threaded", want, shed_on_submit=shed)
+    return dict(build.launches)
 
 
 def token_drift(got, want):
@@ -2320,6 +2556,9 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     t0 = time.perf_counter()
     paged_launches = paged_phase(eng.params, dev)
     paged_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet_launches = fleet_phase(cm, eng.params, dev)
+    fleet_s = time.perf_counter() - t0
     dq_row = dequant_matmul_phase(cm, eng.params, clock_mhz, dev)
     del eng
     t0 = time.perf_counter()
@@ -2343,12 +2582,14 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     for row in rows:
         row["launches_continuous"] = continuous_launches.get(row["name"], 0)
         row["launches_paged"] = paged_launches.get(row["name"], 0)
+        row["launches_fleet"] = fleet_launches.get(row["name"], 0)
         row["launches_moe"] = {k: v.get(row["name"], 0)
                                for k, v in moe_launches.items()}
         for family, got in family_launches.items():
             row[f"launches_{family}"] = got.get(row["name"], 0)
     emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
-         paged_phase_s=paged_s, resident_phase_s=resident_s,
+         paged_phase_s=paged_s, fleet_phase_s=fleet_s,
+         resident_phase_s=resident_s,
          moe_phase_s=moe_s, families_phase_s=families_s,
          script_s=time.perf_counter() - START)
     print(smi_line, flush=True)

@@ -34,6 +34,16 @@ through the paged KV block pool (dense residency, one device); with
         --batch-slots 3 --traffic 4 --prefix-sharing \\
         --kv-spec bits=4,codec=rans [--device cpu]
 
+``--replicas N`` serves the traffic through a fleet of N continuous
+engines behind a request router (``--router round-robin`` or
+``least-loaded``; one shared weight tree, lockstep drive); ``--disaggregate
+P:D`` splits it into P prefill and D decode replicas, the prompt KV
+crossing as entropy-coded paged blocks (needs ``--kv-spec``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --batch-slots 2 --traffic 4 --replicas 2 --disaggregate 1:1 \\
+        --kv-spec bits=16 [--device cpu]
+
 Every family of the registry is ported: dense and moe through every mode
 above; ssm (mamba2-370m), hybrid (jamba-1.5-large-398b) and encdec
 (seamless-m4t-medium, its batch the target tokens and stub frontend
@@ -44,18 +54,16 @@ frames) lockstep and dense-resident only, as in the JAX package:
 
 It serves the reduced variant of ``--arch`` (``registry.reduced``), like the
 JAX launcher; ``chip_smoke.py`` drives the full width.  Runs on the card
-unless ``--device cpu`` is given.  The JAX launcher's other serving modes
-(fleets, meshes) are not ported yet and their flags exit with a message
-saying so.
+unless ``--device cpu`` is given.  The JAX launcher's multi-device modes
+(meshes, production shapes, multi-pod) are not ported yet and their flags
+exit with a message saying so.
 """
 import argparse
 import sys
 import time
 
 # flags of the JAX launcher whose serving modes the port does not have yet
-_NOT_PORTED_FLAGS = (
-    "--replicas", "--router", "--disaggregate", "--mesh",
-    "--production", "--shape", "--multi-pod")
+_NOT_PORTED_FLAGS = ("--mesh", "--production", "--shape", "--multi-pod")
 
 
 def main(argv=None):
@@ -127,6 +135,19 @@ def main(argv=None):
                    help="share identical prompt-prefix KV blocks across "
                         "requests (implies --kv-spec when given alone, and "
                         "makes --traffic replay shared system prompts)")
+    p.add_argument("--replicas", type=int, default=0, metavar="N",
+                   help="with --batch-slots: serve through a fleet of N "
+                        "data-parallel continuous-batching replicas behind "
+                        "a request router (one shared weight tree, lockstep "
+                        "drive)")
+    p.add_argument("--router", default="round-robin",
+                   choices=("round-robin", "least-loaded"),
+                   help="fleet placement policy for --replicas")
+    p.add_argument("--disaggregate", default=None, metavar="P:D",
+                   help="with --replicas: split the fleet into P prefill "
+                        "replicas + D decode replicas (P+D = N); finished "
+                        "prompt KV ships prefill->decode as entropy-coded "
+                        "block payloads, so requires --kv-spec")
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default: cuda; raises "
                         "when no card is present)")
@@ -143,7 +164,8 @@ def main(argv=None):
         if flag in _NOT_PORTED_FLAGS:
             p.error(f"{flag} is not ported yet (the PyTorch port serves "
                     f"lockstep and continuous batches, dense or compressed "
-                    f"resident, and paged KV on one device)")
+                    f"resident, paged KV and fleets of replicas on one "
+                    f"device)")
     args = p.parse_args(argv)
     if args.traffic > 0 and args.batch_slots < 1:
         p.error("--traffic replays arrivals through --batch-slots N")
@@ -190,6 +212,38 @@ def main(argv=None):
                     f"the KV block size (chunk {args.prefill_chunk}, block "
                     f"{kv_spec.block_size}): the prefix-skip boundary must "
                     f"be a chunk boundary")
+
+    # fleet flags: the same upfront validation as the JAX launcher; the
+    # parsed P:D split rides on args so _serve_fleet sees a tuple, not text
+    args.disaggregate_split = None
+    if args.disaggregate and args.replicas <= 0:
+        p.error("--disaggregate requires --replicas")
+    if args.replicas:
+        if args.replicas < 1:
+            p.error(f"--replicas must be >= 1, got {args.replicas}")
+        if args.batch_slots <= 0:
+            p.error("--replicas requires --batch-slots (fleet replicas are "
+                    "continuous-batching engines)")
+        if args.resident != "dense":
+            p.error("--replicas needs --resident dense: the per-layer "
+                    "compressed-resident drivers are single-engine today")
+        if args.disaggregate:
+            try:
+                n_pre, n_dec = (int(x) for x in args.disaggregate.split(":"))
+            except ValueError:
+                p.error(f"bad --disaggregate {args.disaggregate!r}: "
+                        f"want P:D, e.g. 1:1")
+            if n_pre < 1 or n_dec < 1:
+                p.error("--disaggregate needs at least one prefill and one "
+                        "decode replica")
+            if n_pre + n_dec != args.replicas:
+                p.error(f"--disaggregate {args.disaggregate} must sum to "
+                        f"--replicas ({args.replicas})")
+            if kv_spec is None:
+                p.error("--disaggregate requires --kv-spec: the prefill->"
+                        "decode handoff ships paged KV blocks entropy-coded "
+                        "on the wire")
+            args.disaggregate_split = (n_pre, n_dec)
 
     # validate names against the registries before any expensive work
     from repro_torch.core.codecs import codec_names
@@ -365,6 +419,10 @@ def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev,
                                               QueueFullError, poisson_trace,
                                               replay)
 
+    if args.replicas > 0:
+        return _serve_fleet(cfg, serve_params, sc, args, load_metrics, dev,
+                            kv_spec=kv_spec, kv_prefix_len=kv_prefix_len)
+
     ce = ContinuousEngine(cfg, serve_params, sc, n_slots=args.batch_slots,
                           max_queue=args.max_queue,
                           prefill_chunk=args.prefill_chunk,
@@ -430,6 +488,67 @@ def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev,
               f"tier {st['cold_bytes']/2**10:.1f} KiB "
               f"({st['cold_evictions']} evictions, {st['cold_restores']} "
               f"restores, {st['dropped_evictions']} dropped)")
+    return 0
+
+
+def _serve_fleet(cfg, serve_params, sc, args, load_metrics, dev,
+                 kv_spec=None, kv_prefix_len=0):
+    """--replicas path: DP fleet of continuous engines behind the router,
+    driven in lockstep (deterministic, and per-request bit-identical to a
+    single engine)."""
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serving.batching import poisson_trace, replay_fleet
+    from repro_torch.serving.fleet import FleetDriver
+
+    split = args.disaggregate_split
+    fd = FleetDriver(cfg, serve_params, sc, n_replicas=args.replicas,
+                     policy=args.router, n_slots=args.batch_slots,
+                     max_queue=args.max_queue,
+                     prefill_chunk=args.prefill_chunk,
+                     kv_spec=kv_spec, disaggregate=split, devices=[dev])
+    wb = fd.weight_bytes()
+    topo = (f"{split[0]} prefill + {split[1]} decode, disaggregated"
+            if split else f"{args.replicas}x data-parallel")
+    print(f"fleet [{topo}; router {args.router}]: "
+          f"{wb['copies']} weight cop{'y' if wb['copies'] == 1 else 'ies'} "
+          f"resident ({wb['total_bytes']/2**20:.2f} MiB, "
+          f"mode {wb['mode']})")
+    n = args.traffic if args.traffic > 0 else args.batch
+    prefix_kw = {}
+    if kv_spec is not None and kv_spec.sharing:
+        prefix_kw = dict(prefix_pool=2, prefix_len=kv_prefix_len)
+    trace = poisson_trace(n, rate_per_s=100.0, prompt_max=args.prompt_len,
+                          gen_max=args.gen, vocab=cfg.vocab, seed=0,
+                          **prefix_kw)
+    t0 = time.monotonic()
+    replay_fleet(fd, trace, shed_on_full=True)
+    span = time.monotonic() - t0
+    fin = fd.finished
+    n_shed = len(fd.shed)
+    if not fin:
+        print(f"fleet: no requests completed ({n_shed} shed)")
+        return 1
+    toks = sum(len(r.output) for r in fin)
+    ttft = [r.ttft_s for r in fin]
+    lat = [r.latency_s for r in fin]
+    per_replica = ", ".join(
+        f"r{h.idx}[{h.state.name.lower()}] "
+        f"{sum(len(r.output) for r in h.engine.finished)} tok"
+        for h in fd.replicas)
+    print(f"fleet serve: {len(fin)}/{n} requests"
+          + (f" ({n_shed} shed)" if n_shed else "")
+          + f", {toks} tok in {span:.2f}s = "
+          f"{toks/max(span, 1e-9):.1f} tok/s aggregate")
+    print(f"  per replica: {per_replica}")
+    print(f"  ttft p50 {percentile(ttft, 50)*1e3:.0f}ms "
+          f"p99 {percentile(ttft, 99)*1e3:.0f}ms "
+          f"(+{load_metrics['decode_load_s']:.2f}s weight load) | "
+          f"latency p50 {percentile(lat, 50)*1e3:.0f}ms "
+          f"p99 {percentile(lat, 99)*1e3:.0f}ms | {fd.n_steps} fleet steps")
+    if fd.handoff is not None:
+        print(f"  handoff: {fd.handoff.n_handoffs} prefill->decode "
+              f"payloads, {fd.handoff.bytes_on_wire/2**10:.1f} KiB "
+              f"entropy-coded on the wire")
     return 0
 
 

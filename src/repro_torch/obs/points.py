@@ -5,8 +5,7 @@ the span and metric names each serving mode is REQUIRED to emit.
 pair against the JAX package's catalog and fails if any registered point
 produced zero events; the port serves the same modes under the same names,
 so it keeps a copy of the catalog, entry for entry (held equal to the JAX
-package's by ``tests/test_torch_obs_points.py``).  Modes the port does not
-serve yet (fleet, paged) stay in the catalog so the two never drift.
+package's by ``tests/test_torch_obs_points.py``).
 
 ``INFORMATIONAL_POINTS`` lists best-effort instrumentation: emitted by some
 code path but required by no serving mode.

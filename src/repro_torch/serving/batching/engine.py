@@ -8,8 +8,8 @@ The scheduler loop (one ``step()``):
      next queued request reserves the slot and starts chunk-prefilling
      through the shared ``ServeSteps.prefill_chunk_fn`` (fixed ``(1,
      chunk)`` shape) into a ``(1, max_len)`` scratch cache.  Under load the
-     prefill advances at most ``ADMIT_CHUNKS_PER_STEP`` (4) chunks per
-     scheduler step, decode steps running in between — so
+     prefill advances at most ``admit_chunks_per_step`` chunks per
+     scheduler step (default 4), decode steps running in between — so
      in-flight requests pay a bounded slice of prefill latency per
      generated token, never a whole queued prompt; when nothing is decoding
      there is no lane to stall and the prefill drains to completion
@@ -56,8 +56,13 @@ bf16 blocks and ``max_len`` a multiple of the block size the tokens equal
 the slot pool's bitwise.  Paged KV rides dense residency on one device, as
 in the JAX package; the port has no mesh.
 
-Not ported: the fleet seams (``handoff_sink``, ``export_request`` /
-``can_adopt`` / ``adopt_request`` / ``evacuate``).
+Fleet seams (:mod:`repro_torch.serving.fleet`): ``steps=`` shares one
+``ServeSteps`` across replicas; ``handoff_sink`` (paged engines only) takes
+each request the moment its prefill is done and its first token sampled;
+``export_request`` / ``can_adopt`` / ``adopt_request`` carry a prefilled
+request's KV blocks and sampling lane ``(token, generator state,
+temperature)`` between engines, so a sampled request continues from the
+exact generator offset it left; ``evacuate`` strips a failed replica.
 """
 from __future__ import annotations
 
@@ -79,10 +84,6 @@ from ..kvcache import BlockKVManager
 from .queue import RequestQueue
 from .request import Request, RequestState, SamplingParams
 from .slots import SlotBatchManager
-
-# prefill chunks one scheduler step may run while a batch is decoding: the
-# bound on the prefill latency an in-flight request pays per token
-ADMIT_CHUNKS_PER_STEP = 4
 
 
 def _weights_device(params: Any) -> torch.device:
@@ -111,13 +112,19 @@ class ContinuousEngine:
     (``kv_blocks`` blocks, default one slot pool's worth plus the trash
     block); it needs a family with the paged contract and dense residency,
     and raises otherwise rather than serve the slot pool.
+
+    ``admit_chunks_per_step`` bounds the prefill chunks one scheduler step
+    runs while a batch is decoding: the prefill latency an in-flight request
+    pays per token.
     """
 
     def __init__(self, cfg: ArchConfig, params: Any, sc: ServeConfig, *,
                  n_slots: int = 8, max_queue: int = 64,
-                 prefill_chunk: int = 32, resident: str = "dense",
+                 prefill_chunk: int = 32, admit_chunks_per_step: int = 4,
+                 steps: Optional[ServeSteps] = None, resident: str = "dense",
                  kv_spec: Optional[KVCompressionSpec] = None,
-                 kv_blocks: Optional[int] = None, device=None):
+                 kv_blocks: Optional[int] = None, handoff_sink=None,
+                 device=None):
         if not api.supports_continuous_batching(cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r} does not implement the slot-batch "
@@ -125,6 +132,9 @@ class ContinuousEngine:
                 f" supported today: dense, moe")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if admit_chunks_per_step < 1:
+            raise ValueError(f"admit_chunks_per_step must be >= 1, "
+                             f"got {admit_chunks_per_step}")
         if cfg.moe is not None and \
                 cfg.moe.capacity_factor * cfg.moe.top_k < cfg.moe.num_experts:
             # GShard capacity is shared across the batch, so a token that
@@ -140,6 +150,11 @@ class ContinuousEngine:
                 f"so outputs may depend on batch packing (raise "
                 f"capacity_factor to >= num_experts/top_k for bit-identical "
                 f"serving)", stacklevel=2)
+        if handoff_sink is not None and kv_spec is None:
+            raise ValueError(
+                "handoff_sink needs the paged KV cache (kv_spec): the "
+                "disaggregated handoff ships block payloads, and only "
+                "BlockKVManager implements export_blocks")
         self.device = _device.resolve(device)
         got = _weights_device(params)
         if got.type != self.device.type:
@@ -148,7 +163,12 @@ class ContinuousEngine:
         self.cfg = cfg
         self.params = params
         self.sc = sc
-        self.steps = ServeSteps(cfg, sc, resident=resident)
+        # disaggregated prefill replicas: called as sink(engine, slot, req)
+        # right after a request's prefill completes and its first token is
+        # sampled; the sink must export_request() the slot
+        self.handoff_sink = handoff_sink
+        self.steps = steps if steps is not None else \
+            ServeSteps(cfg, sc, resident=resident)
         self.paged = kv_spec is not None
         if self.paged:
             if not api.supports_paged_kv(cfg):
@@ -168,6 +188,7 @@ class ContinuousEngine:
                                           device=self.device)
         self.queue = RequestQueue(max_queue)
         self.prefill_chunk = prefill_chunk
+        self.admit_chunks_per_step = admit_chunks_per_step
         self.finished: List[Request] = []
         self.n_decode_steps = 0
         self.n_prefill_chunks = 0
@@ -274,6 +295,11 @@ class ContinuousEngine:
         self._gens[slot] = gen
         if self._hit_stop(req, tok):
             self._detach(slot, req, tok)
+        elif self.handoff_sink is not None:
+            # disaggregated prefill replica: the request never decodes here —
+            # the sink exports the slot's KV blocks + sampling lane and the
+            # decode side continues from the exact same state
+            self.handoff_sink(self, slot, req)
 
     def _decoding(self) -> List[int]:
         return [s for s, r in enumerate(self.slots.requests)
@@ -283,7 +309,7 @@ class ContinuousEngine:
     @torch.inference_mode()
     def step(self) -> bool:
         """One scheduler iteration: advance admission by at most
-        ``ADMIT_CHUNKS_PER_STEP`` prefill chunks (to completion while nothing
+        ``admit_chunks_per_step`` prefill chunks (to completion while nothing
         is decoding), then one decode step over every slot.  Returns False
         when idle (nothing queued, nothing prefilling, nothing decoding)."""
         with obs_trace.span("serve.step", step=self.n_decode_steps):
@@ -311,7 +337,7 @@ class ContinuousEngine:
             self._advance_prefill()
             chunks += 1
             progressed = True
-            if self._decoding() and chunks >= ADMIT_CHUNKS_PER_STEP:
+            if self._decoding() and chunks >= self.admit_chunks_per_step:
                 break       # a batch is running: bounded stall, move on
 
         active = self._decoding()
@@ -367,6 +393,88 @@ class ContinuousEngine:
         return bool(len(self.queue)) or self._prefilling is not None \
             or bool(self.slots.active)
 
+    # ---------------------------------------------------------- fleet seams
+    def _clear_lane(self, slot: int) -> None:
+        self._tokens[slot] = 0
+        self._temps[slot] = 0.0
+        self._gens[slot] = None
+
+    @torch.inference_mode()
+    def export_request(self, slot: int):
+        """Detach ``slot``'s request mid-flight for a KV handoff.
+
+        Returns ``(req, kv_len, blocks, lane)``: the request object, its
+        committed KV length, the per-block host leaves
+        (``BlockKVManager.export_blocks``), and the sampling lane ``(token,
+        generator state, temperature)`` a peer engine needs to continue
+        decode from the exact state this engine would have used (the state
+        is ``Generator.get_state()``: a CPU byte tensor, for a card's
+        generator too).  The slot is released.  Paged engines only."""
+        assert self.paged, "export_request needs the paged KV cache"
+        req = self.slots.requests[slot]
+        assert req is not None, f"export of free slot {slot}"
+        kv_len = int(self.slots.kv_len[slot])
+        blocks = self.slots.export_blocks(slot)
+        lane = (int(self._tokens[slot]), self._gens[slot].get_state(),
+                float(self._temps[slot]))
+        self.slots.release(slot)
+        self._clear_lane(slot)
+        return req, kv_len, blocks, lane
+
+    def can_adopt(self, req: Request, kv_len: int, n_blocks: int) -> bool:
+        """Probe for ``adopt_request`` (peek-then-adopt, like can_admit)."""
+        assert self.paged, "can_adopt needs the paged KV cache"
+        return self.slots.can_import(req, kv_len, n_blocks)
+
+    @torch.inference_mode()
+    def adopt_request(self, req: Request, kv_len: int, blocks, lane) -> bool:
+        """Admit an externally prefilled request: install its KV blocks and
+        sampling lane, then decode it like any local request.  Returns False
+        (nothing changed) when no slot or not enough pool blocks are free —
+        the handoff coordinator retries on a later pump.  Paged engines
+        only."""
+        assert self.paged, "adopt_request needs the paged KV cache"
+        slot = self.slots.import_blocks(req, kv_len, blocks)
+        if slot is None:
+            return False
+        tok, state, temp = lane
+        gen = torch.Generator(device=self.device)
+        gen.set_state(state)
+        req.state = RequestState.DECODING
+        self._tokens[slot] = tok
+        self._temps[slot] = temp
+        self._gens[slot] = gen
+        return True
+
+    @torch.inference_mode()
+    def evacuate(self) -> List[Request]:
+        """Strip every unfinished request off the engine, oldest first.
+
+        The failed-replica redrive path: the fleet driver marks a replica
+        FAILED, evacuates it, resets each request (``Request.requeue``) and
+        re-enqueues them at the fleet intake — nothing is lost, nothing is
+        duplicated.  Queued, mid-prefill, and decoding requests are all
+        harvested; the engine is left empty but serviceable."""
+        out: List[Request] = []
+        while True:
+            r = self.queue.pop()    # lazy-expires overdue heads in passing
+            if r is None:
+                break
+            out.append(r)
+        # a mid-prefill request already occupies its reserved slot (alloc
+        # registered it in slots.requests), so the slot sweep below
+        # harvests it and returns its blocks; only the pipeline state needs
+        # clearing here
+        self._prefilling = None
+        for s, r in enumerate(list(self.slots.requests)):
+            if r is not None:
+                self.slots.release(s)
+                self._clear_lane(s)
+                out.append(r)
+        out.sort(key=lambda r: (r.t_arrival if r.t_arrival is not None
+                                else float("inf"), r.rid))
+        return out
+
     # -------------------------------------------------------------- private
     @staticmethod
     def _hit_stop(req: Request, tok: int) -> bool:
@@ -379,9 +487,7 @@ class ContinuousEngine:
         req.state = RequestState.FINISHED
         req.t_finished = time.monotonic()
         self.slots.release(slot)
-        self._tokens[slot] = 0
-        self._temps[slot] = 0.0
-        self._gens[slot] = None
+        self._clear_lane(slot)
         self.finished.append(req)
         obs_metrics.histogram("request.latency_s").observe(req.latency_s or 0.0)
         obs_metrics.counter("requests.finished").inc(reason=req.finish_reason)

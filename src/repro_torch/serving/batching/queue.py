@@ -1,6 +1,5 @@
 """Bounded admission queue for continuous-batching serving (PyTorch port of
-``repro/serving/batching/queue.py``, without the fleet's ``requeue``;
-stdlib only).
+``repro/serving/batching/queue.py``; stdlib only).
 
 FIFO with two control points:
 
@@ -51,6 +50,19 @@ class RequestQueue:
         req.state = RequestState.QUEUED
         self._q.append(req)
         obs_metrics.counter("queue.submitted").inc()
+        obs_metrics.gauge("queue.depth").set(len(self._q))
+        return req
+
+    def requeue(self, req: Request) -> Request:
+        """Return ``req`` to the *front* of the line (fleet redrive path).
+
+        Bypasses the ``max_queue`` bound on purpose: a redriven request was
+        already admitted once, and dropping it here would break the
+        router's no-loss contract — transient over-bound depth is the cost
+        of a replica failure, and ``submit`` backpressure shrinks it again.
+        ``t_arrival`` is NOT restamped (deadlines keep counting)."""
+        req.state = RequestState.QUEUED
+        self._q.appendleft(req)
         obs_metrics.gauge("queue.depth").set(len(self._q))
         return req
 

@@ -1,6 +1,6 @@
 """Synthetic traffic generation + replay for continuous-batching serving
-(PyTorch port of ``repro/serving/batching/traffic.py``, without
-``replay_fleet``: the fleet is not ported).
+(PyTorch port of ``repro/serving/batching/traffic.py``): one engine
+(``replay``) or a fleet (``replay_fleet``).
 
 Shared by ``repro_torch.launch.serve --traffic`` and ``chip_smoke.py`` so
 arrival pacing, ragged-request sampling, and the submit-when-due driver loop
@@ -109,4 +109,60 @@ def replay(ce: ContinuousEngine, trace: Trace, *, shed_on_full: bool = False
         if not ce.step() and pending:
             time.sleep(max(0.0, min(pending[0][0] - (time.monotonic() - t0),
                                     1e-3)))
+    return requests, shed, time.monotonic() - t0
+
+
+def replay_fleet(driver, trace: Trace, *, shed_on_full: bool = False,
+                 threaded: bool = False
+                 ) -> Tuple[List[Optional[Request]], int, float]:
+    """Feed ``trace`` through a :class:`~repro_torch.serving.fleet.
+    FleetDriver`.
+
+    Same submit-when-due pacing and return shape as :func:`replay`, but
+    arrivals land at the fleet intake and the router spreads them over the
+    replicas.  ``threaded=True`` runs one worker thread per replica
+    (``driver.start_workers``) with the submit loop pumping dispatch from
+    this thread; the default steps the whole fleet in deterministic lockstep
+    (``driver.step``) — the mode every fleet test uses.
+
+    Threaded, the loop also waits until every submitted request is done: a
+    worker that has popped a request off its queue but not yet reserved its
+    slot shows no work for a moment (its first torch call releases the
+    interpreter lock in between), and ``has_work`` alone would end the
+    replay with that request in flight.
+    """
+    t0 = time.monotonic()
+    pending = list(trace)
+    requests: List[Optional[Request]] = []
+    shed = 0
+
+    def in_flight() -> bool:
+        return threaded and any(r is not None and not r.done
+                                for r in requests)
+
+    if threaded:
+        driver.start_workers()
+    try:
+        while pending or driver.has_work or in_flight():
+            now = time.monotonic() - t0
+            while pending and pending[0][0] <= now:
+                _, prompt, max_new = pending[0]
+                try:
+                    requests.append(driver.submit(prompt, max_new))
+                except QueueFullError:
+                    if not shed_on_full:
+                        raise
+                    shed += 1
+                    requests.append(None)
+                pending.pop(0)
+            if threaded:
+                driver.pump()
+                time.sleep(2e-4)
+            elif not driver.step() and pending:
+                time.sleep(max(0.0,
+                               min(pending[0][0] - (time.monotonic() - t0),
+                                   1e-3)))
+    finally:
+        if threaded:
+            driver.stop_workers()
     return requests, shed, time.monotonic() - t0

@@ -56,6 +56,7 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.kernels.fused_decode_matmul, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.serving.resident, repro_torch.serving.batching, "
+            "repro_torch.serving.fleet, "
             "repro_torch.obs.points, repro_torch.obs.analysis, "
             "repro_torch.models.moe, repro_torch.models.mamba2, "
             "repro_torch.models.hybrid, repro_torch.models.encdec; "

@@ -91,8 +91,12 @@ def test_overlap_report_equals_reference(tmp_path):
                           "--prefix-sharing", "--kv-spec",
                           "bits=8,block=8,codec=rans", "--prefill-chunk",
                           "8"]),
+    ("fleet-continuous", ["--batch-slots", "2", "--traffic", "4",
+                          "--replicas", "2", "--gen", "4", "--prompt-len",
+                          "8"]),
 ], ids=["continuous", "continuous-resident-fused", "dense-lockstep",
-        "resident-lockstep", "resident-fused-lockstep", "paged-continuous"])
+        "resident-lockstep", "resident-fused-lockstep", "paged-continuous",
+        "fleet-continuous"])
 def test_launcher_trace_passes_check_trace(mode, flags, tmp_path):
     trace, metrics = tmp_path / "trace.json", tmp_path / "metrics.jsonl"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

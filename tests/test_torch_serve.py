@@ -23,8 +23,10 @@ Also: the port's launcher runs on the reduced config with ``--device cpu``
 and prints its three report lines, flags of serving modes not ported yet
 exit with a message (compressed residency and ``--fused`` are ported, see
 ``tests/test_torch_resident.py``, and so is ``--batch-slots``, see
-``tests/test_torch_batching.py``), and every entry point called without
-``device`` raises on this card-less host instead of running on the CPU.
+``tests/test_torch_batching.py``), fleets (``--replicas``, ``--router``,
+``--disaggregate``) serve with the JAX launcher's upfront validation, and
+every entry point called without ``device`` raises on this card-less host
+instead of running on the CPU.
 """
 import json
 import math
@@ -190,13 +192,53 @@ def test_launcher_monolithic_numpy_dense_load(capsys):
     assert "quantized residency: False" in out
 
 
-@pytest.mark.parametrize("flag", ["--fused-impl=pallas", "--disaggregate=1:1",
-                                  "--replicas=2", "--mesh=1x1"])
+@pytest.mark.parametrize("flag", ["--fused-impl=pallas", "--production",
+                                  "--multi-pod", "--mesh=1x1"])
 def test_launcher_refuses_flags_not_ported_yet(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tserve.main(["--arch", "qwen3-1.7b", "--device", "cpu", flag])
     assert e.value.code != 0
     assert "not ported yet" in capsys.readouterr().err
+
+
+FLEET_ARGS = ["--arch", "qwen3-1.7b", "--device", "cpu", "--decode-backend",
+              "numpy", "--compress-spec", SPECS["huffman8"], "--gen", "4",
+              "--prompt-len", "8"]
+
+
+@pytest.mark.parametrize("flags,lines", [
+    (["--batch-slots", "2", "--traffic", "4", "--replicas", "2"],
+     ["fleet [2x data-parallel; router round-robin]: 1 weight copy",
+      "fleet serve: 4/4 requests", "  per replica: r0[up] ",
+      "  ttft p50 "]),
+    (["--batch-slots", "2", "--traffic", "4", "--replicas", "2",
+      "--disaggregate", "1:1", "--kv-spec", "bits=16"],
+     ["fleet [1 prefill + 1 decode, disaggregated; router round-robin]",
+      "fleet serve: 4/4 requests", "  per replica: r0[up] 0 tok, r1[up] ",
+      "  ttft p50 ", "  handoff: 4 prefill->decode payloads"]),
+], ids=["dp", "disaggregated"])
+def test_launcher_serves_fleet(flags, lines, capsys):
+    assert tserve.main(FLEET_ARGS + flags) == 0
+    out = capsys.readouterr().out.splitlines()
+    got = out[-len(lines):]
+    assert all(g.startswith(w) for g, w in zip(got, lines)), got
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--batch-slots", "2", "--disaggregate", "1:1"],
+     "--disaggregate requires --replicas"),
+    (["--batch-slots", "2", "--replicas", "3", "--disaggregate", "1:1",
+      "--kv-spec", "bits=16"], "must sum to --replicas (3)"),
+    (["--batch-slots", "2", "--replicas", "2", "--disaggregate", "1:1"],
+     "--disaggregate requires --kv-spec"),
+    (["--batch-slots", "2", "--replicas", "2", "--resident", "compressed"],
+     "--replicas needs --resident dense"),
+], ids=["no-replicas", "split-sum", "no-kv-spec", "compressed"])
+def test_launcher_fleet_validation(flags, message, capsys):
+    with pytest.raises(SystemExit) as e:
+        tserve.main(FLEET_ARGS + flags)
+    assert e.value.code != 0
+    assert message in capsys.readouterr().err
 
 
 def test_entry_points_without_device_raise(reference):
