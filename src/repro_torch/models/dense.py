@@ -2,7 +2,10 @@
 
 Layers are stacked on a leading axis, as in the JAX package; where it runs
 ``lax.scan`` over the stack, the port loops over the leading axis in Python
-(:func:`layers.layer_slice` hands each iteration its layer).
+(:func:`layers.layer_slice` hands each iteration its layer; the
+full-sequence forward takes every layer's views at once with
+:func:`layers.stacked_layers`, so that its backward stacks the gradients
+once).
 """
 from __future__ import annotations
 
@@ -11,10 +14,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from .layers import (Schema, Spec, deq, gather_blocks, gqa_attention,
-                     init_params, kv_dequantize, kv_quantize, layer_slice,
-                     matmul, rms_norm, rope, scatter_blocks, swiglu,
-                     take_rows, update_kv_cache)
+from .layers import (Schema, Spec, checkpointed, deq, gather_blocks,
+                     gqa_attention, init_params, kv_dequantize, kv_quantize,
+                     layer_slice, matmul, rms_norm, rope, scatter_blocks,
+                     softmax_xent, stacked_layers, swiglu, take_rows,
+                     update_kv_cache)
 
 
 def schema(cfg: ArchConfig) -> Schema:
@@ -134,14 +138,19 @@ def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0):
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            collect_cache: bool = False):
-    """Full-sequence forward.  Returns (hidden, [(k, v) per layer] | None)."""
+            remat: bool = False, collect_cache: bool = False):
+    """Full-sequence forward.  Returns (hidden, [(k, v) per layer] | None).
+
+    ``remat`` recomputes each layer in the backward (the JAX package's
+    ``jax.checkpoint`` of the scan body)."""
     S = tokens.shape[1]
     x = take_rows(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)
+    block = checkpointed(
+        lambda lp, x: _block(cfg, lp, x, positions=positions), remat)
     caches = []
-    for l in range(cfg.n_layers):
-        x, kv = _block(cfg, _layer(params, l), x, positions=positions)
+    for lp in stacked_layers(params, "layers", cfg.n_layers):
+        x, kv = block(lp, x)
         if collect_cache:
             caches.append(kv)
     x = rms_norm(x, params["final_norm"])
@@ -152,6 +161,26 @@ def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return matmul(x, deq(params["embed"]).T)
     return matmul(x, params["lm_head"])
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
+            q_block: int = 0) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the first
+    S - 1 tokens predict the last S - 1.  The JAX package's ``unroll`` is a
+    scan knob with no eager counterpart; its query-block chunking
+    (``q_block``) is not ported."""
+    _no_q_block(q_block)
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    x, _ = forward(cfg, params, inp, remat=remat)
+    return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
+
+
+def _no_q_block(q_block: int) -> None:
+    if q_block:
+        raise NotImplementedError(
+            "q_block > 0 (query-block attention chunking) is not ported; it "
+            "waits for the dry-run / roofline item (ROADMAP queue 1)")
 
 
 # ------------------------------------------------------------------------- serving

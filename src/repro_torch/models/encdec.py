@@ -15,8 +15,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from .layers import (Schema, Spec, gqa_attention, init_params, layer_slice,
-                     matmul, rms_norm, rope, swiglu, take_rows,
+from .layers import (Schema, Spec, checkpointed, gqa_attention,
+                     init_params, layer_slice, matmul, rms_norm, rope,
+                     softmax_xent, stacked_layers, swiglu, take_rows,
                      update_kv_cache)
 
 f32 = torch.float32
@@ -126,20 +127,65 @@ def _mlp(lp, x: torch.Tensor) -> torch.Tensor:
                       lp["w_down"])
 
 
-def encode(cfg: ArchConfig, params, src_embeds: torch.Tensor) -> torch.Tensor:
-    """The bidirectional encoder over precomputed frontend embeddings."""
+def encode(cfg: ArchConfig, params, src_embeds: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frontend embeddings;
+    ``remat`` recomputes each layer in the backward."""
     S = src_embeds.shape[1]
     positions = torch.arange(S, device=src_embeds.device)
+
+    def body(lp_sa, lp_ml, x):
+        x, _ = _self_attn(cfg, lp_sa, x, positions=positions, causal=False)
+        return _mlp(lp_ml, x)
+
+    body = checkpointed(body, remat)
     x = src_embeds
-    for l in range(cfg.enc_layers):
-        x, _ = _self_attn(cfg, _layer(params, "enc/self", l), x,
-                          positions=positions, causal=False)
-        x = _mlp(_layer(params, "enc/mlp", l), x)
+    for lp_sa, lp_ml in zip(
+            stacked_layers(params, "enc/self", cfg.enc_layers),
+            stacked_layers(params, "enc/mlp", cfg.enc_layers)):
+        x = body(lp_sa, lp_ml, x)
     return rms_norm(x, params["enc_final_norm"])
+
+
+def decode_train(cfg: ArchConfig, params, tokens: torch.Tensor,
+                 enc_out: torch.Tensor, *, remat: bool = False,
+                 q_block: int = 0) -> torch.Tensor:
+    """The decoder over a whole target prefix (teacher forcing): causal
+    self-attention, cross-attention to ``enc_out``, the MLP, each layer;
+    returns the final-normed hidden state."""
+    from .dense import _no_q_block
+    _no_q_block(q_block)
+    S = tokens.shape[1]
+    x = take_rows(params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device)
+
+    def body(lp_sa, lp_ca, lp_ml, x):
+        x, _ = _self_attn(cfg, lp_sa, x, positions=positions, causal=True)
+        x = _cross_attn(cfg, lp_ca, x, _cross_kv(cfg, lp_ca, enc_out))
+        return _mlp(lp_ml, x)
+
+    body = checkpointed(body, remat)
+    L = cfg.n_layers
+    for lps in zip(stacked_layers(params, "dec/self", L),
+                   stacked_layers(params, "dec/cross", L),
+                   stacked_layers(params, "dec/mlp", L)):
+        x = body(*lps, x)
+    return rms_norm(x, params["dec_final_norm"])
 
 
 def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     return matmul(x, params["lm_head"])
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
+            q_block: int = 0) -> torch.Tensor:
+    """batch: {"src_embeds": (B, S_src, D), "tokens": (B, S_tgt)}; the
+    next-token cross-entropy of the target."""
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    enc_out = encode(cfg, params, batch["src_embeds"], remat=remat)
+    x = decode_train(cfg, params, inp, enc_out, remat=remat, q_block=q_block)
+    return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
 
 
 # ------------------------------------------------------------------------- serving

@@ -21,8 +21,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from . import dense, mamba2
-from .layers import (Schema, Spec, init_params, layer_slice, matmul,
-                     rms_norm, swiglu, take_rows)
+from .layers import (Schema, Spec, checkpointed, init_params, layer_slice,
+                     matmul, rms_norm, softmax_xent, stacked_layers, swiglu,
+                     take_rows)
 from .moe import _padded_experts, moe_block_schema, moe_mlp
 
 f32 = torch.float32
@@ -153,18 +154,24 @@ def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            collect_cache: bool = False, chunk: Optional[int] = None):
+            remat: bool = False, collect_cache: bool = False,
+            chunk: Optional[int] = None):
     """Full-sequence forward.  Returns (hidden, [period caches] | None, the
-    MoE aux averaged over the layers)."""
+    MoE aux averaged over the layers).  ``remat`` recomputes each period in
+    the backward (the JAX package checkpoints the period and, inside it,
+    each sub-block, which bounds its sharded weight gathers; one device
+    has none, and the values are the same)."""
     S = tokens.shape[1]
     x = take_rows(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)
     aux_sum = torch.zeros((), dtype=f32, device=tokens.device)
+    body = checkpointed(
+        lambda pp, x: _period_body(cfg, pp, x, positions=positions,
+                                   chunk=chunk, collect=collect_cache), remat)
     caches = []
-    for p in range(cfg.n_layers // cfg.attn_period):
-        x, c, aux = _period_body(cfg, _period(params, p), x,
-                                 positions=positions, chunk=chunk,
-                                 collect=collect_cache)
+    for pp in stacked_layers(params, "periods",
+                             cfg.n_layers // cfg.attn_period):
+        x, c, aux = body(pp, x)
         aux_sum = aux_sum + aux
         if collect_cache:
             caches.append(c)
@@ -174,6 +181,18 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
 
 def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     return matmul(x, params["lm_head"])
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
+            q_block: int = 0, aux_coef: float = 0.01,
+            chunk: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross-entropy plus ``aux_coef`` times the MoE aux."""
+    dense._no_q_block(q_block)
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    x, _, aux = forward(cfg, params, inp, remat=remat, chunk=chunk)
+    return softmax_xent(logits_fn(cfg, params, x), labels,
+                        cfg.vocab) + aux_coef * aux
 
 
 # ------------------------------------------------------------------------- serving

@@ -93,6 +93,17 @@ class QT4(NamedTuple):
     zero: torch.Tensor
 
 
+class QTG(NamedTuple):
+    """Quantized weight with a gradient path to its bf16 master (training's
+    compressed weight gather, ``TrainConfig.q8_gather``): the forward
+    computes from the uint8 symbols only, and the backward is a
+    straight-through estimator into the master."""
+    q: torch.Tensor        # uint8 symbols (packed nibbles when bits == 4)
+    scale: torch.Tensor
+    zero: torch.Tensor
+    master: torch.Tensor   # bf16 master weight (the gradient's target)
+
+
 def _unpack4(q: torch.Tensor) -> torch.Tensor:
     lo = q & 0x0F
     hi = q >> 4
@@ -120,9 +131,26 @@ def pack_qt(q: np.ndarray, scale: np.ndarray, zero: np.ndarray, *,
               torch.from_numpy(np.asarray(zero)))
 
 
+class _SteDeq(torch.autograd.Function):
+    """``bf16(sym) * bf16(scale) + bf16(zero)`` forward, with ``sym``
+    unpacked from nibbles when ``q``'s last dim is half the master's; the
+    backward hands the whole gradient, in bf16, to the master (the JAX
+    package's ``_ste_deq`` custom VJP) and none to the symbols."""
+
+    @staticmethod
+    def forward(ctx, master, q, scale, zero):
+        sym = _unpack4(q) if q.shape[-1] != master.shape[-1] else q
+        bf = torch.bfloat16
+        return sym.to(bf) * scale.to(bf) + zero.to(bf)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16), None, None, None
+
+
 def to_device(w: Any, device: torch.device) -> Any:
-    """Move a tensor or each part of a QT / QT4 triple to ``device``."""
-    if isinstance(w, (QT, QT4)):
+    """Move a tensor or each part of a QT / QT4 / QTG tuple to ``device``."""
+    if isinstance(w, (QT, QT4, QTG)):
         return type(w)(*(p.to(device) for p in w))
     return w.to(device)
 
@@ -130,9 +158,45 @@ def to_device(w: Any, device: torch.device) -> Any:
 def layer_slice(w: Any, l: int) -> Any:
     """Layer ``l`` of a layer-stacked tensor or QT / QT4 triple (the slice
     ``lax.scan`` hands each iteration in the JAX package)."""
-    if isinstance(w, (QT, QT4)):
+    if isinstance(w, (QT, QT4, QTG)):
         return type(w)(*(p[l] for p in w))
     return w[l]
+
+
+def layer_views(w: Any) -> list:
+    """Every layer of a layer-stacked tensor or QT / QT4 / QTG tuple, as
+    views taken at once with ``torch.unbind``.  Under autograd, the
+    backward of one ``unbind`` stacks the layers' gradients once, where a
+    ``select`` a layer would fill a zero tensor of the whole stack for
+    each layer."""
+    if isinstance(w, (QT, QT4, QTG)):
+        return [type(w)(*parts) for parts in zip(*(torch.unbind(p)
+                                                   for p in w))]
+    return list(torch.unbind(w))
+
+
+def stacked_layers(params: Dict[str, Any], prefix: str, n: int) -> list:
+    """The ``n`` per-layer dicts of the ``prefix/*`` stack (names with the
+    prefix cut), from one :func:`layer_views` a leaf."""
+    pre = prefix + "/"
+    views = {k[len(pre):]: layer_views(v) for k, v in params.items()
+             if k.startswith(pre)}
+    out = [{k: v[l] for k, v in views.items()} for l in range(n)]
+    for k, v in views.items():
+        assert len(v) == n, (prefix, k, len(v), n)
+    return out
+
+
+def checkpointed(fn, remat: bool):
+    """``fn`` recomputed in the backward when ``remat`` is on (the JAX
+    package's ``jax.checkpoint(body)``), else ``fn`` itself."""
+    if not remat:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    def wrapped(*args, **kw):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def deq(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
@@ -141,6 +205,8 @@ def deq(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
     if isinstance(w, QT4):
         return (_unpack4(w.q).to(dtype) * w.scale.to(dtype)
                 + w.zero.to(dtype))
+    if isinstance(w, QTG):
+        return _SteDeq.apply(w.master, w.q, w.scale, w.zero).to(dtype)
     return w.to(dtype) if w.dtype != dtype else w
 
 
@@ -155,7 +221,12 @@ def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
 
 def take_rows(w: Any, idx: torch.Tensor) -> torch.Tensor:
     """Embedding lookup honoring quantized tables (dequantize only gathered
-    rows)."""
+    rows; a :class:`QTG` table's rows go through the straight-through
+    estimator with the master's rows)."""
+    if isinstance(w, QTG):
+        scale = w.scale if w.scale.shape[0] == 1 else w.scale[idx]
+        zero = w.zero if w.zero.shape[0] == 1 else w.zero[idx]
+        return _SteDeq.apply(w.master[idx], w.q[idx], scale, zero)
     if isinstance(w, (QT, QT4)):
         rows = w.q[idx]
         if isinstance(w, QT4):
@@ -395,3 +466,17 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
         q = _unpack4(q)
     bf = torch.bfloat16
     return q.to(bf) * scale.to(bf) + zero.to(bf)
+
+
+# ---------------------------------------------------------------------- loss helpers
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Mean token cross-entropy in float32; labels outside ``[0, vocab)``
+    (padding) are masked out."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(0, logits.shape[-1] - 1)
+                      .long()[..., None])[..., 0]
+    mask = (labels >= 0) & (labels < vocab)
+    return torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1)

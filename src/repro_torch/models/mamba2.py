@@ -29,8 +29,9 @@ from typing import Any, Dict, Iterator, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from .layers import (Schema, Spec, deq, init_params, layer_slice, matmul,
-                     rms_norm, silu, softplus, take_rows)
+from .layers import (Schema, Spec, checkpointed, deq, init_params,
+                     layer_slice, matmul, rms_norm, silu, softmax_xent,
+                     softplus, stacked_layers, take_rows)
 
 f32 = torch.float32
 
@@ -266,13 +267,16 @@ def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            collect_cache: bool = False, chunk: Optional[int] = None):
+            remat: bool = False, collect_cache: bool = False,
+            chunk: Optional[int] = None):
     """Full-sequence forward.  Returns (hidden, [((conv_x, conv_bc), ssm)
-    per layer] | None)."""
+    per layer] | None).  ``remat`` recomputes each layer in the backward."""
     x = take_rows(params["embed"], tokens)
+    block = checkpointed(
+        lambda lp, x: _mamba_block(cfg, lp, x, chunk=chunk), remat)
     caches = []
-    for l in range(cfg.n_layers):
-        out, st = _mamba_block(cfg, _layer(params, l), x, chunk=chunk)
+    for lp in stacked_layers(params, "layers", cfg.n_layers):
+        out, st = block(lp, x)
         x = x + out
         if collect_cache:
             caches.append(st)
@@ -284,6 +288,16 @@ def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return matmul(x, deq(params["embed"]).T)
     return matmul(x, params["lm_head"])
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
+            q_block: int = 0, chunk: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross-entropy (``q_block`` is accepted, as in the JAX
+    package, and unused: the family has no attention)."""
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    x, _ = forward(cfg, params, inp, remat=remat, chunk=chunk)
+    return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
 
 
 # ------------------------------------------------------------------------- serving

@@ -23,8 +23,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from . import dense
-from .layers import (Schema, Spec, deq, init_params, matmul, rms_norm, silu,
-                     softmax, swiglu, take_rows, top_k)
+from .layers import (Schema, Spec, checkpointed, deq, init_params, matmul,
+                     rms_norm, silu, softmax, softmax_xent, stacked_layers,
+                     swiglu, take_rows, top_k)
 
 # ------------------------------------------------------------------------ dispatch
 
@@ -202,22 +203,37 @@ def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0):
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            collect_cache: bool = False):
+            remat: bool = False, collect_cache: bool = False):
     """Full-sequence forward.  Returns (hidden, [(k, v) per layer] | None,
-    the load-balance aux averaged over the layers)."""
+    the load-balance aux averaged over the layers).  ``remat`` recomputes
+    each layer in the backward; the replay routes the same tokens to the
+    same slots, since it sees the same inputs."""
     S = tokens.shape[1]
     x = take_rows(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)
     aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    block = checkpointed(
+        lambda lp, x: _block(cfg, lp, x, positions=positions), remat)
     caches = []
-    for l in range(cfg.n_layers):
-        x, kv, aux = _block(cfg, dense._layer(params, l), x,
-                            positions=positions)
+    for lp in stacked_layers(params, "layers", cfg.n_layers):
+        x, kv, aux = block(lp, x)
         aux_sum = aux_sum + aux
         if collect_cache:
             caches.append(kv)
     x = rms_norm(x, params["final_norm"])
     return x, (caches if collect_cache else None), aux_sum / cfg.n_layers
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
+            q_block: int = 0, aux_coef: float = 0.01) -> torch.Tensor:
+    """Next-token cross-entropy plus ``aux_coef`` times the load-balance
+    aux."""
+    dense._no_q_block(q_block)
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    x, _, aux = forward(cfg, params, inp, remat=remat)
+    return softmax_xent(dense.logits_fn(cfg, params, x), labels,
+                        cfg.vocab) + aux_coef * aux
 
 
 init_cache = dense.init_cache
