@@ -87,6 +87,25 @@ Phases, each printing one JSON line:
    memory); ``threaded`` (1 and 2 replicas, one worker thread each, on
    ``TRAFFIC``'s arrival times: recorded, nothing gated on speed).  Launch
    counts are zeroed before the phase.
+   Then ``mesh``: the serve phase's container (kept under ``build/``) on
+   a ``MESH`` (2 x 2, data x model) world of ranks, one process each,
+   sharing the card over ``gloo`` (NCCL refuses two ranks on one device).
+   Each rank loads through the ``cuda`` backend with the mesh's placer
+   (its decode launches must equal the load plan's), keeps its blocks of
+   the weights along their output channels (its bytes must equal what the
+   resolved exact-TP specs give a rank, below one device's), serves the
+   lockstep prompt (tokens bitwise the serve phase's) and ``TRAFFIC``'s 16
+   jobs through a ``FLEET_SLOTS``-slot ``ContinuousEngine(mesh=)`` (each
+   bitwise the fleet phase's single 4-slot engine), attending over its
+   block of the KV heads: its lockstep cache and slot pool must hold a
+   quarter of one device's (its rows, its heads).  After the moe phase,
+   its container on ``MESH_MOE`` (1 x 2): exact-TP lockstep bitwise the
+   moe phase's tokens with half the cache a rank, and layer 0's feed-forward through expert
+   parallelism (32 experts a rank) against the single-device forward
+   within ``EP_TOL``.  One ``mesh`` line a run (``lockstep``,
+   ``continuous``, ``moe``) with every rank's bytes, collectives, load
+   and wall times; the ranks share one card, so its speeds are not
+   multi-card figures.  Any failed or hung rank fails the script.
 4. dequant_matmul — the third path: the weights the serve phase decoded
    on the card through the decode kernels go through
    ``kernels.ops.dequant_matmul`` (the port of the JAX package's
@@ -217,6 +236,7 @@ Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
 compressed-resident run; ``launches_paged``: on the paged phase, 0;
 ``launches_fleet``: on the fleet phase, its per-replica load's;
+``launches_mesh``: rank 0's on the mesh phase's qwen3 and moe worlds;
 ``launches_moe``: on the moe phase's dense-resident load and generate and
 on its compressed-resident generate; ``launches_ssm`` /
 ``launches_encdec``: on those phases' load and generate; ``launches_train``:
@@ -309,6 +329,19 @@ FLEET_KILL = dict(replicas=3, victim=1, after_decode_steps=3)
 FLEET_DISAGG = (((1, 1), "bits=16,block=16"),
                 ((1, 2), "bits=8,codec=rans,block=16"))
 FLEET_SAMPLED = dict(temperature=0.8, seed=7)
+# the mesh phase: the serve phase's container on a MESH (data x model) of
+# ranks, one process each, sharing the one card over gloo (NCCL refuses two
+# ranks on one device); the moe phase's container on MESH_MOE.  Every rank
+# must reach its verdict within MESH_TIMEOUT_S
+MESH = (2, 2)
+MESH_MOE = (1, 2)
+MESH_BACKEND = "gloo"
+MESH_TIMEOUT_S = 300
+# EP's forward of the moe layer 0 against the single-device forward: the
+# partial outputs of the model ranks are summed in bf16 in another order
+# (and a choice of two experts on two ranks meets there), so an output may
+# move by a few bf16 steps: at most EP_TOL of the largest |y|
+EP_TOL = 2.0 ** -6
 # row counts of the fused rows: lockstep decode and prefill, then the
 # continuous engine's decode batch and prefill chunk
 FUSED_M = (BATCH, BATCH * PROMPT, N_SLOTS, PREFILL_CHUNK)
@@ -581,12 +614,11 @@ def serve_main_path(dev):
     t0 = time.perf_counter()
     cm = CompressedModel.compress(host, spec=parse_spec(SPEC))
     compress_s = time.perf_counter() - t0
-    path = os.path.join(ROOT, "build", "chip_smoke", "qwen3-1.7b.npz")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    # kept under build/ for the mesh phase's ranks, which remove it
+    path = mesh_container("qwen3-1.7b")
     t0 = time.perf_counter()
     cm.save(path)
     cm = CompressedModel.load(path)
-    os.remove(path)
     save_load_s = time.perf_counter() - t0
 
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
@@ -1126,7 +1158,7 @@ def fleet_phase(cm, params, dev):
         reqs, shed, makespan = replay_fleet(fd, trace, threaded=True)
         torch.cuda.synchronize()
         fleet_line(fd, reqs, makespan, "threaded", want, shed_on_submit=shed)
-    return dict(build.launches)
+    return dict(build.launches), want
 
 
 def token_drift(got, want):
@@ -2004,9 +2036,10 @@ def start_containers(*families):
     return proc, dirpath, families
 
 
-def containers(proc, dirpath, families):
+def containers(proc, dirpath, families, keep=()):
     """Wait for a :func:`start_containers` child; returns {family:
-    (container, its timings and the seconds waited)}."""
+    (container, its timings and the seconds waited)}.  The files of the
+    families in ``keep`` move to :func:`mesh_container`'s place."""
     from repro_torch.core.store import CompressedModel
     t0 = time.perf_counter()
     rc = proc.wait()
@@ -2026,8 +2059,11 @@ def containers(proc, dirpath, families):
         made["load_s"] = time.perf_counter() - t0
         made["waited_s"] = waited
         out[family] = (cm, made)
-        for p in (path, path + ".json"):
-            os.remove(p)
+        os.remove(path + ".json")
+        if family in keep:
+            os.replace(path, mesh_container(FAMILY_ARCHS[family]))
+        else:
+            os.remove(path)
     os.remove(log)
     return out
 
@@ -2278,7 +2314,7 @@ def moe_phase(child, clock_mhz, dev):
     shapes.  Returns each kernel's launches by residency."""
     import torch
     full, cfg = family_config("moe")
-    cm, made = containers(*child)["moe"]
+    cm, made = containers(*child, keep=("moe",))["moe"]
     params, prompt, tokens, dense_launches = moe_dense(cm, made, cfg, full,
                                                        dev)
     moe_continuous(cfg, params, dev)
@@ -2287,7 +2323,8 @@ def moe_phase(child, clock_mhz, dev):
     rw, resident_launches = moe_resident(cm, cfg, prompt, tokens, dev)
     fused_kernel_rows(rw, resident_launches, clock_mhz, dev,
                       rows=MOE_FUSED_ROWS)
-    return {"dense": dense_launches, "resident": resident_launches}
+    return {"dense": dense_launches, "resident": resident_launches}, \
+        (cfg, prompt, tokens)
 
 
 def family_config(family):
@@ -3076,6 +3113,311 @@ def train_phase(dev):
     train_reference(dev)
     return launches
 
+# ------------------------------------------------------------------ mesh
+
+def mesh_container(arch):
+    """Where a container the mesh phase's ranks load waits for them."""
+    path = os.path.join(ROOT, "build", "chip_smoke", "mesh", f"{arch}.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path
+
+
+def expected_rank_bytes(cfg, params, mesh_shape):
+    """The weight bytes one rank holds by the resolved exact-TP specs: each
+    part of each tensor, divided by the ranks along its sharded axes."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import api
+    from repro_torch.models.layers import QT, QT4
+
+    class Shape:
+        shape = mesh_shape
+    axes = api.param_specs(cfg)
+    total = 0
+    for name, v in params.items():
+        spec = shd.leaf_shardings(axes[name], v,
+                                  shd.serve_tp_table(cfg, Shape, axes[name]),
+                                  Shape)
+        pairs = zip(v, spec) if isinstance(v, (QT, QT4)) else [(v, spec)]
+        for t, sp in pairs:
+            n = t.numel() * t.element_size()
+            for e in sp:
+                n //= shd.mesh_prod(Shape, shd.entry_axes(e))
+            total += n
+    return total
+
+
+def mesh_rank_setup(mesh, path):
+    """A rank's start: the card (never the CPU), the container, the launch
+    and collective counts zeroed."""
+    import torch
+    from repro_torch.core.store import CompressedModel
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import build
+    if mesh.device.type != "cuda":
+        raise AssertionError(f"rank {mesh.rank} on {mesh.device}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cm = CompressedModel.load(path)
+    for k in build.launches:
+        build.launches[k] = 0
+    collectives.reset_counts()
+    return cm
+
+
+def mesh_load(cfg, cm, mesh):
+    """The load through the ``cuda`` decode backend with the mesh's placer;
+    the decode launches must equal the load plan's."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.serving import engine
+    load = {}
+    params = engine.load_params_from_compressed(
+        cm, backend="cuda", device=mesh.device, metrics=load,
+        placer=engine.make_param_placer(cfg, mesh))
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    want = decode_launches_from_plan(cm)
+    if launches != dict({k: 0 for k in launches}, **want):
+        raise AssertionError(f"rank {mesh.rank}: load launches {launches}, "
+                             f"the plan's {want}")
+    return params, launches, load["decode_load_s"]
+
+
+def mesh_dense_rank(mesh, cfg, path, prompt, jobs):
+    """One rank of the qwen3 mesh: load, lockstep (a warm call, then the
+    serve phase's generate), ``jobs`` through a 4-slot continuous engine."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.serving import engine
+    from repro_torch.serving.batching import ContinuousEngine
+    t_start = time.perf_counter()
+    cm = mesh_rank_setup(mesh, path)
+    params, launches, load_s = mesh_load(cfg, cm, mesh)
+    weight_bytes = engine.per_device_bytes(params, mesh)
+    eng = engine.Engine(cfg, params, engine.ServeConfig(max_len=PROMPT + GEN),
+                        mesh=mesh)
+    eng.generate(prompt, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompt, GEN)
+    torch.cuda.synchronize()
+    lockstep_s = time.perf_counter() - t0
+    ce = ContinuousEngine(cfg, params,
+                          engine.ServeConfig(max_len=CONT_MAX_LEN),
+                          n_slots=FLEET_SLOTS, prefill_chunk=PREFILL_CHUNK,
+                          max_queue=MAX_QUEUE, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = run_single(ce, jobs)
+    torch.cuda.synchronize()
+    continuous_s = time.perf_counter() - t0
+    if mesh.rank == 0:
+        os.remove(path)
+    return dict(coord=mesh.key(), device=str(mesh.device),
+                launches=launches, load_s=load_s, weight_bytes=weight_bytes,
+                cache_bytes=eng.cache_bytes,
+                slot_cache_bytes=engine.local_bytes(ce.slots.cache),
+                slot_rows=[ce.slots.rows.start, ce.slots.rows.stop],
+                tokens=out.cpu().tolist(), lockstep_s=lockstep_s,
+                outs=outs, continuous_s=continuous_s,
+                decode_steps=ce.n_decode_steps,
+                prefill_chunks=ce.n_prefill_chunks,
+                collectives=dict(collectives.counts),
+                peak_bytes=torch.cuda.max_memory_allocated(mesh.device),
+                wall_s=time.perf_counter() - t_start)
+
+
+def mesh_moe_rank(mesh, cfg, path, prompt):
+    """One rank of the moe mesh: load, exact-TP lockstep, then layer 0's
+    feed-forward through expert parallelism against the single-device
+    forward on the same rank."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.ctx import (ShardingHints, local_block,
+                                             set_hints)
+    from repro_torch.models import moe
+    from repro_torch.models.layers import (deq, gather_weight, layer_slice,
+                                           rms_norm, take_rows)
+    from repro_torch.serving import engine
+    t_start = time.perf_counter()
+    cm = mesh_rank_setup(mesh, path)
+    params, launches, load_s = mesh_load(cfg, cm, mesh)
+    weight_bytes = engine.per_device_bytes(params, mesh)
+    eng = engine.Engine(cfg, params, engine.ServeConfig(max_len=PROMPT + GEN),
+                        mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompt, GEN)
+    torch.cuda.synchronize()
+    lockstep_s = time.perf_counter() - t0
+    collective_counts = dict(collectives.counts)
+
+    # EP: layer 0's moe weights gathered once (pure data movement) and
+    # dequantized as the model does (bf16); x the prompt's normed
+    # embeddings; every rank runs the single-device forward too
+    hints = ShardingHints(mesh=mesh, model_axis=None, batch_axes=(),
+                          seq_sp=False, exact_tp=True)
+    with torch.inference_mode():
+        set_hints(hints)
+        try:
+            wts = {k[len("layers/moe/"):]: deq(gather_weight(
+                layer_slice(v, 0))) for k, v in params.items()
+                if k.startswith("layers/moe/")}
+            x = take_rows(params["embed"], torch.as_tensor(
+                prompt, device=mesh.device))
+        finally:
+            set_hints(None)
+        x = rms_norm(x, layer_slice(params["layers/mlp_norm"], 0))
+        E = cfg.moe.padded_experts(16)
+        y_single, _ = moe.moe_mlp(x, wts, cfg.moe, E)
+        ctx = moe.EPContext(mesh, batch_sharded=True)
+        local = dict(wts)
+        for k, spec in moe.ep_weight_specs(ctx).items():
+            local[k] = local_block(wts[k], spec, mesh).contiguous()
+        moe.set_ep_context(ctx)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_ep, _ = moe.moe_mlp(x, local, cfg.moe, E)
+            torch.cuda.synchronize()
+            ep_s = time.perf_counter() - t0
+        finally:
+            moe.set_ep_context(None)
+        err = float((y_ep.float() - y_single.float()).abs().max())
+        scale = float(y_single.float().abs().max())
+    if mesh.rank == 0:
+        os.remove(path)
+    return dict(coord=mesh.key(), device=str(mesh.device),
+                launches=launches, load_s=load_s, weight_bytes=weight_bytes,
+                cache_bytes=eng.cache_bytes, tokens=out.cpu().tolist(),
+                lockstep_s=lockstep_s, collectives=collective_counts,
+                ep_max_abs_err=err, ep_max_abs_y=scale, ep_s=ep_s,
+                ep_experts_local=E // mesh.shape["model"],
+                peak_bytes=torch.cuda.max_memory_allocated(mesh.device),
+                wall_s=time.perf_counter() - t_start)
+
+
+def mesh_spawn(fn, shape, args):
+    """``fn`` on every rank of a fresh ``shape`` world sharing the card;
+    any failed or hung rank raises.  Returns (ranks' results, wall)."""
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    got = mesh_lib.spawn(fn, *shape, backend=MESH_BACKEND, device="cuda",
+                         timeout_s=MESH_TIMEOUT_S, args=args, threads=0)
+    return got, time.perf_counter() - t0
+
+
+def mesh_line(label, shape, got, wall, tokens, seconds, **fields):
+    """Emit a ``mesh`` line: what every rank reported, side by side."""
+    emit("mesh", run=label, mesh=list(shape), ranks=len(got),
+         backend=MESH_BACKEND,
+         shared_card="every rank on cuda:0: the times are one card's "
+                     "shared by the ranks, not a multi-card figure; the "
+                     "port hands gloo card tensors, and gloo copies them "
+                     "through host memory inside each collective",
+         devices=sorted({r["device"] for r in got}),
+         collectives=[r["collectives"] for r in got],
+         weight_bytes_per_rank=[r["weight_bytes"][tuple(r["coord"])]
+                                for r in got],
+         cache_bytes_per_rank=[r["cache_bytes"] for r in got],
+         load_s=[r["load_s"] for r in got], tokens=tokens,
+         tok_per_s=tokens / max(seconds, 1e-9), seconds=seconds,
+         wall_s=wall, rank_wall_s=[r["wall_s"] for r in got],
+         peak_bytes=[r["peak_bytes"] for r in got],
+         launches=[r["launches"] for r in got], **fields)
+
+
+def mesh_phase(cm, params, dense_tokens, want_slots, dev):
+    """The serve phase's container on ``MESH`` ranks sharing the card:
+    every rank's load launches the decode kernels as the plan says, holds
+    less than one device's weight bytes (exactly its resolved shards), and
+    its lockstep tokens and every continuous request are bitwise the
+    single engine's.  Returns rank 0's launches."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.serving import engine
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=DEPTH)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
+    _, jobs = fleet_jobs(cfg)
+    got, wall = mesh_spawn(mesh_dense_rank, MESH,
+                           (cfg, mesh_container("qwen3-1.7b"), prompt, jobs))
+    from repro_torch.serving.kvcache import kv_cache_bytes
+    single = engine.local_bytes(params)
+    per_rank = expected_rank_bytes(cfg, params, dict(zip(("data", "model"),
+                                                         MESH)))
+    # rows over data, KV heads (8) over model: a rank holds 1 / (D x M)
+    cache = kv_cache_bytes(cfg, BATCH, PROMPT + GEN) // (MESH[0] * MESH[1])
+    slot_cache = kv_cache_bytes(cfg, FLEET_SLOTS, CONT_MAX_LEN) \
+        // (MESH[0] * MESH[1])
+    want_tokens = dense_tokens.tolist()
+    for r in got:
+        wb = r["weight_bytes"]
+        if len(wb) != len(got) or set(wb.values()) != {per_rank} \
+                or not per_rank < single:
+            raise AssertionError(f"mesh weight bytes {wb}: expected "
+                                 f"{per_rank} a rank, below {single}")
+        if (r["cache_bytes"], r["slot_cache_bytes"]) != (cache, slot_cache):
+            raise AssertionError(
+                f"mesh rank {r['coord']}: cache bytes {r['cache_bytes']} / "
+                f"{r['slot_cache_bytes']}, expected {cache} / {slot_cache}")
+        if r["tokens"] != want_tokens:
+            raise AssertionError(f"mesh rank {r['coord']}: lockstep tokens "
+                                 f"differ from the serve phase's")
+        if r["outs"] != want_slots:
+            n = sum(a != b for a, b in zip(r["outs"], want_slots))
+            raise AssertionError(f"mesh rank {r['coord']}: {n} continuous "
+                                 f"requests differ from the single engine")
+    r0 = got[0]
+    toks = BATCH * GEN
+    mesh_line("lockstep", MESH, got, wall, toks, r0["lockstep_s"],
+              arch=cfg.name, single_device_weight_bytes=single,
+              expected_weight_bytes_per_rank=per_rank,
+              expected_cache_bytes_per_rank=cache,
+              plan=decode_launches_from_plan(cm),
+              tokens_equal_serve_phase=True)
+    toks = sum(len(o) for o in want_slots)
+    mesh_line("continuous", MESH, got, wall, toks, r0["continuous_s"],
+              arch=cfg.name, n_slots=FLEET_SLOTS,
+              slot_rows=[r["slot_rows"] for r in got],
+              slot_cache_bytes_per_rank=[r["slot_cache_bytes"] for r in got],
+              expected_slot_cache_bytes_per_rank=slot_cache,
+              decode_steps=r0["decode_steps"],
+              prefill_chunks=r0["prefill_chunks"],
+              requests_equal_single=len(want_slots))
+    return r0["launches"]
+
+
+def mesh_moe_phase(cfg, prompt, tokens):
+    """The moe phase's container on ``MESH_MOE``: exact-TP lockstep bitwise
+    the moe phase's tokens, and EP's layer-0 forward within ``EP_TOL``.
+    Returns rank 0's launches."""
+    from repro_torch.serving.kvcache import kv_cache_bytes
+    got, wall = mesh_spawn(mesh_moe_rank, MESH_MOE,
+                           (cfg, mesh_container(MOE_ARCH), prompt))
+    want = tokens.tolist()
+    # the KV heads (16) over model: a rank holds 1 / M of the cache
+    cache = kv_cache_bytes(cfg, BATCH, PROMPT + GEN) // MESH_MOE[1]
+    for r in got:
+        if r["tokens"] != want:
+            raise AssertionError(f"mesh moe rank {r['coord']}: exact-TP "
+                                 f"tokens differ from the moe phase's")
+        if r["cache_bytes"] != cache:
+            raise AssertionError(f"mesh moe rank {r['coord']}: cache bytes "
+                                 f"{r['cache_bytes']}, expected {cache}")
+        if not r["ep_max_abs_err"] <= EP_TOL * r["ep_max_abs_y"]:
+            raise AssertionError(f"mesh moe rank {r['coord']}: EP max |diff| "
+                                 f"{r['ep_max_abs_err']} over "
+                                 f"{EP_TOL} x {r['ep_max_abs_y']}")
+    mesh_line("moe", MESH_MOE, got, wall, BATCH * GEN, got[0]["lockstep_s"],
+              arch=cfg.name, tokens_equal_moe_phase=True,
+              expected_cache_bytes_per_rank=cache,
+              ep=dict(tol=EP_TOL, layer=0,
+                      experts_per_rank=got[0]["ep_experts_local"],
+                      max_abs_err=[r["ep_max_abs_err"] for r in got],
+                      max_abs_y=[r["ep_max_abs_y"] for r in got],
+                      seconds=[r["ep_s"] for r in got]))
+    return got[0]["launches"]
+
 
 def main():
     import torch
@@ -3133,8 +3475,12 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     paged_launches = paged_phase(eng.params, dev)
     paged_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    fleet_launches = fleet_phase(cm, eng.params, dev)
+    fleet_launches, want_slots = fleet_phase(cm, eng.params, dev)
     fleet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_launches = {"qwen3": mesh_phase(cm, eng.params, dense_tokens,
+                                         want_slots, dev)}
+    mesh_s = time.perf_counter() - t0
     dq_row = dequant_matmul_phase(cm, eng.params, clock_mhz, dev)
     del eng
     t0 = time.perf_counter()
@@ -3149,9 +3495,12 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     del rw, cm
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    moe_launches = moe_phase(children[0], clock_mhz, dev)
+    moe_launches, moe_served = moe_phase(children[0], clock_mhz, dev)
     moe_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_launches["moe"] = mesh_moe_phase(*moe_served)
+    mesh_s += time.perf_counter() - t0
     t0 = time.perf_counter()
     family_launches = families_phase(children[1], dev)
     families_s = time.perf_counter() - t0
@@ -3163,13 +3512,15 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
         row["launches_continuous"] = continuous_launches.get(row["name"], 0)
         row["launches_paged"] = paged_launches.get(row["name"], 0)
         row["launches_fleet"] = fleet_launches.get(row["name"], 0)
+        row["launches_mesh"] = {k: v.get(row["name"], 0)
+                                for k, v in mesh_launches.items()}
         row["launches_moe"] = {k: v.get(row["name"], 0)
                                for k, v in moe_launches.items()}
         for family, got in family_launches.items():
             row[f"launches_{family}"] = got.get(row["name"], 0)
         row["launches_train"] = train_launches.get(row["name"], 0)
     emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
-         paged_phase_s=paged_s, fleet_phase_s=fleet_s,
+         paged_phase_s=paged_s, fleet_phase_s=fleet_s, mesh_phase_s=mesh_s,
          resident_phase_s=resident_s,
          moe_phase_s=moe_s, families_phase_s=families_s,
          train_phase_s=train_s, script_s=time.perf_counter() - START)

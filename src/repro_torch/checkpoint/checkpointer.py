@@ -54,20 +54,26 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def flatten_with_path(tree: PyTree, path: Tuple[str, ...] = ()
+def flatten_with_path(tree: PyTree, path: Tuple[str, ...] = (),
+                      is_leaf=None
                       ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
-    """``(key path, leaf)`` pairs in ``jax.tree.flatten``'s order."""
+    """``(key path, leaf)`` pairs in ``jax.tree.flatten``'s order;
+    ``is_leaf`` names further leaves (a tree of partition specs, which are
+    tuples, passes one)."""
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if is_leaf is not None and is_leaf(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from flatten_with_path(tree[k], path + (str(k),))
+            yield from flatten_with_path(tree[k], path + (str(k),), is_leaf)
     elif _is_namedtuple(tree):
         for f in tree._fields:
-            yield from flatten_with_path(getattr(tree, f), path + (f,))
+            yield from flatten_with_path(getattr(tree, f), path + (f,),
+                                         is_leaf)
     elif isinstance(tree, (tuple, list)):
         for i, x in enumerate(tree):
-            yield from flatten_with_path(x, path + (str(i),))
+            yield from flatten_with_path(x, path + (str(i),), is_leaf)
     else:
         yield path, tree
 
@@ -224,12 +230,21 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, step: Optional[int] = None, *, like: PyTree,
-                device=None) -> Tuple[int, PyTree]:
+                device=None, shardings: Optional[PyTree] = None,
+                mesh=None) -> Tuple[int, PyTree]:
         """Restore a committed checkpoint into ``like``'s structure (leaves
         matched by position), every leaf a tensor on ``device`` (``cuda``
-        unless the caller names the CPU)."""
+        unless the caller names the CPU).
+
+        With ``shardings`` (a tree of specs shaped like ``like``) and this
+        rank's ``mesh``, the rank keeps its block of each leaf (a
+        :class:`~repro_torch.distributed.ctx.Sharded` where the spec shards
+        it) on ``mesh.device``: the restore re-shards onto whatever mesh
+        is current."""
         from repro_torch import device as _device
-        dev = _device.resolve(device)
+        if shardings is not None and mesh is None:
+            raise ValueError("restore(shardings=) needs this rank's mesh")
+        dev = _device.resolve(device if mesh is None else mesh.device)
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(
@@ -266,7 +281,19 @@ class Checkpointer:
                      .to(torch.bfloat16))
             else:
                 t = torch.from_numpy(np.array(arr, dtype=dt))
-            leaves.append(t.reshape(manifest["shapes"][i]).to(dev))
+            leaves.append(t.reshape(manifest["shapes"][i]))
+        if shardings is not None:
+            from repro_torch.distributed.ctx import shard
+            specs = [s for _, s in flatten_with_path(
+                shardings, is_leaf=lambda x: isinstance(x, tuple)
+                and not _is_namedtuple(x))]
+            if len(specs) != len(leaves):
+                raise ValueError(f"restore: {len(specs)} specs for "
+                                 f"{len(leaves)} leaves")
+            leaves = [shard(t, s, mesh).to(dev)
+                      for t, s in zip(leaves, specs)]
+        else:
+            leaves = [t.to(dev) for t in leaves]
         return step, unflatten_like(like, iter(leaves))
 
     # -------------------------------------------------------------------- gc

@@ -1,3 +1,4 @@
-"""Distributed training utilities of the port (``repro/distributed``, the
-parts that are local math or host logic): gradient compression and fault
-tolerance."""
+"""Distributed utilities of the port (``repro/distributed``): gradient
+compression and fault tolerance, and the multi-device serving path's
+sharding rules (``sharding``), hints and sharded weights (``ctx``) and
+collectives (``collectives``)."""

@@ -1,0 +1,152 @@
+"""Process-wide sharding-hints context and the sharded-at-rest weight
+(PyTorch port of ``repro/distributed/ctx.py``, its exact-TP part).
+
+Models are mesh-agnostic; the serving layer installs :class:`ShardingHints`
+around each step it runs on a mesh (``ServeSteps``), and the weight reads
+of ``models.layers`` consult them.  Under ``exact_tp`` hints a weight rests
+sharded along its output channels — each rank keeps its block as a
+:class:`Sharded` — and :func:`constrain_replicated` all-gathers it at its
+use site.  The gather is pure data movement, so the consuming op reads the
+full tensor bit for bit and rounds exactly like one device.  Attention may
+also split its heads (``head_axes``): each rank attends over its block and
+the blocks are gathered, which no head's result depends on.
+
+The JAX package's activation constraints (``constrain_heads``,
+``constrain_scores``, ``constrain_activation``) are compiler annotations
+that only the lowered production cells take; they are not ported here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingHints:
+    mesh: object
+    batch_axes: Tuple[str, ...] = ("data",)   # () when batch is unsharded
+    model_axis: Optional[str] = "model"
+    kv_seq_axes: Tuple[str, ...] = ()         # cache T-dim sharding (decode)
+    seq_sp: bool = True                       # sequence-parallel layer carries
+    feature_axes: Tuple[str, ...] = ()        # weight-stationary decode
+    exact_tp: bool = False                    # bit-identical sharded serving:
+    #   weights stay sharded at REST (per-rank memory divided along output
+    #   channels) and are all-gathered at their USE site, so every compute
+    #   op runs with reference shapes and rounds exactly like one device
+    head_axes: Tuple[str, ...] = ()           # exact TP: attention heads
+    #   split over these axes; each rank attends over its block of heads
+    #   (its KV cache holds only those) and the outputs are gathered
+
+
+_HINTS: list = [None]
+
+
+def set_hints(h: Optional[ShardingHints]) -> None:
+    _HINTS[0] = h
+
+
+def get_hints() -> Optional[ShardingHints]:
+    return _HINTS[0]
+
+
+def _fits(dim: int, mesh, axes: Tuple[str, ...]) -> bool:
+    if not axes:
+        return False
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return dim % n == 0
+
+
+class Sharded:
+    """This rank's block of a tensor that rests sharded over the mesh:
+    ``local`` and the spec it was cut by (one entry a dimension, padded
+    with ``None``).  Model code never computes on it: the weight reads of
+    ``models.layers`` gather it first (:func:`constrain_replicated`), and
+    any other use fails for want of tensor methods.  Indexing the leading
+    dimension, which must be unsharded (the layer stack), keeps the rest
+    of the spec."""
+    __slots__ = ("local", "spec")
+
+    def __init__(self, local: torch.Tensor, spec: Sequence):
+        assert len(spec) == local.dim(), (spec, local.shape)
+        self.local = local
+        self.spec = tuple(spec)
+
+    def __getitem__(self, l) -> "Sharded":
+        assert self.spec[0] is None, f"index of sharded dim 0 {self.spec}"
+        return Sharded(self.local[l], self.spec[1:])
+
+    def unbind(self) -> list:
+        assert self.spec[0] is None, f"unbind of sharded dim 0 {self.spec}"
+        return [Sharded(t, self.spec[1:]) for t in torch.unbind(self.local)]
+
+    def to(self, device) -> "Sharded":
+        return Sharded(self.local.to(device), self.spec)
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.local.numel() * self.local.element_size()
+
+    def __repr__(self) -> str:
+        return (f"Sharded(local={tuple(self.local.shape)}, spec={self.spec}, "
+                f"{self.local.dtype})")
+
+
+def block_index(mesh, entry) -> Tuple[int, int]:
+    """(number of blocks, this rank's block) of a dim sharded by the spec
+    entry ``entry`` (an axis name or a tuple of them, the first major)."""
+    axes = () if entry is None else \
+        (entry,) if isinstance(entry, str) else tuple(entry)
+    size, idx = 1, 0
+    for a in axes:
+        size *= mesh.shape[a]
+        idx = idx * mesh.shape[a] + mesh.coord[a]
+    return size, idx
+
+
+def local_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """This rank's block of the full tensor ``t`` under ``spec``: along each
+    sharded dim, the block at the rank's coordinate over the entry's axes
+    (the first axis major).  A view of ``t``."""
+    out = t
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        size, idx = block_index(mesh, e)
+        step = t.shape[d] // size
+        assert step * size == t.shape[d], (t.shape, spec)
+        out = out.narrow(d, idx * step, step)
+    return out
+
+
+def shard(t: torch.Tensor, spec: Sequence, mesh):
+    """``t`` placed by ``spec``: a :class:`Sharded` holding a copy of this
+    rank's block (so the full tensor can be freed), or ``t`` itself when
+    ``spec`` shards nothing."""
+    entries = tuple(spec) + (None,) * (t.dim() - len(spec))
+    if all(e is None for e in entries):
+        return t
+    return Sharded(local_block(t, entries, mesh).clone(), entries)
+
+
+def constrain_replicated(x: Any) -> Any:
+    """Exact sharded serving: gather a :class:`Sharded` weight to every rank
+    of its axes at its use site — an all-gather along each sharded dim, the
+    full tensor bit for bit.  Anything else passes through, as it does with
+    no ``exact_tp`` hints installed."""
+    h = get_hints()
+    if h is None or not h.exact_tp or not isinstance(x, Sharded):
+        return x
+    from . import collectives
+    out = x.local
+    for d, e in enumerate(x.spec):
+        if e is not None:
+            out = collectives.all_gather(h.mesh, out, d, e)
+    return out

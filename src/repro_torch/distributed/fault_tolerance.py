@@ -1,6 +1,5 @@
 """Fault tolerance for long training runs (PyTorch port of
-``repro/distributed/fault_tolerance.py``; the mesh-resharding restore is not
-ported, since one device has no mesh).
+``repro/distributed/fault_tolerance.py``).
 
 * **NaN / inf watchdog with rollback**: :class:`NanWatchdog` is a train-loop
   hook; on a non-finite loss or gradient norm it restores the last
@@ -10,6 +9,9 @@ ported, since one device has no mesh).
   of step times and flags a step slower than ``threshold`` times the
   median; :func:`suggest_rebalance` re-maps data shards to hosts (the data
   pipeline is keyed by shard index, so re-mapping moves no data).
+* **Elastic reshard**: :func:`reshard_restore` restores a checkpoint onto
+  the current mesh, whatever mesh saved it: each rank keeps its block of
+  every leaf by the specs it is given.
 * **Preemption-safe save cadence**: :class:`CheckpointHook` saves every
   ``every`` steps, asynchronously by default; with atomic commits a kill
   loses at most ``every`` steps of work.
@@ -62,6 +64,15 @@ class CheckpointHook:
             self.ckpt.save(step + 1, (params, opt_state),
                            blocking=not self.async_save)
         return None
+
+
+def reshard_restore(ckpt: Checkpointer, like, new_shardings, mesh,
+                    step=None):
+    """Restore onto a (possibly different-shaped) current mesh: every rank
+    of ``mesh`` keeps its block of each leaf by ``new_shardings`` (a tree
+    of specs shaped like ``like``)."""
+    return ckpt.restore(step, like=like, shardings=new_shardings,
+                        mesh=mesh)
 
 
 @dataclasses.dataclass

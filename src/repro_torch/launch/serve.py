@@ -52,18 +52,29 @@ frames) lockstep and dense-resident only, as in the JAX package:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         --batch 2 --prompt-len 8 --gen 4 [--device cpu]
 
+``--mesh DxM`` serves one model sharded over a ``data x model`` mesh of
+ranks, one process each (``--dist-backend``: ``nccl`` for one card a rank,
+``gloo`` on the CPU or for ranks sharing one card): weights rest sharded
+along output channels and are all-gathered at use, batch rows (or slots)
+split over data, and greedy tokens equal one device's:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --mesh 1x2 --device cpu --dist-backend gloo [--batch-slots 4]
+
 It serves the reduced variant of ``--arch`` (``registry.reduced``), like the
 JAX launcher; ``chip_smoke.py`` drives the full width.  Runs on the card
-unless ``--device cpu`` is given.  The JAX launcher's multi-device modes
-(meshes, production shapes, multi-pod) are not ported yet and their flags
-exit with a message saying so.
+unless ``--device cpu`` is given.  The JAX launcher's production modes
+(production shapes, multi-pod) are not ported yet and their flags exit
+with a message saying so.
 """
 import argparse
 import sys
 import time
 
 # flags of the JAX launcher whose serving modes the port does not have yet
-_NOT_PORTED_FLAGS = ("--mesh", "--production", "--shape", "--multi-pod")
+_NOT_PORTED_FLAGS = ("--production", "--shape", "--multi-pod")
+# a spawned world that has not finished in this time is stopped
+MESH_TIMEOUT_S = 3600.0
 
 
 def main(argv=None):
@@ -148,6 +159,17 @@ def main(argv=None):
                         "replicas + D decode replicas (P+D = N); finished "
                         "prompt KV ships prefill->decode as entropy-coded "
                         "block payloads, so requires --kv-spec")
+    p.add_argument("--mesh", default=None, metavar="DxM",
+                   help="serve on a (data, model) mesh of DxM ranks, e.g. "
+                        "2x4: weights tensor-parallel over model (QT "
+                        "q/scale/zero sharded consistently along output "
+                        "channels, gathered at use), batch rows / slots "
+                        "over data, placement at load-stream time")
+    p.add_argument("--dist-backend", default="nccl",
+                   choices=("nccl", "gloo"),
+                   help="torch.distributed backend of --mesh: nccl (one "
+                        "card a rank), or gloo (the CPU, or ranks sharing "
+                        "one card)")
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default: cuda; raises "
                         "when no card is present)")
@@ -165,14 +187,32 @@ def main(argv=None):
             p.error(f"{flag} is not ported yet (the PyTorch port serves "
                     f"lockstep and continuous batches, dense or compressed "
                     f"resident, paged KV and fleets of replicas on one "
-                    f"device)")
+                    f"device, and one engine over a --mesh of ranks)")
     args = p.parse_args(argv)
+    args.mesh_dims = None
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh_spec
+        try:
+            args.mesh_dims = parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            p.error(f"--mesh: {e}")
+        if min(args.mesh_dims) < 1:
+            p.error(f"--mesh: mesh axes must be >= 1, got {args.mesh}")
     if args.traffic > 0 and args.batch_slots < 1:
         p.error("--traffic replays arrivals through --batch-slots N")
+    if args.traffic > 0 and args.mesh:
+        p.error("--traffic paces arrivals and sheds on a full queue by each "
+                "rank's own clock, but on a --mesh every rank must take the "
+                "same admission decisions; drop --traffic (the uniform "
+                "--batch wave is admitted alike on every rank) or --mesh")
     if args.fused_impl not in (None, "auto"):
         p.error(f"--fused-impl {args.fused_impl} is not ported yet (the "
                 f"port picks the fused kernel by the tensor's device)")
     if args.resident == "compressed":
+        if args.mesh:
+            p.error("--resident compressed is single-device (per-layer "
+                    "decode targets the bandwidth-bound single-accelerator "
+                    "regime); drop --mesh or use --resident dense")
         if args.no_quantized_serving:
             p.error("--resident compressed always serves QT weights "
                     "(the per-layer slots hold quantized triples); "
@@ -197,6 +237,9 @@ def main(argv=None):
             p.error("paged KV (--kv-spec) needs --resident dense: the "
                     "compressed-resident per-layer drivers have no paged "
                     "step twins")
+        if args.mesh:
+            p.error("paged KV (--kv-spec) is single-device today; drop "
+                    "--mesh")
         from repro_torch.core.spec import KVCompressionSpec
         overrides = {}
         if args.kv_block:
@@ -224,6 +267,10 @@ def main(argv=None):
         if args.batch_slots <= 0:
             p.error("--replicas requires --batch-slots (fleet replicas are "
                     "continuous-batching engines)")
+        if args.mesh:
+            p.error("--replicas is data parallelism over single-device "
+                    "engines; the mesh layer shards ONE engine — drop "
+                    "--mesh or serve a single replica")
         if args.resident != "dense":
             p.error("--replicas needs --resident dense: the per-layer "
                     "compressed-resident drivers are single-engine today")
@@ -276,7 +323,37 @@ def main(argv=None):
             p.error(f"--bits must be in [1, 8], got {args.bits}")
         compress_spec = spec_from_legacy(args.bits, Granularity.PER_CHANNEL,
                                          codec=args.codec)
+    args.compress_spec_parsed = compress_spec
+    args.kv_spec_parsed = kv_spec
+    if args.mesh_dims is None:
+        return _serve(args)
+    from repro_torch import device as _device
+    from repro_torch.launch import mesh as mesh_lib
+    dev = _device.resolve(args.device)
+    if args.dist_backend == "nccl" and dev.type != "cuda":
+        p.error("--dist-backend nccl runs on cards; ranks on the CPU take "
+                "--dist-backend gloo")
+    data, model = args.mesh_dims
+    rcs = mesh_lib.spawn(_serve_rank, data, model,
+                         backend=args.dist_backend, device=str(dev),
+                         timeout_s=MESH_TIMEOUT_S, args=(args,), threads=0)
+    return max(rcs)
 
+
+def _serve_rank(mesh, args) -> int:
+    """One rank of ``--mesh``: the whole serve, every rank alike; rank 0
+    alone prints."""
+    import contextlib
+    import os
+    if mesh.rank == 0:
+        return _serve(args, mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _serve(args, mesh)
+
+
+def _serve(args, mesh=None) -> int:
+    """Compress, load and serve (on ``mesh`` when given: this rank's part
+    of it)."""
     import numpy as np
     import torch
     from repro_torch import device as _device
@@ -286,7 +363,8 @@ def main(argv=None):
     from repro_torch.obs import trace as obs_trace
     from repro_torch.serving import engine
 
-    dev = _device.resolve(args.device)
+    compress_spec, kv_spec = args.compress_spec_parsed, args.kv_spec_parsed
+    dev = mesh.device if mesh is not None else _device.resolve(args.device)
     if args.trace_out or args.trace_sync:
         obs_trace.enable(sync=args.trace_sync)
 
@@ -346,6 +424,10 @@ def main(argv=None):
               f"{serve_params.dense_resident_bytes()/2**20:.2f} MiB, "
               f"dense bf16 {serve_params.dense_bf16_bytes()/2**20:.2f} MiB")
     else:
+        if mesh is not None:
+            # default placer profile: per-tensor output-channel TP (exact
+            # numerics); the mesh rules steer cache / batch rows in engines
+            load_kw["placer"] = engine.make_param_placer(cfg, mesh)
         serve_params = engine.load_params_from_compressed(
             cm, quantized=not args.no_quantized_serving,
             backend=args.decode_backend, stream=not args.no_stream,
@@ -356,6 +438,14 @@ def main(argv=None):
               f"(first weight resident after "
               f"{load_metrics['time_to_first_weight_s']*1e3:.0f}ms; "
               f"quantized residency: {not args.no_quantized_serving})")
+    if mesh is not None:
+        pb = engine.per_device_bytes(serve_params, mesh)
+        lo, hi = min(pb.values()), max(pb.values())
+        print(f"mesh {args.mesh_dims[0]}x{args.mesh_dims[1]} (data x model): "
+              f"weights placed over {len(pb)} ranks "
+              f"[{args.dist_backend}, {dev}], "
+              f"{lo/2**20:.1f}-{hi/2**20:.1f} MiB/rank "
+              f"({sum(pb.values())/2**20:.1f} MiB total)")
 
     # slot mode pads prompts to a prefill-chunk multiple, so its cache needs
     # that much headroom; the lockstep path keeps the exact footprint.
@@ -381,14 +471,14 @@ def main(argv=None):
     if args.batch_slots > 0:
         rc = _serve_continuous(cfg, serve_params, sc, args, rng,
                                load_metrics, dev, kv_spec=kv_spec,
-                               kv_prefix_len=kv_prefix_len)
+                               kv_prefix_len=kv_prefix_len, mesh=mesh)
         if args.resident == "compressed":
             serve_params.close()
-        _write_obs(args)
+        _write_obs(args, mesh)
         return rc
 
     eng = engine.Engine(cfg, serve_params, sc, device=dev,
-                        resident=args.resident)
+                        resident=args.resident, mesh=mesh)
     prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
     if cfg.family == "encdec":
         # the stub frontend's frames, drawn after the tokens from the same
@@ -406,12 +496,12 @@ def main(argv=None):
           f"({metrics['decode_tok_per_s']:.1f} decode tok/s, "
           f"{metrics['e2e_tok_per_s']:.1f} e2e tok/s); "
           f"time-to-first-token incl. weight load: {ttft:.2f}s")
-    _write_obs(args)
+    _write_obs(args, mesh)
     return 0
 
 
 def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev,
-                      kv_spec=None, kv_prefix_len=0):
+                      kv_spec=None, kv_prefix_len=0, mesh=None):
     """--batch-slots path: slot-batched serving of independent requests."""
     import numpy as np
     from repro_torch.obs.metrics import percentile
@@ -427,7 +517,7 @@ def _serve_continuous(cfg, serve_params, sc, args, rng, load_metrics, dev,
                           max_queue=args.max_queue,
                           prefill_chunk=args.prefill_chunk,
                           resident=args.resident, kv_spec=kv_spec,
-                          device=dev)
+                          device=dev, mesh=mesh)
     if kv_spec is not None:
         print(f"  paged KV [{kv_spec.describe()}]: pool "
               f"{ce.slots.pool_bytes/2**20:.2f} MiB resident "
@@ -552,10 +642,13 @@ def _serve_fleet(cfg, serve_params, sc, args, load_metrics, dev,
     return 0
 
 
-def _write_obs(args):
-    """Export the trace / metrics-registry snapshot the serve recorded."""
+def _write_obs(args, mesh=None):
+    """Export the trace / metrics-registry snapshot the serve recorded
+    (rank 0's on a mesh)."""
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import trace as obs_trace
+    if mesh is not None and mesh.rank != 0:
+        return
     if args.trace_out or args.trace_sync:
         tracer = obs_trace.disable()
         if args.trace_out and tracer is not None:

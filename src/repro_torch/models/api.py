@@ -46,6 +46,16 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Tuple]:
     return {n: s.axes for n, s in build(cfg).schema(cfg).items()}
 
 
+def cache_specs(cfg: ArchConfig, **kw) -> Dict[str, Tuple]:
+    """The family's ``cache_specs`` with its options filtered: callers pass
+    the full option set (``layout="slot"``, ``kv_bits=8``, ...) and a family
+    that does not take an option does not see it."""
+    import inspect
+    fn = build(cfg).cache_specs
+    accepted = inspect.signature(fn).parameters
+    return fn(cfg, **{k: v for k, v in kw.items() if k in accepted})
+
+
 def supports_continuous_batching(cfg: ArchConfig) -> bool:
     """True when the family implements the slot-batch cache contract
     (``prefill_chunk`` + per-slot ``decode_step`` positions); dense and

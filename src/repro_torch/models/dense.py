@@ -15,10 +15,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from .layers import (Schema, Spec, checkpointed, deq, gather_blocks,
-                     gqa_attention, init_params, kv_dequantize, kv_quantize,
-                     layer_slice, matmul, rms_norm, rope, scatter_blocks,
-                     softmax_xent, stacked_layers, swiglu, take_rows,
-                     update_kv_cache)
+                     gather_heads, gqa_attention, head_block, init_params,
+                     kv_dequantize, kv_quantize, layer_slice, matmul,
+                     rms_norm, rope, scatter_blocks, softmax_xent,
+                     stacked_layers, swiglu, take_rows, update_kv_cache)
 
 
 def schema(cfg: ArchConfig) -> Schema:
@@ -107,7 +107,8 @@ def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
-    q, k, v = _qkv(cfg, lp, x, positions)
+    # on a mesh whose heads split: this rank's heads (the cache holds them)
+    q, k, v = head_block(*_qkv(cfg, lp, x, positions))
     if cache is None:
         attn = gqa_attention(q, k, v, causal=True)
         kv = (k, v)
@@ -125,7 +126,7 @@ def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
         attn = gqa_attention(q, cache[0], cache[1], causal=S > 1,
                              q_offset=pos, kv_len=pos + S)
         kv = cache
-    out = matmul(attn.reshape(B, S, H * hd), lp["wo"])
+    out = matmul(gather_heads(attn).reshape(B, S, H * hd), lp["wo"])
     return out, kv
 
 
@@ -185,12 +186,31 @@ def _no_q_block(q_block: int) -> None:
 
 # ------------------------------------------------------------------------- serving
 
+def cache_specs(cfg: ArchConfig, kv_bits: int = 16, layout: str = "batch"
+                ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of the cache leaves.  ``layout="slot"`` names axis 1
+    "slot" instead of "batch": the slot pool of continuous batching is the
+    same memory, but its rows are resident slots rather than one lockstep
+    batch, and the sharding rules resolve the two independently."""
+    b = "slot" if layout == "slot" else "batch"
+    s = {
+        "k": ("layers", b, "kv_seq", "kv", None),
+        "v": ("layers", b, "kv_seq", "kv", None),
+    }
+    if kv_bits == 8:
+        s["k_scale"] = ("layers", b, "kv_seq", "kv", None)
+        s["v_scale"] = ("layers", b, "kv_seq", "kv", None)
+    return s
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None,
-               kv_bits: int = 16) -> Dict[str, torch.Tensor]:
+               kv_bits: int = 16,
+               kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The slot cache: bf16 ``k`` / ``v``, or with ``kv_bits=8`` int8 codes
-    and a bf16 scale per (token, head) (four leaves)."""
-    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    and a bf16 scale per (token, head) (four leaves).  ``kv_heads`` sizes
+    it for a rank's block of the KV heads (all of them by default)."""
+    L, KV, hd = cfg.n_layers, kv_heads or cfg.n_kv_heads, cfg.hd
     if kv_bits == 8:
         shape = (L, batch, max_len, KV, hd)
         sshape = shape[:-1] + (1,)
@@ -221,10 +241,12 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
 def _prefill_cache(cfg: ArchConfig, caches, max_len: int):
     """A slot cache of ``max_len`` rows holding each layer's prompt (k, v)
     (B, S, KV, hd) in its first S rows, zeros after (the JAX package's
-    padded stack)."""
+    padded stack); KV is the heads the layers gave (a rank's block of them
+    when the heads split over a mesh)."""
     k0 = caches[0][0]
-    B, S = k0.shape[:2]
-    cache = init_cache(cfg, B, max_len, dtype=k0.dtype, device=k0.device)
+    B, S, KV = k0.shape[:3]
+    cache = init_cache(cfg, B, max_len, dtype=k0.dtype, device=k0.device,
+                       kv_heads=KV)
     for l, (k, v) in enumerate(caches):
         cache["k"][l, :, :S] = k
         cache["v"][l, :, :S] = v

@@ -10,7 +10,7 @@ prefill and carried unchanged through decode.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -189,6 +189,16 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
 
 
 # ------------------------------------------------------------------------- serving
+
+def cache_specs(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of the cache leaves (self- and cross-attention)."""
+    return {
+        "k": ("layers", "batch", "kv_seq", "kv", None),
+        "v": ("layers", "batch", "kv_seq", "kv", None),
+        "xk": ("layers", "batch", "kv_seq", "kv", None),
+        "xv": ("layers", "batch", "kv_seq", "kv", None),
+    }
+
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, src_len: Optional[int] = None,

@@ -197,6 +197,18 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
 
 # ------------------------------------------------------------------------- serving
 
+def cache_specs(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of the cache leaves (KV rows of the attention blocks,
+    conv and SSM states of the Mamba blocks)."""
+    return {
+        "k": ("layers", "batch", "kv_seq", "kv", None),
+        "v": ("layers", "batch", "kv_seq", "kv", None),
+        "conv_x": ("layers", None, "batch", None, "mlp"),
+        "conv_bc": ("layers", None, "batch", None, None),
+        "ssm": ("layers", None, "batch", "heads", None, None),
+    }
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """KV rows for the attention blocks, conv and SSM states for the Mamba

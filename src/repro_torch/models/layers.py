@@ -25,6 +25,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed import collectives
+from ..distributed.ctx import (Sharded, block_index, constrain_replicated,
+                               get_hints)
 from ..kernels.fused_decode_matmul import FusedQT, fused_decode_matmul
 
 # --------------------------------------------------------------------------- schema
@@ -157,10 +160,15 @@ def to_device(w: Any, device: torch.device) -> Any:
 
 def layer_slice(w: Any, l: int) -> Any:
     """Layer ``l`` of a layer-stacked tensor or QT / QT4 triple (the slice
-    ``lax.scan`` hands each iteration in the JAX package)."""
+    ``lax.scan`` hands each iteration in the JAX package); a part sharded
+    at rest stays sharded (:class:`~repro_torch.distributed.ctx.Sharded`)."""
     if isinstance(w, (QT, QT4, QTG)):
         return type(w)(*(p[l] for p in w))
     return w[l]
+
+
+def _unbind(p: Any) -> list:
+    return p.unbind() if isinstance(p, Sharded) else list(torch.unbind(p))
 
 
 def layer_views(w: Any) -> list:
@@ -170,9 +178,8 @@ def layer_views(w: Any) -> list:
     ``select`` a layer would fill a zero tensor of the whole stack for
     each layer."""
     if isinstance(w, (QT, QT4, QTG)):
-        return [type(w)(*parts) for parts in zip(*(torch.unbind(p)
-                                                   for p in w))]
-    return list(torch.unbind(w))
+        return [type(w)(*parts) for parts in zip(*(_unbind(p) for p in w))]
+    return _unbind(w)
 
 
 def stacked_layers(params: Dict[str, Any], prefix: str, n: int) -> list:
@@ -199,7 +206,27 @@ def checkpointed(fn, remat: bool):
     return wrapped
 
 
+def gather_weight(w: Any) -> Any:
+    """Exact sharded serving: all-gather a weight sharded at rest (or each
+    part of a QT / QT4 / QTG triple) at its use site.  The identity unless
+    ``exact_tp`` serving hints are installed, so training and every
+    single-device path are unchanged.  A fused payload handle has no
+    sharded form: compressed residency is single-device."""
+    h = get_hints()
+    if h is None or not h.exact_tp:
+        return w
+    if isinstance(w, FusedQT):
+        raise NotImplementedError(
+            "compressed-resident serving is single-device (see "
+            "docs/SERVING.md §\"Which mode when\"); drop mesh= or use "
+            "resident='dense'")
+    if isinstance(w, (QT, QT4, QTG)):
+        return type(w)(*(constrain_replicated(p) for p in w))
+    return constrain_replicated(w)
+
+
 def deq(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
+    w = gather_weight(w)
     if isinstance(w, QT):
         return w.q.to(dtype) * w.scale.to(dtype) + w.zero.to(dtype)
     if isinstance(w, QT4):
@@ -215,14 +242,59 @@ def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     :class:`FusedQT` weight decodes inside the fused kernel (plain ``x @ w``
     only, as in the JAX package)."""
     if isinstance(w, FusedQT):
+        gather_weight(w)            # refuses a mesh
         return fused_decode_matmul(x, w)
     return x @ deq(w, x.dtype)
+
+
+def _row_block_entry(w: Any):
+    """The spec entry of a table sharded at rest along its rows only (each
+    sharded part on dim 0 alone, by one entry; the other parts broadcast
+    along rows), else None."""
+    parts = tuple(w) if isinstance(w, (QT, QT4)) else (w,)
+    entries = set()
+    for p in parts:
+        if isinstance(p, Sharded):
+            if any(e is not None for e in p.spec[1:]):
+                return None
+            entries.add(p.spec[0])
+        elif p.dim() and p.shape[0] != 1:
+            return None
+    return entries.pop() if len(entries) == 1 else None
+
+
+def _take_sharded_rows(w: Any, idx: torch.Tensor, mesh,
+                       entry) -> torch.Tensor:
+    """:func:`take_rows` of a table whose rows rest sharded: each rank
+    dequantizes the rows it holds (a clamped index elsewhere) and the
+    ranks' rows are all-gathered, each token taking its owner's.  Pure data
+    movement around the same per-row ops, so the rows are the ones the
+    whole table gives, bit for bit, without gathering the table."""
+    size, rank = block_index(mesh, entry)
+    parts = tuple(w) if isinstance(w, (QT, QT4)) else (w,)
+    local = tuple(p.local if isinstance(p, Sharded) else p for p in parts)
+    n_loc = next(p for p in parts if isinstance(p, Sharded)).local.shape[0]
+    table = type(w)(*local) if isinstance(w, (QT, QT4)) else local[0]
+    rows = take_rows(table, (idx - rank * n_loc).clamp(0, n_loc - 1))
+    every = collectives.all_gather(mesh, rows[None], 0, entry)
+    owner = (idx // n_loc).clamp(max=size - 1)
+    pick = owner.reshape((1,) + owner.shape + (1,)).expand(
+        (1,) + rows.shape)
+    return torch.gather(every, 0, pick)[0]
 
 
 def take_rows(w: Any, idx: torch.Tensor) -> torch.Tensor:
     """Embedding lookup honoring quantized tables (dequantize only gathered
     rows; a :class:`QTG` table's rows go through the straight-through
-    estimator with the master's rows)."""
+    estimator with the master's rows).  A table sharded at rest is
+    gathered first (:func:`gather_weight`), or, when only its rows are
+    sharded, only the looked-up rows are (:func:`_take_sharded_rows`)."""
+    h = get_hints()
+    if h is not None and h.exact_tp and not isinstance(w, QTG):
+        entry = _row_block_entry(w)
+        if entry is not None:
+            return _take_sharded_rows(w, idx, h.mesh, entry)
+    w = gather_weight(w)
     if isinstance(w, QTG):
         scale = w.scale if w.scale.shape[0] == 1 else w.scale[idx]
         zero = w.zero if w.zero.shape[0] == 1 else w.zero[idx]
@@ -342,6 +414,35 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask &= tpos < kv_len
     p = softmax(torch.where(mask, s, NEG_INF))
     return torch.einsum("bnst,btnh->bsnh", p.to(v.dtype), v)
+
+
+def head_block(q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """This rank's block of the q heads and of the KV heads they read, when
+    exact-TP hints split the heads (``head_axes``); all heads otherwise.
+    q head h reads KV head ``h // (H / KV)``, so both blocks are
+    contiguous.  Attention does not mix heads, so attending over the block
+    gives the block of the whole computation."""
+    h = get_hints()
+    if h is None or not h.head_axes:
+        return q, k, v
+    size, idx = block_index(h.mesh, h.head_axes)
+
+    def block(t):
+        n = t.shape[2] // size
+        assert n * size == t.shape[2], (t.shape, h.head_axes)
+        return t[:, :, idx * n:(idx + 1) * n]
+    return block(q), block(k), block(v)
+
+
+def gather_heads(attn: torch.Tensor) -> torch.Tensor:
+    """The (B, S, H, hd) attention output of every head, from this rank's
+    :func:`head_block` of it (an all-gather; the identity when the heads
+    are not split)."""
+    h = get_hints()
+    if h is None or not h.head_axes:
+        return attn
+    return collectives.all_gather(h.mesh, attn, 2, h.head_axes)
 
 
 def _per_slot(a: Any) -> bool:

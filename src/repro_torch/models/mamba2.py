@@ -24,7 +24,7 @@ compression spec must carve them out ahead of any catch-all rule
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -301,6 +301,15 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
 
 
 # ------------------------------------------------------------------------- serving
+
+def cache_specs(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of the state-cache leaves."""
+    return {
+        "conv_x": ("layers", "batch", None, "mlp"),
+        "conv_bc": ("layers", "batch", None, None),
+        "ssm": ("layers", "batch", "heads", None, None),
+    }
+
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:

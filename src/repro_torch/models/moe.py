@@ -9,23 +9,75 @@ experts run as three batched products, and the outputs are gathered back
 and summed one choice at a time.  A choice past its expert's capacity ``C``
 is dropped (``capacity_factor`` sets the drop rate).
 
-The JAX package's expert-parallel branch (a ``shard_map`` over the mesh's
-model axis) is not ported; this is its single-device branch, where the
-whole expert set is local.  Attention, caches, the per-layer weight slots of
-compressed-resident serving and the paged block pool are the dense
-family's.
+Expert parallelism (the JAX package's ``shard_map`` branch): with an
+:class:`EPContext` installed, every rank of the mesh's model axis holds
+``E_loc = E / |model|`` experts (this rank's block of each expert stack)
+and its own tokens, runs the dispatch for its experts only, and the
+partial outputs are summed over the model axis (and over the data axes in
+the weight-stationary layout, whose expert FFN hidden dim shards over
+them).  The sum is a float reduction: EP agrees with one device to a
+tolerance, not bit for bit.  Without a context the whole expert set is
+local.
+
+Under exact-TP serving hints (``ServeSteps`` on a mesh) whose batch rows
+are split over data axes, the feed-forward gathers the rows of the whole
+batch first: the capacity is shared across the batch, so only the whole
+batch routes and drops tokens exactly as one device does.
+
+Attention, caches, the per-layer weight slots of compressed-resident
+serving and the paged block pool are the dense family's.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.ctx import get_hints, local_block, set_hints
 from . import dense
 from .layers import (Schema, Spec, checkpointed, deq, init_params, matmul,
                      rms_norm, silu, softmax, softmax_xent, stacked_layers,
                      swiglu, take_rows, top_k)
+
+# ----------------------------------------------------------------- EP mesh context
+
+
+@dataclasses.dataclass(frozen=True)
+class EPContext:
+    """Installed by the distribution layer; models stay mesh-agnostic
+    without it.  ``mesh`` is this rank's
+    :class:`~repro_torch.launch.mesh.Mesh`; ``batch_sharded=False`` is the
+    weight-stationary layout (every rank of the data axes holds the same
+    tokens and a block of each expert's hidden dim)."""
+    mesh: Any
+    model_axis: str = "model"
+    data_axes: Tuple[str, ...] = ("data",)
+    batch_sharded: bool = True
+
+
+_EP_CTX: list = [None]
+
+
+def set_ep_context(ctx: Optional[EPContext]) -> None:
+    _EP_CTX[0] = ctx
+
+
+def get_ep_context() -> Optional[EPContext]:
+    return _EP_CTX[0]
+
+
+def ep_weight_specs(ctx: EPContext) -> Dict[str, Tuple]:
+    """The specs this rank's expert stacks ``(E, D, F)`` / ``(E, F, D)``
+    are cut by under ``ctx``: experts over the model axis and, in the
+    weight-stationary layout, the hidden dim over the data axes."""
+    f = tuple(ctx.data_axes) if not ctx.batch_sharded and ctx.data_axes \
+        else None
+    return {"w_gate": (ctx.model_axis, None, f),
+            "w_up": (ctx.model_axis, None, f),
+            "w_down": (ctx.model_axis, f, None)}
 
 # ------------------------------------------------------------------------ dispatch
 
@@ -111,11 +163,43 @@ def route(x: torch.Tensor, router: Any,
     return probs, gates, idx
 
 
+def _ep_body(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
+             w_gate, w_up, w_down, *, mesh, model_axis: str, E_loc: int,
+             C: int, psum_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """This rank's experts ``[e0, e0 + E_loc)`` on its tokens, summed over
+    the model axis and ``psum_axes``."""
+    B, S, D = x.shape
+    e0 = mesh.coord[model_axis] * E_loc
+    out = _dispatch_compute(x.reshape(B * S, D), gates.reshape(B * S, -1),
+                            idx.reshape(B * S, -1), w_gate, w_up, w_down,
+                            e0, E_loc, C)
+    return collectives.all_reduce_sum(mesh, out.reshape(B, S, D),
+                                      (model_axis,) + tuple(psum_axes))
+
+
+def _whole_batch(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
+                 E: int, h) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_mlp` of a batch whose rows are split over ``h``'s batch
+    axes: gather the rows (exact), run the whole batch, keep this rank's
+    block of the output."""
+    full = collectives.all_gather(h.mesh, x, 0, h.batch_axes)
+    set_hints(dataclasses.replace(h, batch_axes=()))
+    try:
+        y, aux = moe_mlp(full, wts, mcfg, E)
+    finally:
+        set_hints(h)
+    entry = h.batch_axes if len(h.batch_axes) > 1 else h.batch_axes[0]
+    return local_block(y, (entry,), h.mesh), aux
+
+
 def moe_mlp(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
             n_experts_padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward.  Returns (y, load_balance_aux)."""
     B, S, D = x.shape
     E, K = n_experts_padded, mcfg.top_k
+    h = get_hints()
+    if h is not None and h.exact_tp and h.batch_axes:
+        return _whole_batch(x, wts, mcfg, E, h)
     probs, gates, idx = route(x, wts["router"], K)
 
     # Switch-style load-balance aux: E * sum_e f_e * p_e
@@ -126,10 +210,25 @@ def moe_mlp(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
                             device=x.device)) / (B * S * K)
     aux = E * torch.sum(me * ce)
 
-    C = _capacity(B * S, K, E, mcfg.capacity_factor)
-    y = _dispatch_compute(
-        x.reshape(B * S, D), gates.reshape(-1, K), idx.reshape(-1, K),
-        wts["w_gate"], wts["w_up"], wts["w_down"], 0, E, C).reshape(B, S, D)
+    ctx = get_ep_context()
+    if ctx is None:
+        C = _capacity(B * S, K, E, mcfg.capacity_factor)
+        y = _dispatch_compute(
+            x.reshape(B * S, D), gates.reshape(-1, K), idx.reshape(-1, K),
+            wts["w_gate"], wts["w_up"], wts["w_down"], 0, E,
+            C).reshape(B, S, D)
+    else:
+        # x holds this rank's tokens already: with batch_sharded its block
+        # of the batch (the reference's B // |data|), else the whole batch
+        mesh = ctx.mesh
+        msize = mesh.shape[ctx.model_axis]
+        assert E % msize == 0, (E, msize)
+        stationary = not ctx.batch_sharded and bool(ctx.data_axes)
+        y = _ep_body(x, gates, idx, wts["w_gate"], wts["w_up"],
+                     wts["w_down"], mesh=mesh, model_axis=ctx.model_axis,
+                     E_loc=E // msize,
+                     C=_capacity(B * S, K, E, mcfg.capacity_factor),
+                     psum_axes=tuple(ctx.data_axes) if stationary else ())
     if mcfg.shared_experts:
         y = y + swiglu(x, wts["shared_w_gate"], wts["shared_w_up"],
                        wts["shared_w_down"])
@@ -237,6 +336,7 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
 
 
 init_cache = dense.init_cache
+cache_specs = dense.cache_specs
 
 
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,

@@ -54,7 +54,18 @@ manager lets it skip, and the decode step gathers every slot's sequence
 through ``decode_tables()`` (all-trash rows for lanes not yet live).  With
 bf16 blocks and ``max_len`` a multiple of the block size the tokens equal
 the slot pool's bitwise.  Paged KV rides dense residency on one device, as
-in the JAX package; the port has no mesh.
+in the JAX package.
+
+Multi-device (``mesh``): the slot pool is placed as
+``ServeSteps.cache_shardings(n_slots, layout="slot")`` resolves it — each
+data group holds and steps the block of slots at its coordinate (and,
+for the dense and MoE families, each rank of the model axis its block of
+the KV heads, where whole heads divide it).  Every rank runs the same
+host scheduler and takes the same deterministic decisions; an admitted
+request prefills on the data group that holds its slot, whose first token
+the others receive, and after each decode step the ranks gather every
+slot's token over the data axes, so every rank holds every request's
+output.  Deadlines (a per-rank clock) are refused on a mesh.
 
 Fleet seams (:mod:`repro_torch.serving.fleet`): ``steps=`` shares one
 ``ServeSteps`` across replicas; ``handoff_sink`` (paged engines only) takes
@@ -124,7 +135,7 @@ class ContinuousEngine:
                  steps: Optional[ServeSteps] = None, resident: str = "dense",
                  kv_spec: Optional[KVCompressionSpec] = None,
                  kv_blocks: Optional[int] = None, handoff_sink=None,
-                 device=None):
+                 device=None, mesh=None):
         if not api.supports_continuous_batching(cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r} does not implement the slot-batch "
@@ -155,7 +166,8 @@ class ContinuousEngine:
                 "handoff_sink needs the paged KV cache (kv_spec): the "
                 "disaggregated handoff ships block payloads, and only "
                 "BlockKVManager implements export_blocks")
-        self.device = _device.resolve(device)
+        self.device = _device.resolve(device if mesh is None
+                                      else mesh.device)
         got = _weights_device(params)
         if got.type != self.device.type:
             raise ValueError(f"weights on {got} cannot serve an engine on "
@@ -168,7 +180,8 @@ class ContinuousEngine:
         # sampled; the sink must export_request() the slot
         self.handoff_sink = handoff_sink
         self.steps = steps if steps is not None else \
-            ServeSteps(cfg, sc, resident=resident)
+            ServeSteps(cfg, sc, mesh=mesh, resident=resident)
+        self.mesh = self.steps.mesh
         self.paged = kv_spec is not None
         if self.paged:
             if not api.supports_paged_kv(cfg):
@@ -180,12 +193,21 @@ class ContinuousEngine:
                 raise NotImplementedError(
                     "paged KV needs the dense-residency whole-tree steps; "
                     "serve with resident='dense'")
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "paged KV is single-device today: the block table is a "
+                    "host-side gather index with no sharding rule yet")
             self.slots: Any = BlockKVManager(
                 cfg, n_slots, sc.max_len, spec=kv_spec, n_blocks=kv_blocks,
                 prefill_chunk=prefill_chunk, device=self.device)
         else:
-            self.slots = SlotBatchManager(cfg, n_slots, sc.max_len,
-                                          device=self.device)
+            # on a mesh this rank holds the slot block the resolved "slot"
+            # spec gives its data coordinate
+            self.slots = SlotBatchManager(
+                cfg, n_slots, sc.max_len, device=self.device,
+                rows=self.steps.batch_rows(n_slots, layout="slot"),
+                **self.steps.local_heads_kw)
+        self._slot_axes = self.steps.batch_axes(n_slots, layout="slot")
         self.queue = RequestQueue(max_queue)
         self.prefill_chunk = prefill_chunk
         self.admit_chunks_per_step = admit_chunks_per_step
@@ -212,7 +234,11 @@ class ContinuousEngine:
     def submit_request(self, req: Request) -> Request:
         """Queue a pre-built :class:`Request`.  Raises ``QueueFullError``
         under backpressure and ``ValueError`` when the request cannot fit
-        ``max_len`` on any step."""
+        ``max_len`` on any step (or carries a deadline on a mesh, where
+        each rank's clock would decide its expiry on its own)."""
+        if self.mesh is not None and req.deadline_s is not None:
+            raise ValueError("deadlines are refused on a mesh: every rank "
+                             "must take the same admission decisions")
         P = req.prompt_len
         chunks = -(-P // self.prefill_chunk) * self.prefill_chunk
         need = max(P + req.max_new_tokens, chunks)
@@ -247,10 +273,12 @@ class ContinuousEngine:
             return
         slot = self.slots.alloc(req)
         assert slot is not None, "admission with no free slot"
-        self._prefilling = dict(
-            req=req, slot=slot, toks=toks.to(self.device), c0=0, last=None,
-            scratch=self.steps.mod.init_cache(self.cfg, 1, self.sc.max_len,
-                                              device=self.device))
+        # only the data group holding the slot prefills it
+        scratch = self.steps.mod.init_cache(
+            self.cfg, 1, self.sc.max_len, device=self.device,
+            **self.steps.local_heads_kw) if self.slots.holds(slot) else None
+        self._prefilling = dict(req=req, slot=slot, toks=toks.to(self.device),
+                                c0=0, last=None, scratch=scratch)
 
     def _advance_prefill(self) -> None:
         """Run ONE prefill chunk; on the last chunk, copy the scratch rows
@@ -266,12 +294,14 @@ class ContinuousEngine:
                 logits, self.slots.pool = self.steps.paged_prefill_chunk_fn(
                     self.params, tokens, self.slots.pool,
                     bt.to(self.device, torch.int64), pos)
-            else:
+            elif st["scratch"] is not None:
                 logits, st["scratch"] = self.steps.prefill_chunk_fn(
                     self.params, tokens, st["scratch"], pos)
+            else:
+                logits = None           # another data group's slot
             _fence(self.device)
         self.n_prefill_chunks += 1
-        if c0 <= P - 1 < c0 + chunk:
+        if c0 <= P - 1 < c0 + chunk and logits is not None:
             st["last"] = logits[:, P - 1 - c0][:, None]     # (1, 1, V)
         st["c0"] = c0 + chunk
         if st["c0"] < st["toks"].shape[1]:
@@ -285,7 +315,7 @@ class ContinuousEngine:
         temp = req.sampling.temperature
         gen = torch.Generator(device=self.device)
         gen.manual_seed(req.sampling.seed)
-        tok = int(sample(st["last"], temp, gen)[0])
+        tok = self._first_token(slot, st["last"], temp, gen)
         req.t_first_token = time.monotonic()
         obs_metrics.histogram("request.ttft_s").observe(req.ttft_s or 0.0)
         req.state = RequestState.DECODING
@@ -300,6 +330,23 @@ class ContinuousEngine:
             # the sink exports the slot's KV blocks + sampling lane and the
             # decode side continues from the exact same state
             self.handoff_sink(self, slot, req)
+
+    def _holds(self, slot: int) -> bool:
+        """True when this rank steps ``slot`` (every slot on one device)."""
+        return self.paged or self.slots.holds(slot)
+
+    def _first_token(self, slot: int, last: Optional[torch.Tensor],
+                     temp: float, gen: torch.Generator) -> int:
+        """The request's first token: sampled by the data group holding
+        ``slot`` and, on a mesh, received by every other rank."""
+        tok = int(sample(last, temp, gen)[0]) if self._holds(slot) else 0
+        if not self._slot_axes:
+            return tok
+        from repro_torch.distributed import collectives
+        (axis,) = self._slot_axes
+        n_loc = self.slots.rows.stop - self.slots.rows.start
+        t = torch.tensor([tok], dtype=torch.int64, device=self.device)
+        return int(collectives.pick(self.mesh, t, axis, slot // n_loc)[0])
 
     def _decoding(self) -> List[int]:
         return [s for s, r in enumerate(self.slots.requests)
@@ -346,16 +393,21 @@ class ContinuousEngine:
 
         with obs_trace.span("serve.decode_batch", active=len(active)):
             dev = self.device
-            pos = torch.from_numpy(self.slots.kv_len).to(dev)
-            tok = torch.from_numpy(self._tokens[:, None]).to(dev)
             if self.paged:
+                pos = torch.from_numpy(self.slots.kv_len).to(dev)
+                tok = torch.from_numpy(self._tokens[:, None]).to(dev)
                 bt = torch.from_numpy(self.slots.decode_tables())
                 logits, self.slots.pool = self.steps.paged_decode_fn(
                     self.params, tok, self.slots.pool,
                     bt.to(dev, torch.int64), pos)
             else:
-                logits, self.slots.cache = self.steps.decode_fn(
-                    self.params, tok, self.slots.cache, pos)
+                # this rank's block of slots (every slot on one device)
+                rows = self.slots.rows
+                pos = torch.from_numpy(self.slots.kv_len[rows]).to(dev)
+                tok = torch.from_numpy(self._tokens[rows, None]).to(dev)
+                with self.steps.rows_over(self._slot_axes):
+                    logits, self.slots.cache = self.steps.decode_fn(
+                        self.params, tok, self.slots.cache, pos)
             new_tok = self._sample_slots(logits, active)
         self.n_decode_steps += 1
         obs_metrics.counter("serve.tokens").inc(len(active))
@@ -371,15 +423,20 @@ class ContinuousEngine:
 
     def _sample_slots(self, logits: torch.Tensor,
                       active: List[int]) -> np.ndarray:
-        """(n_slots, 1, V) logits -> (n_slots,) host tokens: argmax for
+        """Logits of this rank's slots -> (n_slots,) host tokens: argmax for
         every lane, then one draw from its own generator for each active
-        sampled lane (greedy lanes never draw)."""
-        out = sample(logits, 0.0).cpu().numpy()
+        sampled lane (greedy lanes never draw); on a mesh the data groups'
+        blocks are gathered into the whole vector."""
+        r0 = 0 if self.paged else self.slots.rows.start
+        out = sample(logits, 0.0)
         for s in active:
-            if self._temps[s] > 0:
-                out[s] = int(sample(logits[s:s + 1], float(self._temps[s]),
-                                    self._gens[s])[0])
-        return out
+            if self._temps[s] > 0 and self._holds(s):
+                out[s - r0] = sample(logits[s - r0:s - r0 + 1],
+                                     float(self._temps[s]), self._gens[s])[0]
+        if self._slot_axes:
+            from repro_torch.distributed import collectives
+            out = collectives.all_gather(self.mesh, out, 0, self._slot_axes)
+        return out.cpu().numpy()
 
     def run(self) -> List[Request]:
         """Drain queue + slots to completion; returns finished requests."""

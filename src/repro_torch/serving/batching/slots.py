@@ -36,17 +36,27 @@ from .request import Request
 
 class SlotBatchManager:
     """Fixed-capacity slotted KV cache + per-slot request bookkeeping, on
-    ``device`` (the caller resolves it; the engine passes its own)."""
+    ``device`` (the caller resolves it; the engine passes its own).
+
+    On a mesh each rank holds the cache rows of its own slots only,
+    ``rows`` (a contiguous block of the pool): the bookkeeping covers every
+    slot, identically on every rank, and ``insert`` / ``release`` touch
+    cache rows only where this rank holds them; ``kv_heads`` sizes the
+    cache for the rank's block of KV heads where the heads split too."""
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
-                 device: torch.device):
+                 device: torch.device, rows: Optional[slice] = None,
+                 kv_heads: Optional[int] = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
+        self.rows = rows if rows is not None else slice(0, n_slots)
+        heads_kw = {} if kv_heads is None else {"kv_heads": kv_heads}
         self.cache: Dict[str, torch.Tensor] = api.build(cfg).init_cache(
-            cfg, n_slots, max_len, device=device)
+            cfg, self.rows.stop - self.rows.start, max_len, device=device,
+            **heads_kw)
         self.kv_len = np.zeros((n_slots,), np.int64)
         self.requests: List[Optional[Request]] = [None] * n_slots
         self._free: List[int] = list(range(n_slots - 1, -1, -1))  # pop() -> 0 first
@@ -59,6 +69,10 @@ class SlotBatchManager:
     @property
     def active(self) -> List[int]:
         return [s for s, r in enumerate(self.requests) if r is not None]
+
+    def holds(self, slot: int) -> bool:
+        """True when this rank holds ``slot``'s cache rows."""
+        return self.rows.start <= slot < self.rows.stop
 
     # ------------------------------------------------------------- lifecycle
     def alloc(self, req: Request) -> Optional[int]:
@@ -77,8 +91,9 @@ class SlotBatchManager:
         ``max_len``) into every row of ``slot``."""
         assert self.requests[slot] is not None, f"insert into free slot {slot}"
         assert kv_len <= self.max_len, (kv_len, self.max_len)
-        for key, c in self.cache.items():
-            c[:, slot].copy_(req_cache[key][:, 0])
+        if self.holds(slot):
+            for key, c in self.cache.items():
+                c[:, slot - self.rows.start].copy_(req_cache[key][:, 0])
         self.kv_len[slot] = kv_len
         obs_metrics.counter("slots.inserts").inc()
 
@@ -91,7 +106,8 @@ class SlotBatchManager:
         self._free.append(slot)
         obs_metrics.counter("slots.releases").inc()
         obs_metrics.gauge("slots.occupied").set(self.n_slots - len(self._free))
-        for c in self.cache.values():
-            c[:, slot].zero_()
+        if self.holds(slot):
+            for c in self.cache.values():
+                c[:, slot - self.rows.start].zero_()
         obs_metrics.counter("slots.compactions").inc()
         return req

@@ -26,9 +26,10 @@ raise when asked for a card that is not there.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +39,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.spec import quantizable_shape as _quantizable_shape
 from repro_torch.core.store import _DEFAULT_CHUNK, CompressedModel
 from repro_torch.models import api
-from repro_torch.models.layers import pack_qt, to_device
+from repro_torch.models.layers import QT, QT4, QTG, pack_qt, to_device
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -68,12 +69,110 @@ class ServeConfig:
     temperature: float = 0.0           # 0 => greedy
 
 
+# ------------------------------------------------------------ multi-device
+
+# the families whose weights rest sharded by exact TP on a mesh and whose
+# attention splits its heads over the model axis; the others keep both whole
+EXACT_TP_FAMILIES = ("dense", "moe")
+
+
+def serve_mesh_rules(cfg: ArchConfig, mesh) -> Any:
+    """The default rule profile for the multi-device serving path: serve
+    rules (weights TP over model + FSDP over data, cache batch / slot over
+    data) with the KV-head divisibility adjustment."""
+    from repro_torch.distributed import sharding as shd
+    return shd.arch_rules(cfg, mesh, shd.serve_rules(mesh))
+
+
+def make_param_placer(cfg: ArchConfig, mesh) -> Callable:
+    """``(name, value) -> placed value`` for the streaming load on ``mesh``
+    (this rank's view of it): each decoded tensor keeps this rank's block
+    (:class:`~repro_torch.distributed.ctx.Sharded`) on ``mesh.device`` the
+    moment it leaves the decoder, so the full tensor is freed chunk by
+    chunk and host memory stays bounded as on one device.  QT / QT4
+    triples get consistent q / scale / zero specs
+    (:func:`repro_torch.distributed.sharding.leaf_shardings`); names the
+    schema does not know replicate.
+
+    The layout is per-tensor output-channel TP over model
+    (:func:`repro_torch.distributed.sharding.serve_tp_table`) for the
+    families whose weight reads gather at use (dense, moe) — the
+    bit-identical profile; other families keep weights replicated (batch
+    and cache still shard over data).  No weight shards over data: a data
+    group that does not hold a slot skips its prefill, so a gather over
+    data would lose its peers.
+    """
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.ctx import shard
+    axes = api.param_specs(cfg)
+    exact_tp = cfg.family in EXACT_TP_FAMILIES
+    replicate_all = shd.Rules({})
+    dev = mesh.device
+
+    def place(name: str, val: Any) -> Any:
+        if name not in axes:
+            return to_device(val, dev)
+        r = (shd.serve_tp_table(cfg, mesh, axes[name]) if exact_tp
+             else replicate_all)
+        spec = shd.leaf_shardings(axes[name], val, r, mesh)
+        if isinstance(val, (QT, QT4, QTG)):
+            return type(val)(*(shard(p, s, mesh).to(dev)
+                               for p, s in zip(val, spec)))
+        return shard(val, spec, mesh).to(dev)
+
+    return place
+
+
+def local_bytes(tree: Any) -> int:
+    """Bytes this rank holds for a placed tree of weights or cache leaves:
+    a sharded leaf counts its block, a replicated one its whole."""
+    from repro_torch.distributed.ctx import Sharded
+    if isinstance(tree, dict):
+        return sum(local_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(local_bytes(v) for v in tree)
+    if isinstance(tree, Sharded):
+        return tree.nbytes
+    return tree.numel() * tree.element_size()
+
+
+def per_device_bytes(tree: Any, mesh) -> Dict[Tuple[int, ...], int]:
+    """Resident bytes per rank for a placed tree, keyed by rank coordinate
+    (``(data, model)``): every rank gives its own and the world gathers
+    them, so every rank of ``mesh`` must call it."""
+    from repro_torch.distributed import collectives
+    got = collectives.gather_object((mesh.key(), local_bytes(tree)))
+    return dict(got)
+
+
+def _batch_entry(specs: Dict[str, Any], cfg: ArchConfig, layout: str):
+    """The mesh axes (a spec entry) the cache's batch / slot dim resolved
+    to, the same for every leaf."""
+    logical = "slot" if layout == "slot" else "batch"
+    got = set()
+    for k, axes in api.cache_specs(cfg, layout=layout).items():
+        d = list(axes).index(logical)
+        got.add(specs[k].padded(len(axes))[d])
+    assert len(got) == 1, f"cache leaves disagree on the {logical} dim: {got}"
+    return got.pop()
+
+
+def row_block(mesh, entry, n: int) -> slice:
+    """The rows of an ``n``-row batch this rank serves when the batch dim
+    resolved to the spec entry ``entry`` (all rows when it is None)."""
+    from repro_torch.distributed.ctx import block_index
+    size, idx = block_index(mesh, entry)
+    step = n // size
+    return slice(idx * step, (idx + 1) * step)
+
+
 def load_params_from_compressed(model: CompressedModel, *,
                                 quantized: bool = True,
                                 backend: Optional[str] = None,
                                 chunk_symbols: Optional[int] = _DEFAULT_CHUNK,
                                 stream: bool = True,
                                 device=None,
+                                placer: Optional[Callable] = None,
                                 metrics: Optional[dict] = None
                                 ) -> Dict[str, Any]:
     """Decode the container into serving weights on ``device``, streaming by
@@ -89,6 +188,12 @@ def load_params_from_compressed(model: CompressedModel, *,
     first; ``stream=False`` decodes everything in one batch.  ``backend`` is
     a decoder-registry name (``numpy`` / ``torch`` / ``cuda``; None = follow
     ``device``).  ``device`` is ``cuda`` unless the caller names the CPU.
+
+    ``placer`` overrides how a decoded tensor becomes a resident one:
+    ``(name, value) -> placed value``, the value a tensor or QT / QT4
+    triple on the host or the decoding device.  :func:`make_param_placer`
+    builds the multi-device one (each rank keeps its block); the default
+    moves the value to ``device``.
 
     When a ``metrics`` dict is passed it is filled with
     ``time_to_first_weight_s`` (start -> first decoded tensor resident),
@@ -110,9 +215,11 @@ def load_params_from_compressed(model: CompressedModel, *,
     else:
         pairs = iter(model.dequantize_all(backend=resolved).items())
 
-    def place(v):
+    def place(name, v):
         if isinstance(v, np.ndarray):
             v = torch.from_numpy(v)
+        if placer is not None:
+            return placer(name, v)
         return to_device(v, dev)
 
     out: Dict[str, Any] = {}
@@ -120,7 +227,7 @@ def load_params_from_compressed(model: CompressedModel, *,
                         stream=stream, quantized=quantized):
         if quantized:
             for k, v in model.unquantized.items():
-                out[k] = place(v)
+                out[k] = place(k, v)
         for name, val in pairs:
             if quantized and name in model.qmeta:
                 q, scale, zero = val
@@ -130,11 +237,12 @@ def load_params_from_compressed(model: CompressedModel, *,
                     # norm scales / biases quantized by an explicit rule, and
                     # per-group scales (which do not broadcast against the
                     # weight), dequantize at load like the JAX package
-                    out[name] = place(model._dequantize_one(name, q))
+                    out[name] = place(name, model._dequantize_one(name, q))
                 else:
-                    out[name] = place(pack_qt(q, scale, zero, bits=bits))
+                    out[name] = place(name, pack_qt(q, scale, zero,
+                                                    bits=bits))
             else:
-                out[name] = place(val)
+                out[name] = place(name, val)
             if ttfw is None:
                 _device.synchronize(dev)
                 ttfw = time.perf_counter() - t0
@@ -197,22 +305,49 @@ class ServeSteps:
     loops keep the step signatures, so :class:`Engine` drives either mode
     unchanged, and greedy decode is bit-identical between the two (the
     per-layer blocks mirror the loop bodies op for op).
+
+    Multi-device: pass ``mesh`` (this rank's
+    :class:`~repro_torch.launch.mesh.Mesh`), and each step runs under
+    exact-TP :class:`~repro_torch.distributed.ctx.ShardingHints`: the
+    weights, placed sharded at rest by :func:`make_param_placer`, are
+    all-gathered at each use, so every op runs at the reference's shapes,
+    except attention: for the
+    :data:`EXACT_TP_FAMILIES` the KV heads split over the model axis as the
+    cache spec resolves them, each rank attends over its block of heads
+    and the outputs are gathered before ``wo`` (attention does not mix
+    heads, so the gathered output is one device's bit for bit).  Engines
+    ask :meth:`cache_shardings` which rows of the batch (or slot pool) this
+    rank serves, and build caches with :attr:`local_heads_kw`.  The hints are
+    installed for the step only, so co-resident single-device work never
+    sees them.  Compressed residency is single-device (``mesh`` must stay
+    None).
     """
 
     def __init__(self, cfg: ArchConfig, sc: ServeConfig, *,
-                 resident: str = "dense"):
+                 mesh=None, resident: str = "dense"):
         if resident not in ("dense", "compressed"):
             raise ValueError(f"resident must be 'dense' or 'compressed', "
                              f"got {resident!r}")
-        if resident == "compressed" and not api.supports_resident_serving(cfg):
-            raise NotImplementedError(
-                f"family {cfg.family!r} does not implement the per-layer "
-                f"weight-slot contract (embed_step / resident_block); "
-                f"supported today: dense, moe")
+        if resident == "compressed":
+            if mesh is not None:
+                raise NotImplementedError(
+                    "compressed-resident serving is single-device (see "
+                    "docs/SERVING.md §\"Which mode when\"); drop mesh= or "
+                    "use resident='dense'")
+            if not api.supports_resident_serving(cfg):
+                raise NotImplementedError(
+                    f"family {cfg.family!r} does not implement the per-layer "
+                    f"weight-slot contract (embed_step / resident_block); "
+                    f"supported today: dense, moe")
         self.cfg = cfg
         self.sc = sc
         self.mod = api.build(cfg)
         self.resident = resident
+        self.mesh = mesh
+        self.rules = None
+        self.head_axes: tuple = ()
+        self.local_heads_kw: dict = {}
+        self._cache_shardings_memo: dict = {}
         # paged twins (the block-pool cache layout, a block table as an
         # extra operand): dense residency only, as in the JAX package
         self.paged_decode_fn = self.paged_prefill_chunk_fn = None
@@ -223,6 +358,99 @@ class ServeSteps:
         elif api.supports_paged_kv(cfg):
             self.paged_decode_fn = self._paged_decode
             self.paged_prefill_chunk_fn = self._paged_prefill_chunk
+        self._row_axes: tuple = ()
+        if mesh is not None:
+            from repro_torch.distributed import sharding as shd
+            rules = serve_mesh_rules(cfg, mesh)
+            if cfg.family in EXACT_TP_FAMILIES:
+                # the mesh axes the KV heads split over, as the cache's
+                # "kv" dim resolves (none unless whole heads divide them)
+                self.head_axes = shd.entry_axes(shd.resolve_spec(
+                    ("kv",), (cfg.n_kv_heads,), rules, mesh).padded(1)[0])
+            else:       # this family's attention keeps every head
+                rules = shd.Rules(dict(rules.table, kv=None))
+            self.rules = rules
+            if self.head_axes:
+                self.local_heads_kw = {"kv_heads": cfg.n_kv_heads //
+                                       shd.mesh_prod(mesh, self.head_axes)}
+            scoped = self._scoped(mesh)
+            self.prefill_fn = scoped(self.prefill_fn)
+            self.decode_fn = scoped(self.decode_fn)
+            self.prefill_chunk_fn = scoped(self.prefill_chunk_fn)
+            if self.paged_decode_fn is not None:
+                self.paged_decode_fn = scoped(self.paged_decode_fn)
+                self.paged_prefill_chunk_fn = scoped(
+                    self.paged_prefill_chunk_fn)
+
+    @contextlib.contextmanager
+    def rows_over(self, axes: tuple):
+        """Steps called inside take batch rows split over the mesh ``axes``
+        (this rank's block; ``()`` for rows every rank of the data axes
+        holds alike): the hints say so to the layers whose semantics span
+        the whole batch (the MoE dispatch's shared capacity), which gather
+        the rows they need."""
+        prev, self._row_axes = self._row_axes, tuple(axes)
+        try:
+            yield
+        finally:
+            self._row_axes = prev
+
+    def _scoped(self, mesh) -> Callable:
+        """Wrap a step so it runs under the exact-TP hints (weights gathered
+        at use, attention over this rank's heads, no activation
+        constraint), restoring whatever hints were installed before."""
+        from repro_torch.distributed.ctx import (ShardingHints, get_hints,
+                                                 set_hints)
+
+        def scoped(fn):
+            def run(*args):
+                prev = get_hints()
+                set_hints(ShardingHints(
+                    mesh=mesh, batch_axes=self._row_axes, model_axis=None,
+                    kv_seq_axes=(), seq_sp=False, exact_tp=True,
+                    head_axes=self.head_axes))
+                try:
+                    return fn(*args)
+                finally:
+                    set_hints(prev)
+            return run
+        return scoped
+
+    def cache_shardings(self, batch: int, *, layout: str = "batch",
+                        **cache_kw) -> Optional[dict]:
+        """The specs of this config's cache as each rank holds it on the
+        serve mesh (None on one device), memoized by shape and options: the
+        batch / slot rows over data and, for the :data:`EXACT_TP_FAMILIES`,
+        the KV heads over model where whole heads divide it (the serve
+        rules' resolution; other families' heads stay whole)."""
+        if self.mesh is None:
+            return None
+        key = (batch, layout, tuple(sorted(cache_kw.items())))
+        if key not in self._cache_shardings_memo:
+            from repro_torch.distributed import sharding as shd
+            self._cache_shardings_memo[key] = shd.cache_shardings(
+                self.cfg, self.mesh, self.rules, batch, self.sc.max_len,
+                layout=layout, **cache_kw)
+        return self._cache_shardings_memo[key]
+
+    def batch_rows(self, batch: int, *, layout: str = "batch") -> slice:
+        """The rows of a ``batch``-row cache this rank holds and steps: the
+        block of the batch / slot dim at this rank's coordinate over the
+        axes it resolved to (every row on one device)."""
+        if self.mesh is None:
+            return slice(0, batch)
+        entry = _batch_entry(self.cache_shardings(batch, layout=layout),
+                             self.cfg, layout)
+        return row_block(self.mesh, entry, batch)
+
+    def batch_axes(self, batch: int, *, layout: str = "batch") -> tuple:
+        """The mesh axes the batch / slot dim of a ``batch``-row cache
+        shards over (empty on one device or when it replicates)."""
+        if self.mesh is None:
+            return ()
+        from repro_torch.distributed.sharding import entry_axes
+        return entry_axes(_batch_entry(
+            self.cache_shardings(batch, layout=layout), self.cfg, layout))
 
     def prefill_fn(self, params, prompt: torch.Tensor):
         return self.mod.prefill(self.cfg, params, prompt,
@@ -297,12 +525,14 @@ class Engine:
     CompressedResidentWeights` as ``params``."""
 
     def __init__(self, cfg: ArchConfig, params: Any, sc: ServeConfig, *,
-                 device=None, resident: str = "dense"):
+                 device=None, resident: str = "dense", mesh=None):
         self.cfg = cfg
         self.params = params
         self.sc = sc
-        self.device = _device.resolve(device)
-        self.steps = ServeSteps(cfg, sc, resident=resident)
+        self.device = _device.resolve(device if mesh is None
+                                      else mesh.device)
+        self.steps = ServeSteps(cfg, sc, mesh=mesh, resident=resident)
+        self.cache_bytes = 0
 
     @torch.inference_mode()
     def generate(self, prompt, steps: int, *, seed: int = 0,
@@ -310,12 +540,26 @@ class Engine:
         """prompt: (B, S) int tokens (tensor or array), or for encdec the
         batch dict ``{"tokens": (B, S), "src_embeds": (B, S_src, D)}``.
         Returns (B, steps) int32 tokens on the engine's device (and the
-        metrics view when ``echo_metrics``)."""
-        dev = self.device
-        sync: Callable[[], None] = lambda: _device.synchronize(dev)
-        prompt = lockstep_batch(prompt, dev)
+        metrics view when ``echo_metrics``).
+
+        On a mesh every rank passes the whole batch, serves the rows of it
+        the resolved cache spec gives its data coordinate, and returns the
+        whole ``(B, steps)`` array, gathered over the data axes."""
+        prompt = lockstep_batch(prompt, self.device)
         B, S = (prompt["tokens"] if isinstance(prompt, dict)
                 else prompt).shape
+        rows, axes = self.steps.batch_rows(B), self.steps.batch_axes(B)
+        if rows != slice(0, B):
+            prompt = ({k: v[rows] for k, v in prompt.items()}
+                      if isinstance(prompt, dict) else prompt[rows])
+        with self.steps.rows_over(axes):
+            return self._generate(prompt, B, S, axes, steps, seed,
+                                  echo_metrics)
+
+    def _generate(self, prompt, B: int, S: int, axes: tuple, steps: int,
+                  seed: int, echo_metrics: bool):
+        dev = self.device
+        sync: Callable[[], None] = lambda: _device.synchronize(dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         t0 = time.perf_counter()
@@ -340,6 +584,10 @@ class Engine:
                 _fence(dev)
             step_hist.observe(time.perf_counter() - ts)
         out = torch.cat(toks, dim=1)
+        if axes:                    # the other data groups' rows
+            from repro_torch.distributed import collectives
+            out = collectives.all_gather(self.steps.mesh, out, 0, axes)
+        self.cache_bytes = local_bytes(cache)
         sync()
         t_decode = time.perf_counter() - t1
         decode_tps = B * max(steps - 1, 1) / max(t_decode, 1e-9)

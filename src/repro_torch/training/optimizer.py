@@ -256,3 +256,27 @@ def apply_updates(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
 
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_params, OptState(step, new_m, new_v), metrics
+
+
+def state_shardings(cfg: AdamWConfig, param_shapes: Dict[str, Any],
+                    opt_shardings: Dict[str, Any]) -> OptState:
+    """Specs shaped like :func:`init_state`'s tree.
+
+    fp32 moments take the ZeRO specs (``opt_shardings``, a spec a
+    parameter); quantized moments keep the parameter's shape (and so its
+    spec), with the per-channel scale / zero dropping whatever the spec put
+    on the last axis."""
+    from repro_torch.distributed.sharding import P
+
+    def moment_spec(name, spec):
+        if not (cfg.quantized_state and _use_q8(param_shapes[name])):
+            return spec
+        entries = list(P(*spec).padded(len(param_shapes[name])))
+        entries[-1] = None                      # scale / zero last dim is 1
+        while entries and entries[-1] is None:
+            entries.pop()
+        sspec = P(*entries)
+        return Q8Moment(spec, sspec, sspec)
+
+    m = {n: moment_spec(n, opt_shardings[n]) for n in opt_shardings}
+    return OptState(P(), m, dict(m))

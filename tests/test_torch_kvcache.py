@@ -777,7 +777,8 @@ def test_launcher_serves_and_refuses_paged_flags(capsys):
             (["--batch-slots", "2", "--prefix-sharing", "--kv-block", "8",
               "--prefill-chunk", "12"], "divisible"),
             (["--batch-slots", "2", "--kv-spec", "bits=5"], "bad --kv-spec"),
-            (["--batch-slots", "2", "--mesh", "2x1"], "not ported")):
+            (["--batch-slots", "2", "--kv-spec", "bits=8", "--mesh", "2x1"],
+             "paged KV (--kv-spec) is single-device today; drop --mesh")):
         with pytest.raises(SystemExit):
             tserve.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
         assert err in capsys.readouterr().err, flags

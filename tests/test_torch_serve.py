@@ -193,7 +193,7 @@ def test_launcher_monolithic_numpy_dense_load(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--fused-impl=pallas", "--production",
-                                  "--multi-pod", "--mesh=1x1"])
+                                  "--multi-pod", "--shape=decode_32k"])
 def test_launcher_refuses_flags_not_ported_yet(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tserve.main(["--arch", "qwen3-1.7b", "--device", "cpu", flag])
