@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --train-only`` builds the kernels and runs phase
-10 alone, a quicker rehearsal of it; it prints no result line.)
+10 alone, a quicker rehearsal of it; ``--production-only`` runs phase 11
+alone; neither prints a result line.)
 
 Phases, each printing one JSON line:
 
@@ -232,6 +233,24 @@ Phases, each printing one JSON line:
    (one step of the reduced qwen3-1.7b and qwen2-moe-a2.7b on the card
    and on the CPU: ``TRAIN_REF``, router choices compared).
 
+11. production — the production dry-run (``launch/dryrun.py``) and its
+   check on the card.  (a) Every applicable cell of ``PROD_ARCHS`` on the
+   16 x 16 mesh, dry-run on the host in ``PROD_WORKERS`` processes while
+   the card works: one ``production`` line a cell (per-rank arguments and
+   peak, ``fits``, the three H100-priced terms, ``dominant``,
+   ``flops_ratio``).  (b) qwen3-1.7b whole on the card at 1 x 1 (one data
+   rank's share of a 16 x 16 cell with ``model`` at 1): ``prefill_32k`` at
+   one row in query blocks of 1,024 and ``decode_32k`` at 8 rows over a
+   32,768-row cache, each dry-run and run (``dryrun.run_on_device``): the
+   measured step and ``max_memory_allocated`` beside the predicted
+   ``step_s`` and peak, which must be within ``PROD_PEAK_RTOL``; logits
+   finite.  (c) One ``mesh`` line (``run`` ``train``): qwen3-1.7b at full
+   width cut to ``PROD_TRAIN["layers"]`` layers trained
+   ``PROD_TRAIN["steps"]`` steps on ``PROD_TRAIN_MESH`` gloo ranks sharing
+   the card, against the single-device step on the card
+   (``PROD_TRAIN_TOL``).  No kernel runs on this path: launch counts are
+   zeroed before the phase and must read 0 after it.
+
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
 compressed-resident run; ``launches_paged``: on the paged phase, 0;
@@ -240,7 +259,8 @@ compressed-resident run; ``launches_paged``: on the paged phase, 0;
 ``launches_moe``: on the moe phase's dense-resident load and generate and
 on its compressed-resident generate; ``launches_ssm`` /
 ``launches_encdec``: on those phases' load and generate; ``launches_train``:
-on the train phase's entro restore), and as the last line
+on the train phase's entro restore; ``launches_production``: on the
+production phase, 0), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits nonzero; without a CUDA device it exits 1 and prints no result.
 """
@@ -452,6 +472,19 @@ ENTRO_STEPS = 3
 # card against CPU, one step: the CPU tests' tolerances
 # (tests/test_torch_train_loss*.py)
 TRAIN_REF = dict(loss=2e-3, rel_l2=5e-2, cos=0.995)
+# the production phase (11): the archs whose cells it dry-runs on the host,
+# the card's cells (shape, rows) at 1 x 1 and the tolerance of the predicted
+# peak against max_memory_allocated; the mesh train line's world, size and
+# tolerances (tests/test_torch_train_mesh.py's)
+PROD_ARCHS = ("qwen3-1.7b", "mamba2-370m")
+PROD_WORKERS = 4
+PROD_DRYRUN_TIMEOUT_S = 600
+PROD_CARD = (("prefill_32k", 1), ("decode_32k", 8))
+PROD_DECODE_STEPS = 3
+PROD_PEAK_RTOL = 0.15
+PROD_TRAIN_MESH = (1, 2)
+PROD_TRAIN = dict(layers=2, batch=4, seq_len=128, steps=2)
+PROD_TRAIN_TOL = dict(loss=2e-3, grad_norm=2e-3, update=0.1)
 # the op behind a gradient that is not bitwise from run to run
 NONDETERMINISTIC_OPS = {
     "embed": "the embedding gradient's accumulating scatter (take_rows: "
@@ -3419,6 +3452,186 @@ def mesh_moe_phase(cfg, prompt, tokens):
     return got[0]["launches"]
 
 
+# ------------------------------------------------------------- production
+
+def production_cells():
+    """Every applicable (arch, shape) of ``PROD_ARCHS``, as ``all_cells``
+    lists them."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import specs
+    return [(a, s) for a, s, ok in specs.all_cells(
+        {a: registry.get(a) for a in PROD_ARCHS}) if ok]
+
+
+def dryrun_cell(cell):
+    """One cell's dry-run on the 16 x 16 mesh (a pool worker's task)."""
+    from repro_torch.launch import dryrun
+    return dryrun.run_cell(*cell, verbose=False)
+
+
+def production_card(dev):
+    """(b): each ``PROD_CARD`` cell dry-run and run on the card; the
+    predicted peak within ``PROD_PEAK_RTOL`` of the measured one."""
+    import torch
+    from repro_torch.launch import dryrun
+    for shape, batch in PROD_CARD:
+        torch.cuda.empty_cache()
+        steps = 1 if shape.startswith("prefill") else PROD_DECODE_STEPS
+        d = dryrun.run_on_device("qwen3-1.7b", shape, device=dev,
+                                 batch=batch, steps=steps)
+        pred, got = d["memory_analysis"]["peak"], d["measured_peak"]
+        emit("production", run="card", arch=d["arch"], shape=shape,
+             mesh=d["mesh"], rows=batch, q_block=d["meta"].get("q_block"),
+             step_ms=[t * 1e3 for t in d["measured_step_s"]],
+             predicted_step_ms=d["step_s"] * 1e3, dominant=d["dominant"],
+             compute_ms=d["compute_s"] * 1e3, memory_ms=d["memory_s"] * 1e3,
+             collective_ms=d["collective_s"] * 1e3,
+             flops=d["flops_per_chip"], flops_ratio=d["flops_ratio"],
+             argument_bytes=d["memory_analysis"]["argument_size"],
+             predicted_peak_bytes=pred, max_memory_allocated=got,
+             peak_rel_err=(pred - got) / got, peak_rtol=PROD_PEAK_RTOL,
+             logits_shape=list(d["logits_shape"]),
+             logits_finite=d["logits_finite"])
+        if not d["logits_finite"]:
+            raise AssertionError(f"production {shape}: logits not finite")
+        if abs(pred - got) > PROD_PEAK_RTOL * got:
+            raise AssertionError(f"production {shape}: predicted peak {pred} "
+                                 f"against {got} measured")
+
+
+def production_train_rank(mesh, cfg, tokens):
+    """(c), one rank: ``PROD_TRAIN["steps"]`` steps of the mesh train step
+    from seeded params; rank 0 then runs the single-device steps on the card
+    from the same params and compares (the update's relative L2 a leaf)."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.models import api
+    from repro_torch.training import optimizer as opt, train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = mesh.device
+    params = api.build(cfg).init(cfg, 0, dev)
+    tc = train_loop.TrainConfig(opt=opt.AdamWConfig(schedule=opt.Schedule(
+        base_lr=1e-3, warmup_steps=1, total_steps=4)))
+    batches = [{"tokens": torch.as_tensor(t, device=dev)} for t in tokens]
+    collectives.reset_counts()
+    step = train_loop.make_train_step(cfg, tc, mesh)
+    placed, state = train_loop.shard_train_state(cfg, tc, params, mesh)
+    out = dict(coord=mesh.key(), losses=[], grad_norms=[], step_s=[])
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed, state, m = step(placed, state, train_loop.shard_batch(b,
+                                                                     mesh))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out["collectives"] = dict(collectives.counts)
+    got = train_loop.gather_params(placed, mesh)
+    del placed, state
+    if mesh.rank == 0:
+        ref = train_loop.make_train_step(cfg, tc)
+        p, s = params, opt.init_state(tc.opt, params)
+        out["single_losses"], out["single_grad_norms"] = [], []
+        for b in batches:
+            p, s, m = ref(p, s, b)
+            out["single_losses"].append(float(m["loss"]))
+            out["single_grad_norms"].append(float(m["grad_norm"]))
+        out["update_rel_l2"] = max(
+            float(torch.linalg.vector_norm((got[n] - p[n]).float())
+                  / torch.linalg.vector_norm((p[n] - params[n]).float()))
+            for n in p)
+        del p, s
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def production_train():
+    """(c): the mesh train line, asserted within ``PROD_TRAIN_TOL`` of the
+    single-device steps."""
+    import numpy as np
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b"),
+                              n_layers=PROD_TRAIN["layers"])
+    rng = np.random.default_rng(0)
+    tokens = [rng.integers(0, cfg.vocab, (PROD_TRAIN["batch"],
+                                          PROD_TRAIN["seq_len"] + 1))
+              for _ in range(PROD_TRAIN["steps"])]
+    got, wall = mesh_spawn(production_train_rank, PROD_TRAIN_MESH,
+                           (cfg, tokens))
+    r0 = got[0]
+    tol = PROD_TRAIN_TOL
+    for r in got:
+        for k, want in (("losses", "single_losses"),
+                        ("grad_norms", "single_grad_norms")):
+            lim = tol["loss" if k == "losses" else "grad_norm"]
+            for a, b in zip(r[k], r0[want]):
+                if abs(a - b) > lim * abs(b):
+                    raise AssertionError(f"mesh train rank {r['coord']}: "
+                                         f"{k} {r[k]}, one device {r0[want]}")
+    if not r0["update_rel_l2"] <= tol["update"]:
+        raise AssertionError(f"mesh train: update rel L2 "
+                             f"{r0['update_rel_l2']} over {tol['update']}")
+    emit("mesh", run="train", mesh=list(PROD_TRAIN_MESH), ranks=len(got),
+         backend=MESH_BACKEND, arch=cfg.name, layers=cfg.n_layers,
+         batch=PROD_TRAIN["batch"], seq_len=PROD_TRAIN["seq_len"],
+         shared_card="every rank on cuda:0 over gloo: not a multi-card "
+                     "figure",
+         losses=[r["losses"] for r in got], grad_norms=r0["grad_norms"],
+         single_losses=r0["single_losses"],
+         single_grad_norms=r0["single_grad_norms"],
+         update_rel_l2=r0["update_rel_l2"], tol=tol,
+         step_s=[r["step_s"] for r in got],
+         collectives=[r["collectives"] for r in got],
+         peak_bytes=[r["peak_bytes"] for r in got], wall_s=wall,
+         rank_wall_s=[r["wall_s"] for r in got])
+
+
+def production_phase(dev):
+    """Phase 11: (a) in a pool of host processes while the card runs (b)
+    and (c).  Returns the kernels' launches on the path (all 0)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    pool = cf.ProcessPoolExecutor(PROD_WORKERS,
+                                  mp_context=mp.get_context("spawn"))
+    try:
+        futs = [(c, pool.submit(dryrun_cell, c)) for c in production_cells()]
+        for k in build.launches:
+            build.launches[k] = 0
+        production_card(dev)
+        production_train()
+        launches = dict(build.launches)
+        cells = [(c, f.result(timeout=PROD_DRYRUN_TIMEOUT_S))
+                 for c, f in futs]
+    except BaseException:
+        for p in list((pool._processes or {}).values()):
+            p.kill()
+        raise
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for (arch, shape), d in cells:
+        ma = d["memory_analysis"]
+        emit("production", run="dryrun", arch=arch, shape=shape,
+             mesh=d["mesh"], kind=d["kind"], args_bytes=ma["argument_size"],
+             peak_bytes=ma["peak"], fits=d["fits"],
+             compute_ms=d["compute_s"] * 1e3, memory_ms=d["memory_s"] * 1e3,
+             collective_ms=d["collective_s"] * 1e3, dominant=d["dominant"],
+             flops_ratio=d["flops_ratio"], step_ms=d["step_s"] * 1e3,
+             collective_counts=d["collective_detail"]["counts"],
+             kv_seq_reference=d["meta"].get("kv_seq_reference"),
+             kv_port=d["meta"].get("kv_port"), host_s=d["run_s"])
+    if any(launches.values()):
+        raise AssertionError(f"the production path launched kernels: "
+                             f"{launches}")
+    emit("production", run="phase", seconds=time.perf_counter() - t0,
+         cells=len(cells))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3508,6 +3721,10 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     t0 = time.perf_counter()
     train_launches = train_phase(dev)
     train_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    production_launches = production_phase(dev)
+    production_s = time.perf_counter() - t0
     for row in rows:
         row["launches_continuous"] = continuous_launches.get(row["name"], 0)
         row["launches_paged"] = paged_launches.get(row["name"], 0)
@@ -3519,11 +3736,13 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
         for family, got in family_launches.items():
             row[f"launches_{family}"] = got.get(row["name"], 0)
         row["launches_train"] = train_launches.get(row["name"], 0)
+        row["launches_production"] = production_launches.get(row["name"], 0)
     emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
          paged_phase_s=paged_s, fleet_phase_s=fleet_s, mesh_phase_s=mesh_s,
          resident_phase_s=resident_s,
          moe_phase_s=moe_s, families_phase_s=families_s,
-         train_phase_s=train_s, script_s=time.perf_counter() - START)
+         train_phase_s=train_s, production_phase_s=production_s,
+         script_s=time.perf_counter() - START)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3552,7 +3771,28 @@ def train_only():
     return 0
 
 
+def production_only():
+    """``chip_smoke.py --production-only``: the production phase alone
+    (prints no result line)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build  # noqa: F401
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi("name,power.limit"), flush=True)
+    t0 = time.perf_counter()
+    launches = production_phase(torch.device("cuda"))
+    emit("done", production_phase_s=time.perf_counter() - t0,
+         launches_production=launches, script_s=time.perf_counter() - START)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--production-only"]:
+        sys.exit(production_only())
     if sys.argv[1:2] == ["--containers"]:
         write_containers(sys.argv[2], sys.argv[3:])
         sys.exit(0)

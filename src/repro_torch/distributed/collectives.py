@@ -12,19 +12,62 @@ all-gather and the all-reduce (checked on torch 2.11 with ranks sharing
 one H100), so the port stages nothing through the host itself (the
 backend copies as it needs).  :data:`counts` counts the calls that reach
 the wire, which the smoke's ``mesh`` lines report.
+
+Inside :func:`recording` every such call is also recorded: its kind, its
+output bytes, the size of its group and whether the group stays inside one
+node of ``launch.mesh.GPUS_PER_NODE`` cards (ranks numbered row-major over
+the mesh axes, as ``init_device_mesh`` numbers them).  The dry-run prices
+the records (``launch/roofline.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import contextlib
+from typing import Any, Dict, Iterator, List, Optional
 
 import torch
 
 counts: Dict[str, int] = {"all_gather": 0, "all_reduce": 0}
 
+_RECORDS: List[Optional[list]] = [None]
+
 
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[list]:
+    """Record every collective that reaches the wire inside the block, as
+    dicts ``{"kind", "bytes", "group", "intra_node"}`` (``kind``
+    ``"all-gather"`` or ``"all-reduce"``, ``bytes`` the output's)."""
+    prev, _RECORDS[0] = _RECORDS[0], []
+    try:
+        yield _RECORDS[0]
+    finally:
+        _RECORDS[0] = prev
+
+
+def axis_ranks(mesh, axis: str) -> List[int]:
+    """The world ranks of this rank's group along ``axis`` (the ranks that
+    differ from it only there), numbered row-major over the mesh axes."""
+    stride = 1
+    for a in reversed(mesh.axis_names):
+        if a == axis:
+            break
+        stride *= mesh.shape[a]
+    base = mesh.rank - mesh.coord[axis] * stride
+    return [base + i * stride for i in range(mesh.shape[axis])]
+
+
+def _record(kind: str, mesh, axis: str, t: torch.Tensor) -> None:
+    if _RECORDS[0] is None:
+        return
+    from repro_torch.launch.mesh import GPUS_PER_NODE
+    nodes = {r // GPUS_PER_NODE for r in axis_ranks(mesh, axis)}
+    _RECORDS[0].append({"kind": kind, "bytes": t.numel() * t.element_size(),
+                        "group": mesh.shape[axis],
+                        "intra_node": len(nodes) == 1})
 
 
 def _axes(axes) -> tuple:
@@ -42,9 +85,20 @@ def all_gather(mesh, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
         counts["all_gather"] += 1
         import torch.distributed as dist
         src = t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=mesh.groups[a])
-        t = torch.cat(parts, dim=dim)
+        if mesh.backend == "fake":
+            # a dry-run's world moves nothing: one buffer is all it needs
+            # (the fake backend's list form costs ~10 ms a call)
+            import warnings
+            buf = src.new_empty((n,) + tuple(src.shape))
+            with warnings.catch_warnings():   # renamed in newer torch
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.all_gather_into_tensor(buf, src, group=mesh.groups[a])
+            t = torch.cat(buf.unbind(0), dim=dim)
+        else:
+            parts = [torch.empty_like(src) for _ in range(n)]
+            dist.all_gather(parts, src, group=mesh.groups[a])
+            t = torch.cat(parts, dim=dim)
+        _record("all-gather", mesh, a, t)
     return t
 
 
@@ -52,6 +106,13 @@ def all_reduce_sum(mesh, t: torch.Tensor, axes) -> torch.Tensor:
     """The sum of ``t`` over the ranks along ``axes`` (one axis after the
     other), returned as a new tensor.  A float sum: its rounding depends on
     the backend's order, so callers hold it to a tolerance."""
+    return all_reduce(mesh, t, axes, "sum")
+
+
+def all_reduce(mesh, t: torch.Tensor, axes, op: str) -> torch.Tensor:
+    """``t`` reduced by ``op`` (``"sum"``, ``"min"`` or ``"max"``) over the
+    ranks along ``axes``, returned as a new tensor (``t`` itself when every
+    axis has one rank).  ``min`` and ``max`` are exact."""
     out = t
     for a in _axes(axes):
         if mesh.shape[a] == 1:
@@ -59,7 +120,9 @@ def all_reduce_sum(mesh, t: torch.Tensor, axes) -> torch.Tensor:
         counts["all_reduce"] += 1
         import torch.distributed as dist
         out = out.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.groups[a])
+        dist.all_reduce(out, op=getattr(dist.ReduceOp, op.upper()),
+                        group=mesh.groups[a])
+        _record("all-reduce", mesh, a, out)
     return out
 
 

@@ -11,6 +11,11 @@ full tensor bit for bit and rounds exactly like one device.  Attention may
 also split its heads (``head_axes``): each rank attends over its block and
 the blocks are gathered, which no head's result depends on.
 
+The gather is differentiable (training on a mesh): its backward sums the
+full gradient over ``grad_axes`` — the data axes, whose ranks computed on
+different batch rows — and keeps this rank's block.  Ranks along the model
+axis computed the same rows, so their gradients are not summed.
+
 The JAX package's activation constraints (``constrain_heads``,
 ``constrain_scores``, ``constrain_activation``) are compiler annotations
 that only the lowered production cells take; they are not ported here.
@@ -38,6 +43,9 @@ class ShardingHints:
     head_axes: Tuple[str, ...] = ()           # exact TP: attention heads
     #   split over these axes; each rank attends over its block of heads
     #   (its KV cache holds only those) and the outputs are gathered
+    grad_axes: Tuple[str, ...] = ()           # training: a gathered
+    #   weight's gradient is summed over these axes before the rank keeps
+    #   its block
 
 
 _HINTS: list = [None]
@@ -136,17 +144,35 @@ def shard(t: torch.Tensor, spec: Sequence, mesh):
     return Sharded(local_block(t, entries, mesh).clone(), entries)
 
 
+class _GatherAtUse(torch.autograd.Function):
+    """All-gather a block along each sharded dim of ``spec`` (forward); sum
+    the full gradient over ``grad_axes`` and keep this rank's block
+    (backward)."""
+
+    @staticmethod
+    def forward(ctx, local, spec, mesh, grad_axes):
+        from . import collectives
+        ctx.spec, ctx.mesh, ctx.grad_axes = spec, mesh, grad_axes
+        out = local
+        for d, e in enumerate(spec):
+            if e is not None:
+                out = collectives.all_gather(mesh, out, d, e)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import collectives
+        g = collectives.all_reduce_sum(ctx.mesh, g, ctx.grad_axes)
+        return local_block(g, ctx.spec, ctx.mesh).clone(), None, None, None
+
+
 def constrain_replicated(x: Any) -> Any:
-    """Exact sharded serving: gather a :class:`Sharded` weight to every rank
-    of its axes at its use site — an all-gather along each sharded dim, the
-    full tensor bit for bit.  Anything else passes through, as it does with
+    """Exact sharded serving and training: gather a :class:`Sharded` weight
+    to every rank of its axes at its use site — an all-gather along each
+    sharded dim, the full tensor bit for bit (differentiable: see
+    :class:`_GatherAtUse`).  Anything else passes through, as it does with
     no ``exact_tp`` hints installed."""
     h = get_hints()
     if h is None or not h.exact_tp or not isinstance(x, Sharded):
         return x
-    from . import collectives
-    out = x.local
-    for d, e in enumerate(x.spec):
-        if e is not None:
-            out = collectives.all_gather(h.mesh, out, d, e)
-    return out
+    return _GatherAtUse.apply(x.local, x.spec, h.mesh, h.grad_axes)

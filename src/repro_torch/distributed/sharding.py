@@ -47,6 +47,13 @@ class P(tuple):
         """The spec's entries padded with ``None`` to ``ndim``."""
         return tuple(self) + (None,) * (ndim - len(self))
 
+    def trimmed(self) -> "P":
+        """The spec with its trailing ``None`` entries dropped."""
+        e = list(self)
+        while e and e[-1] is None:
+            e.pop()
+        return P(*e)
+
 
 def _as_tuple(a: AxesSpec) -> Tuple[str, ...]:
     if a is None:

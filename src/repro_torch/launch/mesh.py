@@ -16,9 +16,17 @@ it.  :func:`spawn` starts a world of ``data x model`` ranks on this host
 rendezvous in a temporary directory, so concurrent worlds never race for a
 port), joins every rank with a time limit, and raises if any rank fails or
 hangs.
+
+The production meshes of the dry-run are :func:`make_production_mesh`'s:
+16 x 16 ``("data", "model")`` or 2 x 16 x 16 ``("pod", "data", "model")``,
+over a world that :func:`fake_world` sets up in this one process (the
+``fake`` backend: collectives return at once and move nothing), rank 0's
+view, on the ``meta`` device.  The hardware constants below price the
+dry-run's roofline (``launch/roofline.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import queue as _queue
@@ -31,6 +39,19 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import torch
 
 BACKENDS = ("nccl", "gloo")
+
+# NVIDIA H100 SXM5 80GB at its 700 W limit, the card the port runs on:
+PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor-core FLOP/s (data sheet)
+HBM_BW = 3.35e12                  # HBM3 bytes/s (data sheet)
+# torch.cuda.get_device_properties(0).total_memory of the H100 80GB HBM3
+# (700 W) as chip_smoke.py reads it
+HBM_PER_CHIP = 85_017_493_504
+GPUS_PER_NODE = 8                 # H100 SXM5 cards a node, NVLink all to all
+NVLINK_BW = 450e9                 # bytes/s per direction a card, in a node
+IB_BW = 50e9                      # InfiniBand NDR bytes/s a card, across nodes
+
+PRODUCTION_AXES = {False: ("data", "model"), True: ("pod", "data", "model")}
+PRODUCTION_SHAPES = {False: (16, 16), True: (2, 16, 16)}
 
 
 def parse_mesh_spec(spec: str) -> Tuple[int, int]:
@@ -74,13 +95,30 @@ def _check(data: int, model: int, backend: str) -> None:
                          f"{backend!r}")
 
 
+def _device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], *,
+                 device, backend: str) -> Mesh:
+    """A :class:`Mesh` of ``shape`` over the initialized world (one rank a
+    position), built with ``init_device_mesh``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    # the DeviceMesh's device type only labels it: "cpu" keeps it from
+    # binding ranks to cards, which ranks sharing one card must not do
+    dm = init_device_mesh("cuda" if backend == "nccl" else "cpu", shape,
+                          mesh_dim_names=names)
+    coord = {a: int(dm.get_local_rank(a)) for a in names}
+    return Mesh(axis_names=names, shape=dict(zip(names, shape)),
+                coord=coord, groups={a: dm.get_group(a) for a in names},
+                backend=backend, device=torch.device(device),
+                rank=dist.get_rank(), world=dist.get_world_size(),
+                device_mesh=dm)
+
+
 def make_serve_mesh(data: int, model: int, *, device,
                     backend: str) -> Mesh:
     """The ``(data, model)`` serving mesh over the initialized world
     (``data * model`` ranks, one process each), built with
     ``init_device_mesh``.  Every rank of the world must call it."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     _check(data, model, backend)
     if not dist.is_initialized():
         raise RuntimeError("make_serve_mesh needs an initialized process "
@@ -89,28 +127,67 @@ def make_serve_mesh(data: int, model: int, *, device,
     if world != need:
         raise ValueError(f"--mesh {data}x{model} needs {need} ranks but the "
                          f"world has {world}")
-    dev = torch.device(device)
-    # the DeviceMesh's device type only labels it: "cpu" keeps it from
-    # binding ranks to cards, which ranks sharing one card must not do
-    dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
-                          (data, model), mesh_dim_names=("data", "model"))
-    names = ("data", "model")
-    coord = {a: int(dm.get_local_rank(a)) for a in names}
-    return Mesh(axis_names=names, shape={"data": data, "model": model},
-                coord=coord, groups={a: dm.get_group(a) for a in names},
-                backend=backend, device=dev, rank=dist.get_rank(),
-                world=world, device_mesh=dm)
+    return _device_mesh((data, model), ("data", "model"), device=device,
+                        backend=backend)
 
 
-def make_host_mesh(*, model: int = 1, device="cpu",
+def make_host_mesh(*, model: int = 1, device=None,
                    backend: str = "gloo") -> Mesh:
     """The mesh of whatever world this process belongs to, ``model`` ranks
-    along the model axis and the rest along data."""
+    along the model axis and the rest along data; on the card unless the
+    caller names the CPU."""
     import torch.distributed as dist
+    from repro_torch import device as _device
     n = dist.get_world_size()
     assert n % model == 0, (n, model)
-    return make_serve_mesh(n // model, model, device=device,
-                           backend=backend)
+    return make_serve_mesh(n // model, model,
+                           device=_device.resolve(device), backend=backend)
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """A world of ``world`` ranks in this process, as rank 0, on the
+    ``fake`` backend (its collectives return at once and move nothing):
+    what a dry-run builds its production mesh over.  The process group is
+    destroyed on exit; an initialized one is refused."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is initialized "
+                           "already")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> Mesh:
+    """The production mesh, rank 0's view: 16 x 16 ``("data", "model")``,
+    or 2 x 16 x 16 ``("pod", "data", "model")`` with ``multi_pod``, over
+    the initialized world of 256 or 512 ranks (:func:`fake_world`).  Its
+    device is ``meta`` unless the caller names another."""
+    return make_mesh(PRODUCTION_SHAPES[multi_pod],
+                     PRODUCTION_AXES[multi_pod], device=device)
+
+
+def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], *,
+              device="meta") -> Mesh:
+    """A mesh of ``shape`` (axes ``names``) over the initialized world of
+    exactly that many ranks, for a dry-run (``fake`` backend)."""
+    import math
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized process group "
+                           "(mesh.fake_world)")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
+                         f"{math.prod(shape)} ranks but the world has "
+                         f"{dist.get_world_size()}")
+    return _device_mesh(tuple(shape), tuple(names), device=device,
+                        backend="fake")
 
 
 # ---------------------------------------------------------------- spawning

@@ -63,16 +63,20 @@ split over data, and greedy tokens equal one device's:
 
 It serves the reduced variant of ``--arch`` (``registry.reduced``), like the
 JAX launcher; ``chip_smoke.py`` drives the full width.  Runs on the card
-unless ``--device cpu`` is given.  The JAX launcher's production modes
-(production shapes, multi-pod) are not ported yet and their flags exit
-with a message saying so.
+unless ``--device cpu`` is given.
+
+``--production`` dry-runs the full config's serving step of ``--shape``
+(default ``decode_32k``) on the 16 x 16 production mesh (``--multi-pod``:
+2 x 16 x 16, memory only), priced on H100 terms (``launch/dryrun.py``; it
+runs on the host, on ``meta`` tensors):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --production --shape decode_32k
 """
 import argparse
 import sys
 import time
 
-# flags of the JAX launcher whose serving modes the port does not have yet
-_NOT_PORTED_FLAGS = ("--production", "--shape", "--multi-pod")
 # a spawned world that has not finished in this time is stopped
 MESH_TIMEOUT_S = 3600.0
 
@@ -181,14 +185,29 @@ def main(argv=None):
     p.add_argument("--trace-sync", action="store_true",
                    help="synchronize the device inside spans so durations "
                         "measure device time, not launch enqueue")
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in _NOT_PORTED_FLAGS:
-            p.error(f"{flag} is not ported yet (the PyTorch port serves "
-                    f"lockstep and continuous batches, dense or compressed "
-                    f"resident, paged KV and fleets of replicas on one "
-                    f"device, and one engine over a --mesh of ranks)")
+    p.add_argument("--production", action="store_true",
+                   help="dry-run the full config's serving step on the "
+                        "production mesh (launch/dryrun.py)")
+    p.add_argument("--shape", default=None,
+                   choices=("prefill_32k", "decode_32k", "long_500k"),
+                   help="with --production: the input shape (default "
+                        "decode_32k)")
+    p.add_argument("--multi-pod", action="store_true",
+                   help="with --production: the 2x16x16 mesh, memory only")
     args = p.parse_args(argv)
+    if args.production:
+        if args.mesh:
+            p.error("--production dry-runs its own production mesh; drop "
+                    "--mesh")
+        from repro_torch.launch import dryrun
+        d = dryrun.run_cell(args.arch, args.shape or "decode_32k",
+                            multi_pod=args.multi_pod,
+                            compile_only=args.multi_pod)
+        return 0 if "error" not in d else 1
+    for flag, given in (("--shape", args.shape is not None),
+                        ("--multi-pod", args.multi_pod)):
+        if given:
+            p.error(f"{flag} applies to --production only")
     args.mesh_dims = None
     if args.mesh:
         from repro_torch.launch.mesh import parse_mesh_spec

@@ -1,0 +1,380 @@
+"""Cell builders: (architecture x input shape x mesh) -> this rank's step
+(PyTorch port of ``repro/launch/specs.py``).
+
+``build_cell`` returns what ``dryrun.py`` runs for one roofline cell: the
+step function (the train step, the serving prefill or one decode step, by
+the shape's kind) and its arguments as this rank holds them — ``meta``
+tensors in rank 0's shard shapes on the production mesh, so nothing is
+allocated.  :meth:`Cell.materialize` makes the same arguments real on a
+device (random values from a seed), which is how the card runs a cell that
+the dry-run priced.
+
+Placement is the port's, through ``distributed/sharding.py`` (whose specs
+equal the reference's on the production meshes):
+
+* weights rest as the reference's rules resolve them — serving cells by
+  the serve rules with the KV-head adjustment, train cells by the ZeRO
+  (optimizer-state) rules, where the fp32 moments rest too — and are
+  all-gathered at their use (exact TP, ``layers.gather_weight``);
+* batch rows split over the data axes; the KV cache as the serving engine
+  places it (``ServeSteps.cache_shardings``: rows over data, and for the
+  dense and MoE families the KV heads over model where whole heads divide
+  it, every head on every rank otherwise).  The reference would shard the
+  cache's sequence axis over model instead (``_serve_rules``); that
+  resolution is recorded in the cell's ``meta`` beside the port's.
+
+Weight formats for serving cells: ``bf16``, ``int8`` (QT triples, uint8
+symbols dequantized at use) and ``int4`` (QT4, nibbles packed along the
+last axis).  Training always uses the schema dtypes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
+from repro_torch.core.spec import quantizable_shape
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.ctx import Sharded, local_block, shard
+from repro_torch.models import api
+from repro_torch.models.layers import QT, QT4
+from repro_torch.serving import engine
+from repro_torch.training import optimizer as opt, train_loop
+
+# Activation budget for choosing grad-accum microbatching (bytes per chip of
+# saved layer carries; remat recomputes everything else).
+ACT_BUDGET = 2 << 30
+# Optimizer-moment format switches to EntroLLM-uint8 above this param count.
+Q8_OPT_THRESHOLD = 100e9
+# query-block length of the long-sequence cells' attention
+Q_BLOCK = 1024
+LONG_SEQ = 8192
+
+
+@dataclasses.dataclass
+class Cell:
+    cfg: ArchConfig
+    shape: ShapeConfig
+    mesh: Any
+    fn: Callable
+    args: Tuple[Any, ...]
+    meta: Dict[str, Any]
+
+    def run(self):
+        return self.fn(*self.args)
+
+    def materialize(self, device, seed: int = 0) -> Tuple[Any, ...]:
+        """The arguments made real on ``device``: random symbols and
+        weights of the published init scale (norms one), tokens below the
+        vocabulary, zero caches; ints pass through."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return tuple(_real(a, "", self.cfg, device, gen) for a in self.args)
+
+
+_CACHE_LEAVES = ("k", "v", "xk", "xv", "conv_x", "conv_bc", "ssm")
+
+
+def _zeros(x: Any) -> Any:
+    if isinstance(x, dict):
+        return {k: _zeros(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_zeros(v) for v in x))
+    return torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _real(x: Any, name: str, cfg: ArchConfig, device, gen) -> Any:
+    if isinstance(x, opt.OptState):
+        return _zeros(opt.OptState(*(_to(v, device) for v in x)))
+    if isinstance(x, dict):
+        return {k: _real(v, k, cfg, device, gen) for k, v in x.items()}
+    if isinstance(x, (QT, QT4)):
+        # symbols uniform over the grid, mapped onto [-0.02, 0.02]
+        q = _real(x.q, name, cfg, device, gen)
+        qmax = 255 if isinstance(x, QT) else 15
+        scale = torch.full(x.scale.shape, 0.04 / qmax, dtype=x.scale.dtype,
+                           device=device)
+        zero = torch.full(x.zero.shape, -0.02, dtype=x.zero.dtype,
+                          device=device)
+        return type(x)(q, scale, zero)
+    if isinstance(x, Sharded):
+        return Sharded(_real(x.local, name, cfg, device, gen), x.spec)
+    if not isinstance(x, torch.Tensor):
+        return x
+    if x.dtype in (torch.int32, torch.int64, torch.uint8):
+        high = 256 if x.dtype == torch.uint8 else cfg.vocab
+        return torch.randint(0, high, x.shape, generator=gen,
+                             device=device, dtype=torch.int32).to(x.dtype)
+    if name in _CACHE_LEAVES:
+        return torch.zeros(x.shape, dtype=x.dtype, device=device)
+    if "norm" in name or name.endswith("D_skip"):
+        return torch.ones(x.shape, dtype=x.dtype, device=device)
+    w = torch.randn(x.shape, generator=gen, device=device,
+                    dtype=torch.float32)
+    return (0.02 * w).to(x.dtype)
+
+
+def _to(x: Any, device) -> Any:
+    """A tree of ``meta`` leaves as empty tensors on ``device``."""
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_to(v, device) for v in x))
+    return torch.empty(x.shape, dtype=x.dtype, device=device)
+
+
+# ------------------------------------------------------------------ utilities
+
+def _batch_ways(mesh) -> int:
+    n = 1
+    for a in ("pod", "data"):
+        if a in mesh.shape:
+            n *= mesh.shape[a]
+    return n
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _place(t: torch.Tensor, spec, mesh):
+    """``t`` (``meta``) as this rank holds it under ``spec``."""
+    return shard(t, tuple(spec) + (None,) * (t.dim() - len(spec)), mesh)
+
+
+def param_structs(cfg: ArchConfig, mesh, rules: shd.Rules,
+                  weights: str = "bf16") -> Tuple[Dict, Dict]:
+    """(this rank's parameters as ``meta`` values, their specs): a tensor,
+    a :class:`~repro_torch.distributed.ctx.Sharded` block, or a QT / QT4
+    triple of them.  Quantized triples shard their symbols like the weight
+    and replicate the per-layer scale and zero, as the reference does."""
+    sch = api.build(cfg).schema(cfg)
+    structs: Dict[str, Any] = {}
+    specs: Dict[str, Any] = {}
+    for name, spec in sch.items():
+        ps = shd.resolve_spec(spec.axes, spec.shape, rules, mesh)
+        if weights == "bf16" or not quantizable_shape(name, spec.shape):
+            structs[name] = _place(_meta(spec.shape, spec.dtype), ps, mesh)
+            specs[name] = ps
+            continue
+        # per-layer (axis-0 channel) scales: broadcastable against q
+        sshape = (spec.shape[0],) + (1,) * (len(spec.shape) - 1)
+        s = _meta(sshape, torch.float32)
+        if weights == "int8":
+            structs[name] = QT(_place(_meta(spec.shape, torch.uint8), ps,
+                                      mesh), s, s.clone())
+            specs[name] = QT(ps, shd.P(), shd.P())
+        elif weights == "int4":
+            pshape = spec.shape[:-1] + (spec.shape[-1] // 2,)
+            pps = shd.resolve_spec(spec.axes, pshape, rules, mesh)
+            structs[name] = QT4(_place(_meta(pshape, torch.uint8), pps,
+                                       mesh), s, s.clone())
+            specs[name] = QT4(pps, shd.P(), shd.P())
+        else:
+            raise ValueError(weights)
+    return structs, specs
+
+
+def _serve_rules(cfg: ArchConfig, mesh, *, long_context: bool
+                 ) -> Tuple[shd.Rules, Tuple[str, ...]]:
+    """The reference's arch-aware serving rules: shard KV-cache heads over
+    model when they divide it, otherwise shard the cache sequence axis over
+    model (the flash-decoding layout).  Returns (rules, kv_seq axes).  The
+    port places weights by these rules; its cache follows the serving
+    engine's placement, and ``kv_seq`` is recorded beside it."""
+    table = dict(shd.serve_rules(mesh, long_context=long_context).table)
+    if long_context:
+        kv_seq = tuple(a for a in ("pod", "data") if a in mesh.shape)
+        table["kv"] = "model" if shd.kv_divisible(cfg, mesh) else None
+        table["kv_seq"] = kv_seq
+        return shd.Rules(table), kv_seq
+    if shd.kv_divisible(cfg, mesh):
+        table["kv"] = "model"
+        table["kv_seq"] = ()
+        return shd.Rules(table), ()
+    table["kv"] = None
+    table["kv_seq"] = "model"
+    return shd.Rules(table), ("model",)
+
+
+def _batch_struct(cfg: ArchConfig, B: int, S: int, *, train: bool) -> Dict:
+    toks = _meta((B, S + 1 if train else S), torch.int32)
+    if cfg.family == "encdec":
+        return {"tokens": toks,
+                "src_embeds": _meta((B, S, cfg.d_model), torch.bfloat16)}
+    return {"tokens": toks}
+
+
+def _local_rows(batch: Dict[str, torch.Tensor], mesh, rules: shd.Rules
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of each batch leaf (``batch_sharding``'s spec)."""
+    return {k: local_block(v, shd.batch_sharding(mesh, rules, v.shape)
+                           .padded(v.dim()), mesh).clone()
+            for k, v in batch.items()}
+
+
+def pick_microbatches(cfg: ArchConfig, shape: ShapeConfig, mesh) -> int:
+    """Smallest grad-accum split whose saved layer carries fit ACT_BUDGET."""
+    ways = _batch_ways(mesh)
+    B_loc = max(1, shape.global_batch // ways)
+    D = cfg.d_model
+    L = cfg.n_layers
+    carry = L * shape.seq_len * D * 2            # bytes per local batch row
+    target = max(1, int(ACT_BUDGET // max(carry, 1)))
+    mb = 1
+    while B_loc // mb > target and mb < B_loc:
+        mb *= 2
+    # every microbatch must cover the batch mesh axes
+    return min(mb, max(shape.global_batch // ways, 1))
+
+
+def _names(meta: Dict[str, Any], mesh) -> Dict[str, Any]:
+    return dict(meta, mesh="x".join(str(mesh.shape[a])
+                                    for a in mesh.axis_names))
+
+
+# ---------------------------------------------------------------- cell builds
+
+def build_train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
+                     microbatches: Optional[int] = None) -> Cell:
+    """The train step of this rank: params and fp32 (or, from
+    ``Q8_OPT_THRESHOLD`` parameters, uint8) moments in their ZeRO blocks,
+    the batch's rows over data, remat on, attention in query blocks past
+    ``LONG_SEQ``."""
+    q8 = cfg.param_count() >= Q8_OPT_THRESHOLD
+    mb = microbatches or pick_microbatches(cfg, shape, mesh)
+    tc = train_loop.TrainConfig(
+        opt=opt.AdamWConfig(quantized_state=q8),
+        grad_accum_dtype="bf16" if q8 else "f32",
+        microbatches=mb, remat=True,
+        q_block=Q_BLOCK if shape.seq_len > LONG_SEQ else 0)
+    specs = train_loop.train_shardings(cfg, mesh)
+    sch = api.build(cfg).schema(cfg)
+    params = {n: _place(_meta(s.shape, s.dtype), specs[n], mesh)
+              for n, s in sch.items()}
+    local = {n: p.local if isinstance(p, Sharded) else p
+             for n, p in params.items()}
+    ostate = opt.init_state(tc.opt, local,
+                            shapes={n: s.shape for n, s in sch.items()})
+    rules = shd.arch_rules(cfg, mesh, shd.train_rules(mesh))
+    batch = _local_rows(_batch_struct(cfg, shape.global_batch,
+                                      shape.seq_len, train=True), mesh, rules)
+    fn = train_loop.make_train_step(cfg, tc, mesh)
+    return Cell(cfg=cfg, shape=shape, mesh=mesh, fn=fn,
+                args=(params, ostate, batch),
+                meta=_names({"kind": "train", "microbatches": mb,
+                             "q8_opt": q8, "weights": "bf16",
+                             "q_block": tc.q_block,
+                             "param_rules": "opt_state"}, mesh))
+
+
+def _cache_struct(cfg: ArchConfig, steps, B: int, S: int):
+    """This rank's ``meta`` cache of a ``B``-row batch, placed as the
+    serving engine places it (rows over data, KV heads over model where the
+    family splits them)."""
+    full = api.build(cfg).init_cache(cfg, B, S, device="meta")
+    specs = steps.cache_shardings(B)
+    return {k: local_block(v, specs[k].padded(v.dim()), steps.mesh).clone()
+            for k, v in full.items()}, specs
+
+
+def _port_kv(specs: Dict[str, Any]) -> str:
+    """The port's cache placement in one word a dim of the ``k`` leaf."""
+    if "k" not in specs:
+        return "-"
+    e = specs["k"].padded(5)
+    return ",".join("-" if x is None else
+                    "+".join(shd.entry_axes(x)) for x in e)
+
+
+def build_prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
+                       weights: str = "int8") -> Cell:
+    rules, kv_seq = _serve_rules(cfg, mesh, long_context=False)
+    rules = shd.arch_rules(cfg, mesh, rules)
+    B, S = shape.global_batch, shape.seq_len
+    sc = engine.ServeConfig(max_len=S,
+                            q_block=Q_BLOCK if S > LONG_SEQ else 0)
+    params, _ = param_structs(cfg, mesh, rules, weights)
+    steps = engine.ServeSteps(cfg, sc, mesh=mesh)
+    if cfg.family == "encdec":
+        prompt = _local_rows(_batch_struct(cfg, B, S, train=False), mesh,
+                             rules)
+    else:
+        prompt = _local_rows({"tokens": _meta((B, S), torch.int32)}, mesh,
+                             rules)["tokens"]
+    axes = steps.batch_axes(B)
+
+    def prefill_step(p, prompt):
+        with steps.rows_over(axes):
+            return steps.prefill_fn(p, prompt)
+
+    specs = steps.cache_shardings(B) if cfg.family != "ssm" else {}
+    return Cell(cfg=cfg, shape=shape, mesh=mesh, fn=prefill_step,
+                args=(params, prompt),
+                meta=_names({"kind": "prefill", "weights": weights,
+                             "q_block": sc.q_block,
+                             "kv_seq_reference": "+".join(kv_seq) or "-",
+                             "kv_port": _port_kv(specs)}, mesh))
+
+
+def build_decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
+                      weights: str = "int8", serve_mode: str = "fsdp",
+                      kv_bits: int = 16) -> Cell:
+    """One decode step at the last position of a full ``S``-row cache.
+
+    ``serve_mode="fsdp"``: weights at rest by the serve rules, gathered at
+    use; rows over data.  ``serve_mode="stationary"`` (the reference's
+    weight-stationary decode) needs activation layouts the port does not
+    have yet and raises."""
+    if serve_mode != "fsdp":
+        raise NotImplementedError(
+            f"serve_mode={serve_mode!r}: the weight-stationary decode needs "
+            f"the activation-constraint counterparts (sharded compute "
+            f"layouts), the port's next slice (ROADMAP queue 1); only "
+            f"'fsdp' is ported")
+    if kv_bits != 16:
+        raise NotImplementedError("the dry-run's decode cells take the bf16 "
+                                  "cache (kv_bits=16)")
+    long_context = shape.name == "long_500k"
+    rules, kv_seq = _serve_rules(cfg, mesh, long_context=long_context)
+    rules = shd.arch_rules(cfg, mesh, rules)
+    B, S = shape.global_batch, shape.seq_len
+    sc = engine.ServeConfig(max_len=S)
+    params, _ = param_structs(cfg, mesh, rules, weights)
+    steps = engine.ServeSteps(cfg, sc, mesh=mesh)
+    cache, cspecs = _cache_struct(cfg, steps, B, S)
+    token = _local_rows({"t": _meta((B, 1), torch.int32)}, mesh,
+                        rules)["t"]
+    axes = steps.batch_axes(B)
+
+    def serve_step(p, token, cache, pos):
+        with steps.rows_over(axes):
+            return steps.decode_fn(p, token, cache, pos)
+
+    return Cell(cfg=cfg, shape=shape, mesh=mesh, fn=serve_step,
+                args=(params, token, cache, S - 1),
+                meta=_names({"kind": "decode", "weights": weights,
+                             "kv_bits": kv_bits, "serve_mode": serve_mode,
+                             "long_context": long_context,
+                             "kv_seq_reference": "+".join(kv_seq) or "-",
+                             "kv_port": _port_kv(cspecs)}, mesh))
+
+
+def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
+               weights: str = "int8", **kw) -> Cell:
+    if shape.kind == "train":
+        return build_train_cell(cfg, shape, mesh, **kw)
+    if shape.kind == "prefill":
+        return build_prefill_cell(cfg, shape, mesh, weights=weights, **kw)
+    return build_decode_cell(cfg, shape, mesh, weights=weights, **kw)
+
+
+def all_cells(archs: Dict[str, ArchConfig]) -> list:
+    """The 40 assigned cells as (arch_name, shape_name, applicable)."""
+    out = []
+    for a, cfg in archs.items():
+        for s, sc in SHAPES.items():
+            out.append((a, s, sc.applicable(cfg)))
+    return out

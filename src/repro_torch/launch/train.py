@@ -1,19 +1,24 @@
-"""Training launcher of the PyTorch port (``repro/launch/train.py``'s default
-mode): real steps of the reduced config of ``--arch`` on one device, with
-the data pipeline, AdamW, checkpoints and watchdogs.
+"""Training launcher of the PyTorch port (``repro/launch/train.py``).
+
+Two modes:
+
+* default — real steps of the reduced config of ``--arch`` on one device,
+  with the data pipeline, AdamW, checkpoints and watchdogs; on the card
+  unless ``--device cpu`` is given;
+* ``--production`` — the dry-run of the full config's train step of
+  ``--shape`` (default ``train_4k``) on the 16 x 16 production mesh
+  (``--multi-pod``: 2 x 16 x 16, memory only), priced on H100 terms
+  (``launch/dryrun.py``; on the host, on ``meta`` tensors).
+
+Examples::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 50 [--device cpu]
-
-Training runs on the card unless ``--device cpu`` is given.  The JAX
-launcher's ``--production`` / ``--multi-pod`` / ``--shape`` (the dry-run of
-the full config on a production mesh) are not ported and are refused.
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --production --shape train_4k
 """
 import argparse
 import sys
-
-# flags of the JAX launcher whose modes the port does not have yet
-_NOT_PORTED_FLAGS = ("--production", "--multi-pod", "--shape")
 
 
 def main(argv=None):
@@ -32,13 +37,26 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device to train on (default: cuda; raises "
                         "when no card is present)")
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in _NOT_PORTED_FLAGS:
-            p.error(f"{flag} is not ported yet (the PyTorch port trains the "
-                    f"reduced config on one device; the production dry-run "
-                    f"waits for the dry-run / roofline item)")
+    p.add_argument("--production", action="store_true",
+                   help="dry-run the full config's train step on the "
+                        "production mesh (launch/dryrun.py)")
+    p.add_argument("--shape", default=None,
+                   help="with --production: the input shape (default "
+                        "train_4k)")
+    p.add_argument("--multi-pod", action="store_true",
+                   help="with --production: the 2x16x16 mesh, memory only")
     args = p.parse_args(argv)
+
+    if args.production:
+        from repro_torch.launch import dryrun
+        d = dryrun.run_cell(args.arch, args.shape or "train_4k",
+                            multi_pod=args.multi_pod,
+                            compile_only=args.multi_pod)
+        return 0 if "error" not in d else 1
+    for flag, given in (("--shape", args.shape is not None),
+                        ("--multi-pod", args.multi_pod)):
+        if given:
+            p.error(f"{flag} applies to --production only")
 
     from repro_torch import device as _device
     from repro_torch.checkpoint.checkpointer import (CheckpointConfig,

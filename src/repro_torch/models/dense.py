@@ -93,7 +93,8 @@ def _qkv(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, positions):
 
 
 def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
-          cache: Optional[Tuple[torch.Tensor, ...]] = None, pos: Any = 0):
+          cache: Optional[Tuple[torch.Tensor, ...]] = None, pos: Any = 0,
+          q_block: int = 0):
     """Attention sub-block; returns (out, (k, v) or the cache).
 
     Without ``cache`` the block attends causally over ``x`` and returns the
@@ -103,14 +104,15 @@ def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
     for the int8 cache, which quantizes the step's rows before the write
     and dequantizes the whole cache for the attention.  ``pos`` is an int
     (lockstep batch) or a ``(B,)`` tensor (slot batch, one independent
-    position a row).
+    position a row).  ``q_block`` chunks the queries of the cache-less
+    path (:func:`layers.gqa_attention`).
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     # on a mesh whose heads split: this rank's heads (the cache holds them)
     q, k, v = head_block(*_qkv(cfg, lp, x, positions))
     if cache is None:
-        attn = gqa_attention(q, k, v, causal=True)
+        attn = gqa_attention(q, k, v, causal=True, q_block=q_block)
         kv = (k, v)
     elif len(cache) == 4:
         kq, ks = quantize_kv(k)
@@ -130,8 +132,10 @@ def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
     return out, kv
 
 
-def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0):
-    attn_out, kv = _attn(cfg, lp, x, positions=positions, cache=cache, pos=pos)
+def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0,
+           q_block: int = 0):
+    attn_out, kv = _attn(cfg, lp, x, positions=positions, cache=cache, pos=pos,
+                         q_block=q_block)
     x = x + attn_out
     h = rms_norm(x, lp["mlp_norm"])
     x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
@@ -139,16 +143,19 @@ def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0):
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            remat: bool = False, collect_cache: bool = False):
+            remat: bool = False, collect_cache: bool = False,
+            q_block: int = 0):
     """Full-sequence forward.  Returns (hidden, [(k, v) per layer] | None).
 
     ``remat`` recomputes each layer in the backward (the JAX package's
-    ``jax.checkpoint`` of the scan body)."""
+    ``jax.checkpoint`` of the scan body); ``q_block`` chunks attention's
+    queries."""
     S = tokens.shape[1]
     x = take_rows(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)
     block = checkpointed(
-        lambda lp, x: _block(cfg, lp, x, positions=positions), remat)
+        lambda lp, x: _block(cfg, lp, x, positions=positions,
+                             q_block=q_block), remat)
     caches = []
     for lp in stacked_layers(params, "layers", cfg.n_layers):
         x, kv = block(lp, x)
@@ -168,20 +175,12 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
             q_block: int = 0) -> torch.Tensor:
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the first
     S - 1 tokens predict the last S - 1.  The JAX package's ``unroll`` is a
-    scan knob with no eager counterpart; its query-block chunking
-    (``q_block``) is not ported."""
-    _no_q_block(q_block)
+    scan knob with no eager counterpart; ``q_block`` chunks attention's
+    queries."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    x, _ = forward(cfg, params, inp, remat=remat)
+    x, _ = forward(cfg, params, inp, remat=remat, q_block=q_block)
     return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
-
-
-def _no_q_block(q_block: int) -> None:
-    if q_block:
-        raise NotImplementedError(
-            "q_block > 0 (query-block attention chunking) is not ported; it "
-            "waits for the dry-run / roofline item (ROADMAP queue 1)")
 
 
 # ------------------------------------------------------------------------- serving
@@ -230,9 +229,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, q_block: int = 0):
     """Run the prompt; return (last-position logits, cache padded to max_len)."""
-    x, caches = forward(cfg, params, tokens, collect_cache=True)
+    x, caches = forward(cfg, params, tokens, collect_cache=True,
+                        q_block=q_block)
     cache = _prefill_cache(cfg, caches, max_len or tokens.shape[1])
     logits = logits_fn(cfg, params, x[:, -1:, :])
     return logits, cache
@@ -328,11 +328,11 @@ def head_step(cfg: ArchConfig, params, x: torch.Tensor, *,
 
 
 def resident_prefill_block(cfg: ArchConfig, lp, x: torch.Tensor, *,
-                           positions: torch.Tensor):
+                           positions: torch.Tensor, q_block: int = 0):
     """One `forward`-collect-cache iteration: full causal attention over the
     prompt, returning the layer's (k, v) for the caller to write into the
     cache at its layer row."""
-    return _block(cfg, lp, x, positions=positions)
+    return _block(cfg, lp, x, positions=positions, q_block=q_block)
 
 
 def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int,

@@ -79,7 +79,7 @@ def _layer(params: Dict[str, Any], prefix: str, l: int) -> Dict[str, Any]:
 
 
 def _self_attn(cfg: ArchConfig, lp, x: torch.Tensor, *, positions,
-               causal: bool, cache=None, pos=None):
+               causal: bool, cache=None, pos=None, q_block: int = 0):
     """Self-attention with its residual: bidirectional (encoder) or causal
     (decoder prefill) over ``x``, returning the layer's (k, v); with a
     ``cache`` (a decode step) the step's (k, v) are written in place at
@@ -93,7 +93,7 @@ def _self_attn(cfg: ArchConfig, lp, x: torch.Tensor, *, positions,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        attn = gqa_attention(q, k, v, causal=causal)
+        attn = gqa_attention(q, k, v, causal=causal, q_block=q_block)
         new_cache = (k, v)
     else:
         update_kv_cache(cache[0], cache[1], k, v, pos)
@@ -103,14 +103,16 @@ def _self_attn(cfg: ArchConfig, lp, x: torch.Tensor, *, positions,
     return x + matmul(attn.reshape(B, S, H * hd), lp["wo"]), new_cache
 
 
-def _cross_attn(cfg: ArchConfig, lp, x: torch.Tensor, enc_kv) -> torch.Tensor:
+def _cross_attn(cfg: ArchConfig, lp, x: torch.Tensor, enc_kv,
+                q_block: int = 0) -> torch.Tensor:
     """Cross-attention with its residual; ``enc_kv``: the encoder output's
     (k, v), each (B, S_src, KV, hd), fixed through decode."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.hd
     h = rms_norm(x, lp["norm"])
     q = matmul(h, lp["wq"]).reshape(B, S, H, hd)
-    attn = gqa_attention(q, enc_kv[0], enc_kv[1], causal=False)
+    attn = gqa_attention(q, enc_kv[0], enc_kv[1], causal=False,
+                         q_block=q_block)
     return x + matmul(attn.reshape(B, S, H * hd), lp["wo"])
 
 
@@ -128,14 +130,16 @@ def _mlp(lp, x: torch.Tensor) -> torch.Tensor:
 
 
 def encode(cfg: ArchConfig, params, src_embeds: torch.Tensor, *,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, q_block: int = 0) -> torch.Tensor:
     """The bidirectional encoder over precomputed frontend embeddings;
-    ``remat`` recomputes each layer in the backward."""
+    ``remat`` recomputes each layer in the backward; ``q_block`` chunks
+    attention's queries."""
     S = src_embeds.shape[1]
     positions = torch.arange(S, device=src_embeds.device)
 
     def body(lp_sa, lp_ml, x):
-        x, _ = _self_attn(cfg, lp_sa, x, positions=positions, causal=False)
+        x, _ = _self_attn(cfg, lp_sa, x, positions=positions, causal=False,
+                          q_block=q_block)
         return _mlp(lp_ml, x)
 
     body = checkpointed(body, remat)
@@ -153,15 +157,15 @@ def decode_train(cfg: ArchConfig, params, tokens: torch.Tensor,
     """The decoder over a whole target prefix (teacher forcing): causal
     self-attention, cross-attention to ``enc_out``, the MLP, each layer;
     returns the final-normed hidden state."""
-    from .dense import _no_q_block
-    _no_q_block(q_block)
     S = tokens.shape[1]
     x = take_rows(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)
 
     def body(lp_sa, lp_ca, lp_ml, x):
-        x, _ = _self_attn(cfg, lp_sa, x, positions=positions, causal=True)
-        x = _cross_attn(cfg, lp_ca, x, _cross_kv(cfg, lp_ca, enc_out))
+        x, _ = _self_attn(cfg, lp_sa, x, positions=positions, causal=True,
+                          q_block=q_block)
+        x = _cross_attn(cfg, lp_ca, x, _cross_kv(cfg, lp_ca, enc_out),
+                        q_block=q_block)
         return _mlp(lp_ml, x)
 
     body = checkpointed(body, remat)
@@ -183,7 +187,8 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
     next-token cross-entropy of the target."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    enc_out = encode(cfg, params, batch["src_embeds"], remat=remat)
+    enc_out = encode(cfg, params, batch["src_embeds"], remat=remat,
+                     q_block=q_block)
     x = decode_train(cfg, params, inp, enc_out, remat=remat, q_block=q_block)
     return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
 
@@ -215,23 +220,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, q_block: int = 0):
     """batch: {"src_embeds", "tokens"}.  Runs the encoder and the target
     prefix; returns (last-position logits, the cache with self-attention
     rows padded to ``max_len`` and each layer's cross K / V)."""
     src_embeds, tokens = batch["src_embeds"], batch["tokens"]
     B, S = tokens.shape
-    enc_out = encode(cfg, params, src_embeds)
+    enc_out = encode(cfg, params, src_embeds, q_block=q_block)
     x = take_rows(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)
     cache = init_cache(cfg, B, max_len or S, dtype=x.dtype,
                        src_len=src_embeds.shape[1], device=x.device)
     for l in range(cfg.n_layers):
         x, (k, v) = _self_attn(cfg, _layer(params, "dec/self", l), x,
-                               positions=positions, causal=True)
+                               positions=positions, causal=True,
+                               q_block=q_block)
         lp_ca = _layer(params, "dec/cross", l)
         xk, xv = _cross_kv(cfg, lp_ca, enc_out)
-        x = _cross_attn(cfg, lp_ca, x, (xk, xv))
+        x = _cross_attn(cfg, lp_ca, x, (xk, xv), q_block=q_block)
         x = _mlp(_layer(params, "dec/mlp", l), x)
         cache["k"][l, :, :S] = k
         cache["v"][l, :, :S] = v

@@ -112,7 +112,7 @@ def _ffn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, ffn_kind: str):
 def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
                  positions, caches: Optional[Dict[str, torch.Tensor]] = None,
                  pos=None, chunk: Optional[int] = None,
-                 collect: bool = False):
+                 collect: bool = False, q_block: int = 0):
     """Apply one period's blocks.  ``caches``: the period's {"k", "v",
     "conv_x", "conv_bc", "ssm"} (a decode step updates them in place).
     Returns (x, the period's new caches | None, the summed MoE aux)."""
@@ -128,7 +128,7 @@ def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
             # a decode step writes its (k, v) in place at ``pos``
             cache = (caches["k"], caches["v"]) if decode else None
             out, new_kv = dense._attn(cfg, lp, x, positions=positions,
-                                      cache=cache, pos=pos)
+                                      cache=cache, pos=pos, q_block=q_block)
             x = x + out
         else:
             cs = ((caches["conv_x"][mamba_i], caches["conv_bc"][mamba_i])
@@ -155,7 +155,7 @@ def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             remat: bool = False, collect_cache: bool = False,
-            chunk: Optional[int] = None):
+            chunk: Optional[int] = None, q_block: int = 0):
     """Full-sequence forward.  Returns (hidden, [period caches] | None, the
     MoE aux averaged over the layers).  ``remat`` recomputes each period in
     the backward (the JAX package checkpoints the period and, inside it,
@@ -167,7 +167,8 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     aux_sum = torch.zeros((), dtype=f32, device=tokens.device)
     body = checkpointed(
         lambda pp, x: _period_body(cfg, pp, x, positions=positions,
-                                   chunk=chunk, collect=collect_cache), remat)
+                                   chunk=chunk, collect=collect_cache,
+                                   q_block=q_block), remat)
     caches = []
     for pp in stacked_layers(params, "periods",
                              cfg.n_layers // cfg.attn_period):
@@ -187,10 +188,10 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
             q_block: int = 0, aux_coef: float = 0.01,
             chunk: Optional[int] = None) -> torch.Tensor:
     """Next-token cross-entropy plus ``aux_coef`` times the MoE aux."""
-    dense._no_q_block(q_block)
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    x, _, aux = forward(cfg, params, inp, remat=remat, chunk=chunk)
+    x, _, aux = forward(cfg, params, inp, remat=remat, chunk=chunk,
+                        q_block=q_block)
     return softmax_xent(logits_fn(cfg, params, x), labels,
                         cfg.vocab) + aux_coef * aux
 
@@ -231,12 +232,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None, chunk: Optional[int] = None):
+            max_len: Optional[int] = None, chunk: Optional[int] = None,
+            q_block: int = 0):
     """Run the prompt; return (last-position logits, the cache with KV rows
     padded to ``max_len``)."""
     B, S = tokens.shape
     x, caches, _ = forward(cfg, params, tokens, collect_cache=True,
-                           chunk=chunk)
+                           chunk=chunk, q_block=q_block)
     cache = init_cache(cfg, B, max_len or S, dtype=x.dtype, device=x.device)
     for p, c in enumerate(caches):
         cache["k"][p, :, :S] = c["k"]

@@ -207,11 +207,13 @@ def checkpointed(fn, remat: bool):
 
 
 def gather_weight(w: Any) -> Any:
-    """Exact sharded serving: all-gather a weight sharded at rest (or each
-    part of a QT / QT4 / QTG triple) at its use site.  The identity unless
-    ``exact_tp`` serving hints are installed, so training and every
-    single-device path are unchanged.  A fused payload handle has no
-    sharded form: compressed residency is single-device."""
+    """Exact sharded serving and training: all-gather a weight sharded at
+    rest (or each part of a QT / QT4 / QTG triple) at its use site; its
+    gradient, on a training mesh, goes back to this rank's block summed
+    over the data axes (``distributed.ctx._GatherAtUse``).  The identity
+    unless ``exact_tp`` hints are installed, so every single-device path is
+    unchanged.  A fused payload handle has no sharded form: compressed
+    residency is single-device."""
     h = get_hints()
     if h is None or not h.exact_tp:
         return w
@@ -288,9 +290,11 @@ def take_rows(w: Any, idx: torch.Tensor) -> torch.Tensor:
     rows; a :class:`QTG` table's rows go through the straight-through
     estimator with the master's rows).  A table sharded at rest is
     gathered first (:func:`gather_weight`), or, when only its rows are
-    sharded, only the looked-up rows are (:func:`_take_sharded_rows`)."""
+    sharded and no gradient is taken on the mesh (``grad_axes``), only the
+    looked-up rows are (:func:`_take_sharded_rows`)."""
     h = get_hints()
-    if h is not None and h.exact_tp and not isinstance(w, QTG):
+    if h is not None and h.exact_tp and not h.grad_axes \
+            and not isinstance(w, QTG):
         entry = _row_block_entry(w)
         if entry is not None:
             return _take_sharded_rows(w, idx, h.mesh, entry)
@@ -316,6 +320,7 @@ def take_rows(w: Any, idx: torch.Tensor) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    scale = gather_weight(scale)
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
@@ -378,7 +383,7 @@ NEG_INF = -1e9
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, q_offset: Any = 0,
-                  kv_len: Any = None) -> torch.Tensor:
+                  kv_len: Any = None, q_block: int = 0) -> torch.Tensor:
     """Grouped-query attention.
 
     q: (B, S, H, hd); k, v: (B, T, KV, hd).  ``q_offset`` (global position
@@ -389,6 +394,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     accumulated in float32, the softmax runs in float32 and the
     probabilities are cast to ``v``'s dtype for the second product — the
     JAX package's contract.
+
+    ``q_block > 0`` attends ``q_block`` query rows at a time (S must be a
+    multiple of it), so the live score tensor is (B, H, q_block, T) instead
+    of (B, H, S, T); each block's softmax is exact over all of T.  Per-slot
+    offsets take one block, as in the JAX package.
     """
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -399,21 +409,36 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if G > 1:
         k = k[:, :, :, None, :].expand(B, T, KV, G, hd).reshape(B, T, H, hd)
         v = v[:, :, :, None, :].expand(B, T, KV, G, hd).reshape(B, T, H, hd)
-    s = torch.einsum("bsnh,btnh->bnst",
-                     (q * scale).to(torch.bfloat16).float(),
-                     k.to(torch.bfloat16).float())
-    if _per_slot(q_offset) or _per_slot(kv_len):
-        mask = _slot_mask(B, S, T, causal, q_offset, kv_len, q.device)
-    else:
-        tpos = torch.arange(T, device=q.device)
-        qpos = q_offset + torch.arange(S, device=q.device)
-        mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= tpos <= qpos[:, None]
-        if kv_len is not None:
-            mask &= tpos < kv_len
-    p = softmax(torch.where(mask, s, NEG_INF))
-    return torch.einsum("bnst,btnh->bsnh", p.to(v.dtype), v)
+
+    def block(qb: torch.Tensor, off: Any, kf=None) -> torch.Tensor:
+        # one block's float32 copy of k is a temporary of the product;
+        # blocks share one (``kf``)
+        Sb = qb.shape[1]
+        s = torch.einsum("bsnh,btnh->bnst",
+                         (qb * scale).to(torch.bfloat16).float(),
+                         kf if kf is not None
+                         else k.to(torch.bfloat16).float())
+        if _per_slot(off) or _per_slot(kv_len):
+            mask = _slot_mask(B, Sb, T, causal, off, kv_len, q.device)
+        else:
+            tpos = torch.arange(T, device=q.device)
+            qpos = off + torch.arange(Sb, device=q.device)
+            mask = torch.ones((Sb, T), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= tpos <= qpos[:, None]
+            if kv_len is not None:
+                mask &= tpos < kv_len
+        p = softmax(torch.where(mask, s, NEG_INF))
+        return torch.einsum("bnst,btnh->bsnh", p.to(v.dtype), v)
+
+    if q_block <= 0 or q_block >= S or _per_slot(q_offset):
+        return block(q, q_offset)
+    if S % q_block:
+        raise ValueError(f"q_block {q_block} does not divide the "
+                         f"{S} query rows")
+    kf = k.to(torch.bfloat16).float()
+    return torch.cat([block(q[:, i:i + q_block], q_offset + i, kf)
+                      for i in range(0, S, q_block)], dim=1)
 
 
 def head_block(q: torch.Tensor, k: torch.Tensor,

@@ -29,9 +29,9 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from .layers import (Schema, Spec, checkpointed, deq, init_params,
-                     layer_slice, matmul, rms_norm, silu, softmax_xent,
-                     softplus, stacked_layers, take_rows)
+from .layers import (Schema, Spec, checkpointed, deq, gather_weight,
+                     init_params, layer_slice, matmul, rms_norm, silu,
+                     softmax_xent, softplus, stacked_layers, take_rows)
 
 f32 = torch.float32
 
@@ -230,6 +230,10 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), h_new
 
 
+_DIRECT = ("conv_x_w", "conv_x_b", "conv_bc_w", "conv_bc_b", "dt_bias",
+           "A_log", "D_skip")
+
+
 def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
                  conv_state=None, ssm_state=None, chunk: Optional[int] = None):
     """One mamba2 block.  Returns (out, ((new_conv_x, new_conv_bc),
@@ -241,6 +245,8 @@ def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
     H, P, N, G = ssm.n_heads(D), ssm.head_dim, ssm.d_state, 1
     chunk = chunk or ssm.chunk
 
+    # the parameters read as tensors, whole (gathered on a mesh)
+    lp = dict(lp, **{k: gather_weight(lp[k]) for k in _DIRECT})
     h = rms_norm(x, lp["norm"])
     z, xs = torch.split(matmul(h, lp["in_zx"]), [Din, Din], dim=-1)
     BC, dt = torch.split(matmul(h, lp["in_bcdt"]), [2 * G * N, H], dim=-1)
@@ -339,8 +345,10 @@ def _write_state(cache: Dict[str, torch.Tensor], l: int, st) -> None:
 
 
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None, chunk: Optional[int] = None):
-    """Run the prompt; return (last-position logits, the state cache)."""
+            max_len: Optional[int] = None, chunk: Optional[int] = None,
+            q_block: int = 0):
+    """Run the prompt; return (last-position logits, the state cache);
+    ``q_block`` is accepted, as in the JAX package, and unused."""
     x = take_rows(params["embed"], tokens)
     cache = init_cache(cfg, tokens.shape[0], max_len or tokens.shape[1],
                        dtype=x.dtype, device=x.device)

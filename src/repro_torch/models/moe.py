@@ -292,9 +292,10 @@ def _moe_wts(lp: Dict[str, Any]) -> Dict[str, Any]:
             if k.startswith("moe/")}
 
 
-def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0):
+def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0,
+           q_block: int = 0):
     attn_out, kv = dense._attn(cfg, lp, x, positions=positions, cache=cache,
-                               pos=pos)
+                               pos=pos, q_block=q_block)
     x = x + attn_out
     h = rms_norm(x, lp["mlp_norm"])
     y, aux = moe_mlp(h, _moe_wts(lp), cfg.moe, _padded_experts(cfg))
@@ -302,7 +303,8 @@ def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0):
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            remat: bool = False, collect_cache: bool = False):
+            remat: bool = False, collect_cache: bool = False,
+            q_block: int = 0):
     """Full-sequence forward.  Returns (hidden, [(k, v) per layer] | None,
     the load-balance aux averaged over the layers).  ``remat`` recomputes
     each layer in the backward; the replay routes the same tokens to the
@@ -312,7 +314,8 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     positions = torch.arange(S, device=tokens.device)
     aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
     block = checkpointed(
-        lambda lp, x: _block(cfg, lp, x, positions=positions), remat)
+        lambda lp, x: _block(cfg, lp, x, positions=positions,
+                             q_block=q_block), remat)
     caches = []
     for lp in stacked_layers(params, "layers", cfg.n_layers):
         x, kv, aux = block(lp, x)
@@ -327,10 +330,9 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
             q_block: int = 0, aux_coef: float = 0.01) -> torch.Tensor:
     """Next-token cross-entropy plus ``aux_coef`` times the load-balance
     aux."""
-    dense._no_q_block(q_block)
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    x, _, aux = forward(cfg, params, inp, remat=remat)
+    x, _, aux = forward(cfg, params, inp, remat=remat, q_block=q_block)
     return softmax_xent(dense.logits_fn(cfg, params, x), labels,
                         cfg.vocab) + aux_coef * aux
 
@@ -340,10 +342,11 @@ cache_specs = dense.cache_specs
 
 
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, q_block: int = 0):
     """Run the prompt; return (last-position logits, cache padded to
     max_len)."""
-    x, caches, _ = forward(cfg, params, tokens, collect_cache=True)
+    x, caches, _ = forward(cfg, params, tokens, collect_cache=True,
+                           q_block=q_block)
     cache = dense._prefill_cache(cfg, caches, max_len or tokens.shape[1])
     return dense.logits_fn(cfg, params, x[:, -1:, :]), cache
 
@@ -391,10 +394,10 @@ head_step = dense.head_step
 
 
 def resident_prefill_block(cfg: ArchConfig, lp, x: torch.Tensor, *,
-                           positions: torch.Tensor):
+                           positions: torch.Tensor, q_block: int = 0):
     """One `forward`-collect-cache iteration; the load-balance aux is
     dropped (serving never reads it, matching `prefill`)."""
-    x, kv, _ = _block(cfg, lp, x, positions=positions)
+    x, kv, _ = _block(cfg, lp, x, positions=positions, q_block=q_block)
     return x, kv
 
 

@@ -67,6 +67,7 @@ def _fence(dev: torch.device) -> None:
 class ServeConfig:
     max_len: int = 2048
     temperature: float = 0.0           # 0 => greedy
+    q_block: int = 0                   # prefill attention's query blocks
 
 
 # ------------------------------------------------------------ multi-device
@@ -422,15 +423,24 @@ class ServeSteps:
         serve mesh (None on one device), memoized by shape and options: the
         batch / slot rows over data and, for the :data:`EXACT_TP_FAMILIES`,
         the KV heads over model where whole heads divide it (the serve
-        rules' resolution; other families' heads stay whole)."""
+        rules' resolution; other families' heads stay whole).  Every other
+        dim is whole on every rank: the steps compute it at the reference's
+        width (an SSM state's channels too, which the rules would put on
+        model)."""
         if self.mesh is None:
             return None
         key = (batch, layout, tuple(sorted(cache_kw.items())))
         if key not in self._cache_shardings_memo:
             from repro_torch.distributed import sharding as shd
-            self._cache_shardings_memo[key] = shd.cache_shardings(
+            specs = shd.cache_shardings(
                 self.cfg, self.mesh, self.rules, batch, self.sc.max_len,
                 layout=layout, **cache_kw)
+            logical = api.cache_specs(self.cfg, layout=layout, **cache_kw)
+            split = ("batch", "slot", "kv")
+            self._cache_shardings_memo[key] = {
+                k: shd.P(*[e if a in split else None for a, e in
+                           zip(logical[k], s.padded(len(logical[k])))])
+                .trimmed() for k, s in specs.items()}
         return self._cache_shardings_memo[key]
 
     def batch_rows(self, batch: int, *, layout: str = "batch") -> slice:
@@ -454,7 +464,8 @@ class ServeSteps:
 
     def prefill_fn(self, params, prompt: torch.Tensor):
         return self.mod.prefill(self.cfg, params, prompt,
-                                max_len=self.sc.max_len)
+                                max_len=self.sc.max_len,
+                                q_block=self.sc.q_block)
 
     def decode_fn(self, params, token: torch.Tensor, cache, pos):
         return self.mod.decode_step(self.cfg, params, token, cache, pos)
@@ -490,7 +501,8 @@ class ServeSteps:
                 lp = weights.get(l)
                 weights.prefetch((l + 1) % weights.n_layers)
                 x, (k, v) = self.mod.resident_prefill_block(
-                    self.cfg, lp, x, positions=positions)
+                    self.cfg, lp, x, positions=positions,
+                    q_block=self.sc.q_block)
                 cache["k"][l, :, :S] = k
                 cache["v"][l, :, :S] = v
                 _fence(dev)

@@ -14,6 +14,12 @@ tensors, as the JAX package returns new arrays; it mutates none of its
 inputs.  The float32 arithmetic is the JAX package's, op for op and in the
 same order, with each Python scalar rounded to float32 where it meets a
 float32 tensor, as JAX's weak typing rounds it.
+
+On a mesh (``apply_updates(..., mesh=, specs=)``) every rank updates its
+own block of each leaf: the gradient norm sums each leaf's squares over
+the axes its spec splits it along, and a quantized moment's row range
+(min and max along the last axis) is reduced over the axes that split the
+last axis, so the symbols are the ones the whole row gives.
 """
 from __future__ import annotations
 
@@ -60,14 +66,18 @@ def _use_q8(shape) -> bool:
     return n >= _Q8_MIN_SIZE and int(shape[-1]) >= 64
 
 
-def _q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _q8(x: torch.Tensor, row_reduce=None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-row (last axis) mixed symmetric / asymmetric uint8 quantization:
     a row of one sign is scaled by its largest magnitude over 255 with zero
     0, a row of both signs spans [min, max].  ``torch.round`` rounds half to
-    even, as ``jnp.round`` does."""
+    even, as ``jnp.round`` does.  ``row_reduce(t, op)`` completes a row's
+    min / max across the ranks that hold the rest of it (a mesh)."""
     x = x.to(f32)
     lo = torch.amin(x, dim=-1, keepdim=True)
     hi = torch.amax(x, dim=-1, keepdim=True)
+    if row_reduce is not None:
+        lo, hi = row_reduce(lo, "min"), row_reduce(hi, "max")
     single = lo * hi >= 0.0
     absmax = torch.where(torch.abs(hi) >= torch.abs(lo), hi, lo)
     s_sym = torch.where(absmax == 0.0, 1.0, absmax / 255.0)
@@ -127,9 +137,15 @@ class OptState(NamedTuple):
     v: Dict[str, Any]
 
 
-def init_state(cfg: AdamWConfig, params: Dict[str, torch.Tensor]) -> OptState:
-    def zero_moment(p):
-        if cfg.quantized_state and _use_q8(p.shape):
+def init_state(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
+               shapes: Dict[str, Tuple[int, ...]] = None) -> OptState:
+    """Zero moments shaped like ``params``; ``shapes`` (the whole tensors'
+    shapes, when ``params`` holds a rank's blocks) decide which are
+    quantized, as the whole tensors would."""
+    shapes = shapes or {n: tuple(p.shape) for n, p in params.items()}
+
+    def zero_moment(n, p):
+        if cfg.quantized_state and _use_q8(shapes[n]):
             sshape = tuple(p.shape[:-1]) + (1,)
             return Q8Moment(
                 torch.zeros(p.shape, dtype=torch.uint8, device=p.device),
@@ -137,19 +153,34 @@ def init_state(cfg: AdamWConfig, params: Dict[str, torch.Tensor]) -> OptState:
                 torch.zeros(sshape, dtype=f32, device=p.device))
         return torch.zeros(p.shape, dtype=f32, device=p.device)
 
-    m = {n: zero_moment(p) for n, p in params.items()}
-    v = {n: zero_moment(p) for n, p in params.items()}
+    m = {n: zero_moment(n, p) for n, p in params.items()}
+    v = {n: zero_moment(n, p) for n, p in params.items()}
     dev = next(iter(params.values())).device
     return OptState(torch.zeros((), dtype=torch.int32, device=dev), m, v)
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Dict[str, torch.Tensor], mesh=None,
+                split: Dict[str, Tuple[str, ...]] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, the leaves summed one
-    after another in sorted name order (the JAX package's leaf order)."""
-    total = 0
+    after another in sorted name order (the JAX package's leaf order).  On
+    a mesh ``tree`` holds this rank's blocks and ``split`` names the axes
+    each leaf is split along: the leaves split alike are summed, each such
+    sum reduced over its axes (a float sum: a tolerance, not bits)."""
+    if mesh is None:
+        total = 0
+        for name in sorted(tree):
+            x = tree[name].to(f32)
+            total = total + torch.sum(x * x)
+        return _sqrt(total)
+    from repro_torch.distributed import collectives
+    groups: Dict[Tuple[str, ...], Any] = {}
     for name in sorted(tree):
         x = tree[name].to(f32)
-        total = total + torch.sum(x * x)
+        axes = split.get(name, ())
+        groups[axes] = groups.get(axes, 0) + torch.sum(x * x)
+    total = 0
+    for axes, part in groups.items():
+        total = total + collectives.all_reduce_sum(mesh, part, axes)
     return _sqrt(total)
 
 
@@ -182,7 +213,7 @@ def _slices(shape) -> List[slice]:
 
 
 def _adamw_leaf(cfg: AdamWConfig, name: str, p, g, m, v, scale, lr, b1c,
-                b2c, q8: bool):
+                b2c, q8: bool, row_reduce=None):
     """One leaf's (or one slice's) update: (new p, new m, new v)."""
     g32 = g.to(f32) * scale
     if q8:
@@ -203,7 +234,8 @@ def _adamw_leaf(cfg: AdamWConfig, name: str, p, g, m, v, scale, lr, b1c,
     new_p = (pf - lr * upd).to(p.dtype)
     del upd, pf
     if q8:
-        return new_p, Q8Moment(*_q8(m32)), Q8Moment(*_q8(_sqrt(v32)))
+        return new_p, Q8Moment(*_q8(m32, row_reduce)), \
+            Q8Moment(*_q8(_sqrt(v32), row_reduce))
     return new_p, m32, v32
 
 
@@ -211,16 +243,28 @@ def _rows(w, s: slice):
     return Q8Moment(*(t[s] for t in w)) if isinstance(w, Q8Moment) else w[s]
 
 
+def _split_axes(spec) -> Tuple[str, ...]:
+    from repro_torch.distributed.sharding import entry_axes
+    return tuple(a for e in (spec or ()) for a in entry_axes(e))
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
-                  grads: Dict[str, torch.Tensor], state: OptState
+                  grads: Dict[str, torch.Tensor], state: OptState, *,
+                  mesh=None, specs: Dict[str, Any] = None
                   ) -> Tuple[Dict[str, torch.Tensor], OptState,
                              Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new_params, new_state, metrics) with
-    ``metrics`` = {"grad_norm", "lr"} as 0-d device tensors."""
+    ``metrics`` = {"grad_norm", "lr"} as 0-d device tensors.
+
+    On a ``mesh`` the trees hold this rank's blocks, cut by ``specs`` (a
+    spec a leaf, ``None`` for a whole one), and each rank updates its
+    blocks."""
     step = state.step + 1
     lr = cfg.schedule(step)
-    gnorm = global_norm(grads)
+    specs = specs or {}
+    gnorm = global_norm(grads, mesh,
+                        {n: _split_axes(s) for n, s in specs.items()})
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
     b1c = 1.0 - torch.pow(cfg.b1, step.to(f32))
@@ -229,14 +273,21 @@ def apply_updates(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
     new_params, new_m, new_v = {}, {}, {}
     for name in params:
         p, g = params[name], grads[name]
-        q8 = cfg.quantized_state and _use_q8(p.shape)
+        q8 = isinstance(state.m[name], Q8Moment)
+        row_reduce = None
+        if mesh is not None and specs.get(name) \
+                and len(specs[name]) == p.dim() and specs[name][-1]:
+            from repro_torch.distributed import collectives
+            last = specs[name][-1]
+            row_reduce = (lambda t, op, last=last:  # noqa: E731
+                          collectives.all_reduce(mesh, t, last, op))
         slices = _slices(p.shape)
         parts = None
         for sl in slices:
             res = _adamw_leaf(cfg, name, p[sl], g[sl],
                               _rows(state.m[name], sl),
                               _rows(state.v[name], sl), scale, lr, b1c, b2c,
-                              q8)
+                              q8, row_reduce)
             if len(slices) == 1:
                 parts = res
                 break

@@ -7,6 +7,19 @@ port runs the same arithmetic eagerly: each microbatch is sliced from the
 leading batch axis, its gradients come from ``torch.autograd.grad`` and are
 summed in ``grad_accum_dtype``, then scaled by ``1 / microbatches`` in
 float32.  Its ``unroll`` (a scan knob) has no eager counterpart.
+
+On a mesh (``make_train_step(..., mesh=)``) each rank holds its blocks of
+the parameters and moments, placed as :func:`shard_train_state` places them
+(the ZeRO rules: ``optimizer.state_shardings`` over
+``sharding.opt_state_rules``, params where their moments are), and this
+rank's rows of the batch (:func:`shard_batch`).  The step runs under
+exact-TP hints: each weight is all-gathered at use, and its gradient comes
+back to this rank's block summed over the data axes
+(``distributed.ctx._GatherAtUse``); whole leaves' gradients are summed
+over data after the backward.  Each rank's loss is its rows' mean, so the
+step scales it by 1 / |data| before the backward and reports the sum over
+data.  Every rank along the model axis computes the same rows at the
+reference's shapes (exact TP repeats the compute |model| times).
 """
 from __future__ import annotations
 
@@ -18,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.spec import quantizable_shape
+from repro_torch.distributed.ctx import Sharded
 from repro_torch.models import api
 from repro_torch.models.layers import QTG
 from . import optimizer as opt
@@ -31,8 +45,7 @@ class TrainConfig:
     microbatches: int = 1          # grad-accum splits of the global batch
     grad_accum_dtype: str = "f32"  # "bf16" = the memory-tight mode
     remat: bool = True             # recompute each layer in the backward
-    q_block: int = 0               # attention query-block chunking (not
-    #                                ported: > 0 raises)
+    q_block: int = 0               # attention query-block chunking
     grad_compress: bool = False    # int8 gradient wire format (simulated)
     q8_gather: int = 0             # 0 = off | 8 | 4: EntroLLM-quantized
     #                                weights in the forward, straight-
@@ -81,26 +94,41 @@ def to_device(batch: Dict[str, Any], device: torch.device
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _local(p: Any) -> torch.Tensor:
+    return p.local if isinstance(p, Sharded) else p
+
+
+def _grad_leaf(p: Any) -> Any:
+    """A leaf the backward reaches: a detached copy that requires grad (a
+    :class:`Sharded` one's block)."""
+    if isinstance(p, Sharded):
+        return Sharded(p.local.detach().requires_grad_(True), p.spec)
+    return p.detach().requires_grad_(True)
+
+
 def make_grad_fn(cfg: ArchConfig, tc: TrainConfig,
-                 loss_fn: Optional[Callable] = None) -> Callable:
+                 loss_fn: Optional[Callable] = None,
+                 loss_scale: float = 1.0) -> Callable:
     """Returns ``grads(params, batch) -> (loss, {name: gradient})``: the
     loss and gradients of one step before the update, microbatched as
-    ``tc`` says (``loss_fn`` defaults to the family's)."""
+    ``tc`` says (``loss_fn`` defaults to the family's).  The gradients are
+    those of ``loss_scale`` times the loss; a :class:`Sharded` leaf's is
+    its block's."""
     loss_fn = loss_fn or loss_for(cfg)
 
     def grads_of(params, mb):
-        leaves = {n: p.detach().requires_grad_(True)
-                  for n, p in params.items()}
+        leaves = {n: _grad_leaf(p) for n, p in params.items()}
         p = ste_quantize_params(leaves, tc.q8_gather) if tc.q8_gather \
             else leaves
         loss = loss_fn(cfg, p, mb, remat=tc.remat, q_block=tc.q_block)
         names = list(leaves)
-        gs = torch.autograd.grad(loss, [leaves[n] for n in names],
-                                 allow_unused=True)
+        gs = torch.autograd.grad(
+            loss if loss_scale == 1.0 else loss * loss_scale,
+            [_local(leaves[n]) for n in names], allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient, as
         # jax.grad gives it
         return loss.detach(), {
-            n: g if g is not None else torch.zeros_like(leaves[n])
+            n: g if g is not None else torch.zeros_like(_local(leaves[n]))
             for n, g in zip(names, gs)}
 
     def microbatch_grads(params, batch):
@@ -108,7 +136,8 @@ def make_grad_fn(cfg: ArchConfig, tc: TrainConfig,
             return grads_of(params, batch)
         acc_dt = torch.bfloat16 if tc.grad_accum_dtype == "bf16" else f32
         dev = next(iter(params.values())).device
-        grad_acc = {n: torch.zeros(p.shape, dtype=acc_dt, device=dev)
+        grad_acc = {n: torch.zeros(_local(p).shape, dtype=acc_dt,
+                                   device=dev)
                     for n, p in params.items()}
         loss_acc = torch.zeros((), dtype=f32, device=dev)
         for i in range(tc.microbatches):
@@ -131,10 +160,20 @@ def make_grad_fn(cfg: ArchConfig, tc: TrainConfig,
     return microbatch_grads
 
 
-def make_train_step(cfg: ArchConfig, tc: TrainConfig) -> Callable:
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes the batch rows split over (``pod`` and ``data``)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def make_train_step(cfg: ArchConfig, tc: TrainConfig,
+                    mesh=None) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` holds tensors on the parameters' device, and
-    ``metrics`` 0-d device tensors (``loss``, ``grad_norm``, ``lr``)."""
+    ``metrics`` 0-d device tensors (``loss``, ``grad_norm``, ``lr``).  On
+    a ``mesh`` (this rank's view) the trees hold this rank's blocks and
+    ``batch`` its rows (see the module docstring)."""
+    if mesh is not None:
+        return _mesh_train_step(cfg, tc, mesh)
     microbatch_grads = make_grad_fn(cfg, tc)
 
     def step(params, opt_state, batch):
@@ -148,6 +187,97 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig) -> Callable:
         return params, opt_state, dict(metrics, loss=loss)
 
     return step
+
+
+def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh) -> Callable:
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.ctx import (ShardingHints, get_hints,
+                                             set_hints)
+    if tc.q8_gather or tc.grad_compress:
+        raise NotImplementedError(
+            "q8_gather and grad_compress are single-device in the port; "
+            "the train step on a mesh takes neither")
+    axes = data_axes(mesh)
+    n_data = 1
+    for a in axes:
+        n_data *= mesh.shape[a]
+    microbatch_grads = make_grad_fn(cfg, tc, loss_scale=1.0 / n_data)
+    hints = ShardingHints(mesh=mesh, batch_axes=(), model_axis=None,
+                          seq_sp=False, exact_tp=True, grad_axes=axes)
+
+    def step(params, opt_state, batch):
+        prev = get_hints()
+        set_hints(hints)
+        try:
+            loss, grads = microbatch_grads(params, batch)
+        finally:
+            set_hints(prev)
+        with torch.no_grad():
+            for n, p in params.items():
+                if not isinstance(p, Sharded):     # whole on every rank
+                    grads[n] = collectives.all_reduce_sum(mesh, grads[n],
+                                                          axes)
+            loss = collectives.all_reduce_sum(mesh, loss, axes) / n_data
+        specs = {n: p.spec if isinstance(p, Sharded) else None
+                 for n, p in params.items()}
+        new, opt_state, metrics = opt.apply_updates(
+            tc.opt, {n: _local(p) for n, p in params.items()}, grads,
+            opt_state, mesh=mesh, specs=specs)
+        params = {n: Sharded(new[n], specs[n]) if specs[n] else new[n]
+                  for n in new}
+        return params, opt_state, dict(metrics, loss=loss)
+
+    return step
+
+
+def train_shardings(cfg: ArchConfig, mesh) -> Dict[str, Any]:
+    """The spec of each parameter on a training mesh: the ZeRO rules
+    (``opt_state_rules`` with the KV-head adjustment), where the fp32
+    moments rest too, so a rank updates its blocks in place."""
+    from repro_torch.distributed import sharding as shd
+    return shd.param_shardings(
+        cfg, mesh, shd.arch_rules(cfg, mesh, shd.opt_state_rules(mesh)))
+
+
+def shard_train_state(cfg: ArchConfig, tc: TrainConfig,
+                      params: Dict[str, torch.Tensor], mesh):
+    """(this rank's params, its optimizer state) from the whole ``params``:
+    each leaf cut by :func:`train_shardings` (a :class:`Sharded` block, or
+    the tensor itself where nothing splits it), zero moments shaped like
+    the blocks."""
+    from repro_torch.distributed.ctx import shard
+    specs = train_shardings(cfg, mesh)
+    placed = {n: shard(p, specs[n], mesh) for n, p in params.items()}
+    state = opt.init_state(tc.opt, {n: _local(p) for n, p in placed.items()},
+                           shapes={n: tuple(p.shape)
+                                   for n, p in params.items()})
+    return placed, state
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch (rows split over the data axes,
+    the first major)."""
+    from repro_torch.distributed.ctx import local_block
+    axes = data_axes(mesh)
+    entry = axes if len(axes) > 1 else axes[0]
+    return {k: local_block(v, (entry,), mesh) for k, v in batch.items()}
+
+
+def gather_params(params: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:
+    """The whole tensors of a placed tree (an all-gather along each split
+    dim of each :class:`Sharded` leaf); every rank must call it."""
+    from repro_torch.distributed import collectives
+    out = {}
+    for n, p in params.items():
+        if isinstance(p, Sharded):
+            t = p.local
+            for d, e in enumerate(p.spec):
+                if e is not None:
+                    t = collectives.all_gather(mesh, t, d, e)
+            p = t
+        out[n] = p
+    return out
 
 
 def host_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:

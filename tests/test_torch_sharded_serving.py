@@ -371,9 +371,16 @@ def test_launcher_mesh_refusals(extra, msg, capsys):
 
 @pytest.mark.parametrize("flag", ["--production", "--shape", "--multi-pod"])
 def test_launcher_production_flags_still_refused(flag, capsys):
+    """With ``--mesh`` the production flags are refused: ``--production``
+    dry-runs its own production mesh, and ``--shape`` / ``--multi-pod``
+    apply to ``--production`` only."""
     from repro_torch.launch import serve as tserve
+    argv = {"--shape": ["--shape", "decode_32k"]}.get(flag, [flag])
     with pytest.raises(SystemExit) as e:
-        tserve.main(["--arch", "qwen3-1.7b", flag])
+        tserve.main(["--arch", "qwen3-1.7b", "--mesh", "1x2"] + argv)
     assert e.value.code == 2
-    assert f"{flag} is not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert flag in err
+    assert ("drop --mesh" if flag == "--production"
+            else "applies to --production only") in err
 

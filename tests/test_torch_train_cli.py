@@ -37,9 +37,17 @@ def test_trains_and_prints_the_summary(tmp_path):
 @pytest.mark.parametrize("flag", ["--production", "--multi-pod",
                                   "--shape=train_4k"])
 def test_unported_modes_are_refused(flag):
+    """The production modes are ported: ``--production`` dry-runs the
+    train step (mamba2-370m x decode_32k here, a cell of seconds), and
+    ``--multi-pod`` / ``--shape`` without it are refused."""
+    if flag == "--production":
+        out = _run("--arch", "mamba2-370m", flag, "--shape", "decode_32k")
+        assert out.returncode == 0, out.stderr
+        assert "== mamba2-370m x decode_32k on 16x16" in out.stdout
+        return
     out = _run("--arch", "qwen3-1.7b", flag, "--device", "cpu")
     assert out.returncode == 2
-    assert "is not ported yet" in out.stderr
+    assert f"{flag.split('=')[0]} applies to --production only" in out.stderr
     assert out.stdout == ""
 
 

@@ -145,11 +145,13 @@ def test_remat_equals_no_remat_bitwise(arch):
 
 
 def test_q_block_is_refused():
+    """Query blocks that do not tile the sequence are refused (blocks that
+    do are held to the reference in tests/test_torch_dryrun.py)."""
     cfg = treg.reduced(treg.get("qwen3-1.7b"))
     params = tapi.build(cfg).init(cfg, 0, "cpu")
     _, _, tb = make_batch(cfg)
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        tapi.build(cfg).loss_fn(cfg, params, tb, q_block=4)
+    with pytest.raises(ValueError, match="q_block 3 does not divide"):
+        tapi.build(cfg).loss_fn(cfg, params, tb, q_block=3)
 
 
 # ------------------------------------------------------------------ the STE

@@ -186,3 +186,54 @@ def hang_on_rank(mesh, rank: int):
     while mesh.rank == rank:
         time.sleep(1.0)
     return mesh.rank
+
+
+def train_steps(cfg, params, batches, run: dict, mesh=None):
+    """``len(batches)`` train steps of ``run``'s config (``mb``
+    microbatches, ``q8`` moments) from the whole ``params`` on one device
+    (``mesh`` None) or on this rank's blocks and rows; returns the
+    per-step loss and grad norm, the whole params after the last step and
+    the quantized moments' per-row scales (``{name: (m, v)}``), gathered on
+    a mesh, as float32 numpy."""
+    from repro_torch.training import optimizer as opt, train_loop
+    tc = train_loop.TrainConfig(
+        opt=opt.AdamWConfig(
+            schedule=opt.Schedule(base_lr=1e-3, warmup_steps=1,
+                                  total_steps=4),
+            quantized_state=run["q8"]),
+        microbatches=run["mb"], remat=True)
+    step = train_loop.make_train_step(cfg, tc, mesh)
+    if mesh is None:
+        state = opt.init_state(tc.opt, params)
+    else:
+        params, state = train_loop.shard_train_state(
+            cfg, tc, {n: p.to(mesh.device) for n, p in params.items()}, mesh)
+    losses, norms = [], []
+    for b in batches:
+        if mesh is not None:
+            b = train_loop.shard_batch(
+                {k: v.to(mesh.device) for k, v in b.items()}, mesh)
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    scales = {}
+    for n, m in state.m.items():
+        if isinstance(m, opt.Q8Moment):
+            scales[n] = (m.scale, state.v[n].scale)
+    if mesh is not None:
+        from repro_torch.distributed.ctx import Sharded
+        for n in scales:
+            spec = params[n].spec[:-1] + (None,) \
+                if isinstance(params[n], Sharded) else None
+            scales[n] = tuple(train_loop.gather_params(
+                {n: Sharded(s, spec) if spec else s}, mesh)[n]
+                for s in scales[n])
+        params = train_loop.gather_params(params, mesh)
+    return losses, norms, \
+        {n: p.float().cpu().numpy() for n, p in params.items()}, \
+        {n: tuple(s.cpu().numpy() for s in v) for n, v in scales.items()}
+
+
+def train_world(mesh, cfg, params, batches, runs):
+    """:func:`train_steps` of each run on this rank of ``mesh``."""
+    return [train_steps(cfg, params, batches, run, mesh) for run in runs]
