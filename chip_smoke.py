@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 (``python3 chip_smoke.py --train-only`` builds the kernels and runs phase
 10 alone, a quicker rehearsal of it; ``--production-only`` runs phase 11
-alone; neither prints a result line.)
+alone and ``--sharded-only`` phase 12; none prints a result line.)
 
 Phases, each printing one JSON line:
 
@@ -251,6 +251,22 @@ Phases, each printing one JSON line:
    (``PROD_TRAIN_TOL``).  No kernel runs on this path: launch counts are
    zeroed before the phase and must read 0 after it.
 
+12. sharded — the production cells' sharded compute (``launch/specs.py``
+   under the reference's sharding hints: column- and row-parallel
+   matmuls, sequence-parallel carries, the cache split along T with the
+   exact combine, the weight-stationary decode) on ``SHARDED_CASES``:
+   qwen3-1.7b and glm4-9b at full width cut to ``DEPTH`` layers, on gloo
+   ranks sharing the card (``launch/mesh.spawn``).  Each rank makes the
+   same seeded whole weights the single device makes, cuts its blocks by
+   the cells' specs (``Cell.place``, ``local_block``), prefills the batch
+   of 4 x 32 and runs ``GEN`` decode steps through the cells' step
+   functions, fed the single device's greedy tokens; logits within
+   ``SHARDED_TOL_STEPS`` bf16 steps of the single device's (at the
+   largest |logit|) and tokens equal up to a near-tie
+   (``sharded_compare``).  One ``sharded``
+   line a case: wall time, collective counts, weight and cache bytes a
+   rank.  No kernel runs on this path (launches must read 0).
+
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
 compressed-resident run; ``launches_paged``: on the paged phase, 0;
@@ -260,7 +276,8 @@ compressed-resident run; ``launches_paged``: on the paged phase, 0;
 on its compressed-resident generate; ``launches_ssm`` /
 ``launches_encdec``: on those phases' load and generate; ``launches_train``:
 on the train phase's entro restore; ``launches_production``: on the
-production phase, 0), and as the last line
+production phase, 0; ``launches_sharded``: on the sharded phase, 0), and
+as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits nonzero; without a CUDA device it exits 1 and prints no result.
 """
@@ -357,6 +374,34 @@ MESH = (2, 2)
 MESH_MOE = (1, 2)
 MESH_BACKEND = "gloo"
 MESH_TIMEOUT_S = 300
+# the sharded phase: the production cells' sharded compute (the dense
+# family's prefill and decode cells) at full width, DEPTH layers, on ranks
+# sharing the card over gloo: (arch, (data, model), serve_mode).  qwen3's 8
+# KV heads split over a model axis of 2; glm4's 2 do not divide 4, so its
+# cache rests split along T and decode combines the blocks; the stationary
+# decode keeps every weight where it rests on 2 x 1
+SHARDED_CASES = (("qwen3-1.7b", (1, 2), "fsdp"),
+                 ("glm4-9b", (1, 4), "fsdp"),
+                 ("qwen3-1.7b", (2, 1), "stationary"))
+SHARDED_SEED = 11
+# sharded logits against the single device's, where the two have decoded
+# the same tokens: partial sums in float32 over other splits of K, and
+# softmax sums over T blocks, move a logit by bf16 rounding of the
+# activations only, so the limit is SHARDED_TOL_STEPS bf16 steps at the
+# largest |logit|.  It lies between the sound layouts and wrong ones at
+# full width (scripts/probe_sharded_faults.py on an H100 80GB HBM3 at
+# 700 W): the sound cases read 1.75-2.5 steps (e.g. 0.0547 at logits up
+# to 5.09 for qwen3-1.7b on 1 x 2); a T block's offset dropped 26.4, the
+# combine without its max 242.5, a row-parallel sum dropped 176.75-317.
+# Greedy tokens equal up to a near-tie (the sharded choice within
+# SHARDED_NEAR_TIE bf16 steps of the single device's best).  Both are fed
+# the single device's greedy tokens, so every (row, step) is compared:
+# with random weights the two best of 151,936 logits often lie within a
+# bf16 step (on the H100 a greedy run of the sharded cells' own diverged
+# at such ties after 23 of 68 tokens)
+SHARDED_TOL_STEPS = 8
+SHARDED_NEAR_TIE = 2
+SHARDED_MIN_COMPARED = BATCH * (GEN + 1)
 # EP's forward of the moe layer 0 against the single-device forward: the
 # partial outputs of the model ranks are summed in bf16 in another order
 # (and a choice of two experts on two ranks meets there), so an output may
@@ -3632,6 +3677,221 @@ def production_phase(dev):
     return launches
 
 
+def sharded_config(arch):
+    """``arch`` at full width cut to ``DEPTH`` layers."""
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get(arch), n_layers=DEPTH)
+
+
+def sharded_rank_check(mesh):
+    """A sharded rank computes on the card, never the CPU."""
+    if mesh.device.type != "cuda":
+        raise AssertionError(f"rank {mesh.rank} on {mesh.device}")
+
+
+def sharded_rank(mesh, arch, mode, prompt, fed):
+    """One rank of a sharded case: the whole weights made from
+    ``SHARDED_SEED`` on the card (as the single device makes them), cut
+    into this rank's blocks by each cell's specs, then the prefill cell on
+    ``prompt`` and ``GEN`` steps of the decode cell fed the single
+    device's greedy tokens ``fed`` (so that every step of every row is
+    compared).  Rank 0 returns every step's logits; every rank the argmax
+    of each step, a fingerprint of its logits, its bytes, counts and
+    times."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import build
+    from repro_torch.launch import specs
+    from repro_torch.models import api
+    from repro_torch.serving import engine
+    t_start = time.perf_counter()
+    sharded_rank_check(mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = sharded_config(arch)
+    B, P = prompt.shape
+    T = P + GEN
+    pcell = specs.build_prefill_cell(
+        cfg, ShapeConfig("prefill_32k", P, B, "prefill"), mesh,
+        weights="bf16", max_len=T)
+    dcell = specs.build_decode_cell(
+        cfg, ShapeConfig("decode_32k", T, B, "decode"), mesh,
+        weights="bf16", serve_mode=mode)
+    full = api.build(cfg).init(cfg, SHARDED_SEED, mesh.device)
+    pp, dp = pcell.place(full), dcell.place(full)
+    del full
+    torch.cuda.empty_cache()
+    for k in build.launches:
+        build.launches[k] = 0
+    collectives.reset_counts()
+
+    def whole(logits, cell):
+        if cell.row_axes:
+            logits = collectives.all_gather(mesh, logits, 0, cell.row_axes)
+        return logits[:, -1].float()
+
+    logits_out, toks, prints = [], [], []
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompt, dtype=torch.int64,
+                                 device=mesh.device)
+        fed = torch.as_tensor(fed, dtype=torch.int64, device=mesh.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = pcell.fn(pp, pcell.local_rows(tokens))
+        lg = whole(lg, pcell)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(GEN + 1):
+            toks.append(torch.argmax(lg, dim=-1)[:, None])
+            prints.append(float(lg.double().sum()))
+            if mesh.rank == 0:
+                logits_out.append(lg.cpu().numpy())
+            if i == GEN:
+                break
+            lg, cache = dcell.fn(dp, dcell.local_rows(fed[:, i:i + 1]),
+                                 cache, P + i)
+            lg = whole(lg, dcell)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return dict(coord=mesh.key(), device=str(mesh.device),
+                logits=logits_out, prints=prints,
+                tokens=torch.cat(toks, 1).cpu().numpy(),
+                prefill_s=prefill_s, decode_s=decode_s,
+                collectives=dict(collectives.counts),
+                launches=dict(build.launches),
+                weight_bytes=engine.local_bytes(dp),
+                cache_bytes=engine.local_bytes(cache),
+                cache_shape=list(cache["k"].shape),
+                peak_bytes=torch.cuda.max_memory_allocated(mesh.device),
+                wall_s=time.perf_counter() - t_start,
+                rows=np.int64(B))
+
+
+def sharded_single(arch, prompt, dev):
+    """The single device's greedy run of the same weights: its tokens and
+    each step's logits, and its weight and cache bytes."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serving import engine
+    cfg = sharded_config(arch)
+    mod = api.build(cfg)
+    P = prompt.shape[1]
+    params = mod.init(cfg, SHARDED_SEED, dev)
+    logits, toks = [], []
+    with torch.inference_mode():
+        lg, cache = mod.prefill(cfg, params, torch.as_tensor(
+            prompt, dtype=torch.int64, device=dev), max_len=P + GEN)
+        for i in range(GEN + 1):
+            last = lg[:, -1].float()
+            logits.append(last.cpu().numpy())
+            toks.append(torch.argmax(last, dim=-1)[:, None])
+            if i < GEN:
+                lg, cache = mod.decode_step(cfg, params, toks[-1], cache,
+                                            P + i)
+    out = dict(logits=logits, tokens=torch.cat(toks, 1).cpu().numpy(),
+               weight_bytes=engine.local_bytes(params),
+               cache_bytes=engine.local_bytes(cache))
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_step(x):
+    """The spacing of bf16 numbers at ``|x|``."""
+    import math
+    return 2.0 ** (math.frexp(abs(x))[1] - 8)
+
+
+def sharded_compare(got, want):
+    """Every step's sharded logits against the single device's, both fed
+    the single device's greedy tokens: within ``SHARDED_TOL_STEPS`` bf16
+    steps of the largest |logit|; each sharded greedy choice the single
+    device's, or a near-tie of its logits (within ``SHARDED_NEAR_TIE``
+    bf16 steps of its best).  Returns (max |delta|, the limit, the largest
+    |delta| at each step, compared tokens, near-ties)."""
+    import numpy as np
+    scale = max(float(np.abs(w).max()) for w in want["logits"])
+    tol = SHARDED_TOL_STEPS * bf16_step(scale)
+    by_step = [float(np.abs(g - w).max())
+               for g, w in zip(got["logits"], want["logits"])]
+    err, compared, ties = max(by_step), 0, 0
+    for i, w in enumerate(want["logits"]):
+        for r in range(w.shape[0]):
+            compared += 1
+            a, b = int(got["tokens"][r, i]), int(want["tokens"][r, i])
+            if a != b:
+                best = float(w[r].max())
+                if best - float(w[r, a]) > SHARDED_NEAR_TIE * bf16_step(best):
+                    raise AssertionError(
+                        f"sharded row {r} step {i}: token {a} against {b}, "
+                        f"not a near-tie ({best - float(w[r, a])})")
+                ties += 1
+    if not err <= tol:
+        raise AssertionError(f"sharded logits max |delta| {err} > {tol} "
+                             f"({SHARDED_TOL_STEPS} bf16 steps at {scale}); "
+                             f"by step {by_step}")
+    if compared < SHARDED_MIN_COMPARED:
+        raise AssertionError(f"sharded: {compared} tokens compared, fewer "
+                             f"than {SHARDED_MIN_COMPARED}")
+    return err, tol, by_step, compared, ties
+
+
+def sharded_phase(dev):
+    """Phase 12: each ``SHARDED_CASES`` case through the production cells'
+    step functions on ranks sharing the card, held against the single
+    device.  Any failed case raises.  Returns the kernels' launches on the
+    path (all 0: the cells dequantize in-graph)."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch, shape, mode in SHARDED_CASES:
+        cfg = sharded_config(arch)
+        prompt = np.random.default_rng(SHARDED_SEED).integers(
+            0, cfg.vocab, (BATCH, PROMPT))
+        want = sharded_single(arch, prompt, dev)
+        got, wall = mesh_spawn(sharded_rank, shape,
+                               (arch, mode, prompt, want["tokens"][:, :GEN]))
+        r0 = got[0]
+        for r in got[1:]:
+            if not (np.array_equal(r["tokens"], r0["tokens"])
+                    and r["prints"] == r0["prints"]):
+                raise AssertionError(f"sharded rank {r['coord']} differs "
+                                     f"from rank 0")
+        err, tol, by_step, compared, ties = sharded_compare(r0, want)
+        for r in got:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        emit("sharded", arch=arch, mesh=list(shape), serve_mode=mode,
+             ranks=len(got), backend=MESH_BACKEND,
+             shared_card="every rank on cuda:0: one card's times shared by "
+                         "the ranks over gloo (through host memory), not a "
+                         "multi-card figure",
+             batch=BATCH, prompt=PROMPT, decode_steps=GEN,
+             wall_s=wall, rank_wall_s=[r["wall_s"] for r in got],
+             prefill_s=[r["prefill_s"] for r in got],
+             decode_s=[r["decode_s"] for r in got],
+             decode_tok_per_s=BATCH * GEN / max(r0["decode_s"], 1e-9),
+             collectives=[r["collectives"] for r in got],
+             weight_bytes_per_rank=[r["weight_bytes"] for r in got],
+             single_device_weight_bytes=want["weight_bytes"],
+             cache_bytes_per_rank=[r["cache_bytes"] for r in got],
+             single_device_cache_bytes=want["cache_bytes"],
+             cache_shape=r0["cache_shape"],
+             peak_bytes=[r["peak_bytes"] for r in got],
+             max_abs_err=err, tol=tol, max_abs_err_by_step=by_step,
+             logits_scale=float(max(np.abs(w).max()
+                                    for w in want["logits"])),
+             tokens_compared=compared, near_ties=ties,
+             launches=[r["launches"] for r in got])
+    if any(launches.values()):
+        raise AssertionError(f"the sharded path launched kernels: "
+                             f"{launches}")
+    emit("sharded", run="phase", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3725,6 +3985,10 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     t0 = time.perf_counter()
     production_launches = production_phase(dev)
     production_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded_launches = sharded_phase(dev)
+    sharded_s = time.perf_counter() - t0
     for row in rows:
         row["launches_continuous"] = continuous_launches.get(row["name"], 0)
         row["launches_paged"] = paged_launches.get(row["name"], 0)
@@ -3737,12 +4001,13 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
             row[f"launches_{family}"] = got.get(row["name"], 0)
         row["launches_train"] = train_launches.get(row["name"], 0)
         row["launches_production"] = production_launches.get(row["name"], 0)
+        row["launches_sharded"] = sharded_launches.get(row["name"], 0)
     emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
          paged_phase_s=paged_s, fleet_phase_s=fleet_s, mesh_phase_s=mesh_s,
          resident_phase_s=resident_s,
          moe_phase_s=moe_s, families_phase_s=families_s,
          train_phase_s=train_s, production_phase_s=production_s,
-         script_s=time.perf_counter() - START)
+         sharded_phase_s=sharded_s, script_s=time.perf_counter() - START)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3771,6 +4036,25 @@ def train_only():
     return 0
 
 
+def sharded_only():
+    """``chip_smoke.py --sharded-only``: the sharded phase alone (prints no
+    result line)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build  # noqa: F401
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi("name,power.limit"), flush=True)
+    t0 = time.perf_counter()
+    launches = sharded_phase(torch.device("cuda"))
+    emit("done", sharded_phase_s=time.perf_counter() - t0,
+         launches_sharded=launches, script_s=time.perf_counter() - START)
+    return 0
+
+
 def production_only():
     """``chip_smoke.py --production-only``: the production phase alone
     (prints no result line)."""
@@ -3793,6 +4077,8 @@ def production_only():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--production-only"]:
         sys.exit(production_only())
+    if sys.argv[1:2] == ["--sharded-only"]:
+        sys.exit(sharded_only())
     if sys.argv[1:2] == ["--containers"]:
         write_containers(sys.argv[2], sys.argv[3:])
         sys.exit(0)

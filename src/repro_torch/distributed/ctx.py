@@ -1,24 +1,37 @@
 """Process-wide sharding-hints context and the sharded-at-rest weight
-(PyTorch port of ``repro/distributed/ctx.py``, its exact-TP part).
+(PyTorch port of ``repro/distributed/ctx.py``).
 
 Models are mesh-agnostic; the serving layer installs :class:`ShardingHints`
 around each step it runs on a mesh (``ServeSteps``), and the weight reads
-of ``models.layers`` consult them.  Under ``exact_tp`` hints a weight rests
-sharded along its output channels — each rank keeps its block as a
-:class:`Sharded` — and :func:`constrain_replicated` all-gathers it at its
-use site.  The gather is pure data movement, so the consuming op reads the
-full tensor bit for bit and rounds exactly like one device.  Attention may
-also split its heads (``head_axes``): each rank attends over its block and
-the blocks are gathered, which no head's result depends on.
+and layers of ``models.layers`` consult them.  Two profiles:
 
-The gather is differentiable (training on a mesh): its backward sums the
-full gradient over ``grad_axes`` — the data axes, whose ranks computed on
-different batch rows — and keeps this rank's block.  Ranks along the model
-axis computed the same rows, so their gradients are not summed.
+* **exact TP** (``exact_tp``, the serving engines' default): a weight rests
+  sharded along its output channels — each rank keeps its block as a
+  :class:`Sharded` — and :func:`constrain_replicated` all-gathers it at its
+  use site.  The gather is pure data movement, so the consuming op reads
+  the full tensor bit for bit and rounds exactly like one device.
+  Attention may also split its heads (``head_axes``): each rank attends
+  over its block and the blocks are gathered, which no head's result
+  depends on.  The gather is differentiable (training on a mesh): its
+  backward sums the full gradient over ``grad_axes`` — the data axes,
+  whose ranks computed on different batch rows — and keeps this rank's
+  block.
+* **sharded compute** (the production cells' hints, ``exact_tp`` off):
+  each rank computes only its block.  The reference annotates activations
+  for its compiler (``constrain_heads``, ``constrain_scores``,
+  ``constrain_activation``); here each of those is a function that
+  returns the same decision — the partition spec the reference would
+  constrain the tensor of that global shape to, from the same
+  :func:`_fits` tests — and the layers compute that block themselves: the
+  heads over ``model``, the cache's T over ``kv_seq_axes`` (attended block
+  by block and combined exactly), the layer carry's S over ``model``
+  (``seq_sp``) or its D over the data axes (``feature_axes``, the
+  weight-stationary decode).  Weights are gathered only along their FSDP
+  blocks, and none under ``feature_axes`` (``models.layers.gather_weight``).
 
-The JAX package's activation constraints (``constrain_heads``,
-``constrain_scores``, ``constrain_activation``) are compiler annotations
-that only the lowered production cells take; they are not ported here.
+The port's rows arrive split by the caller (``ServeSteps.rows_over``), so
+``batch_axes`` states how they are split rather than asking for a split;
+the deciders take global shapes, as the reference's do.
 """
 from __future__ import annotations
 
@@ -46,6 +59,12 @@ class ShardingHints:
     grad_axes: Tuple[str, ...] = ()           # training: a gathered
     #   weight's gradient is summed over these axes before the rank keeps
     #   its block
+    cache_seq_axes: Tuple[str, ...] = ()      # sharded compute: the axes
+    #   the cache's T rests on (its placement; ``kv_seq_axes`` is what
+    #   attention decides, () in the reference's prefill cells)
+    cache_batch_axes: Tuple[str, ...] = ()    # weight-stationary decode:
+    #   the axes the cache's rows rest on while the activation rows are
+    #   whole on every rank
 
 
 _HINTS: list = [None]
@@ -68,14 +87,82 @@ def _fits(dim: int, mesh, axes: Tuple[str, ...]) -> bool:
     return dim % n == 0
 
 
+def constrain_heads(shape: Sequence[int], *,
+                    is_cache_side: bool = False) -> Optional[tuple]:
+    """The spec ``(batch, seq, heads, None)`` of a global ``(B, T, H, hd)``
+    q / k / v under non-exact hints (None with no hints or exact TP): batch
+    over the batch axes, the cache's T over ``kv_seq_axes`` (cache side
+    only), the heads over the model axis unless T took it."""
+    h = get_hints()
+    if h is None or h.exact_tp:
+        return None
+    B, T, H, _ = shape
+    batch = h.batch_axes if _fits(B, h.mesh, h.batch_axes) else None
+    seq = h.kv_seq_axes if (is_cache_side
+                            and _fits(T, h.mesh, h.kv_seq_axes)) else None
+    heads = None
+    m = h.model_axis
+    if m and _fits(H, h.mesh, (m,)) and (seq is None or m not in seq):
+        heads = m
+    return (batch, seq, heads, None)
+
+
+def constrain_scores(shape: Sequence[int]) -> Optional[tuple]:
+    """The spec ``(batch, heads, None, seq)`` of global ``(B, H, Sq, T)``
+    attention scores under non-exact hints (None otherwise)."""
+    h = get_hints()
+    if h is None or h.exact_tp:
+        return None
+    B, H, _, T = shape
+    batch = h.batch_axes if _fits(B, h.mesh, h.batch_axes) else None
+    seq = h.kv_seq_axes if _fits(T, h.mesh, h.kv_seq_axes) else None
+    heads = None
+    m = h.model_axis
+    if m and _fits(H, h.mesh, (m,)) and (seq is None or m not in seq):
+        heads = m
+    return (batch, heads, None, seq)
+
+
+def constrain_activation(shape: Sequence[int]) -> Optional[tuple]:
+    """The spec of a global ``(B, S, D)`` layer carry under non-exact hints
+    (None when it stays whole: no hints, exact TP, fewer than 3 dims, or
+    nothing fits).  With ``feature_axes`` D rides them; otherwise B rides
+    the batch axes and, with ``seq_sp``, S rides the model axis
+    (sequence parallelism: the row-parallel all-reduce becomes a
+    reduce-scatter + all-gather pair of equal bytes).  A decode step's S
+    of 1 never fits."""
+    h = get_hints()
+    if h is None or h.exact_tp or len(shape) < 3:
+        return None
+    if h.feature_axes:
+        if not _fits(shape[-1], h.mesh, h.feature_axes):
+            return None
+        return (None,) * (len(shape) - 1) + (h.feature_axes,)
+    batch = h.batch_axes if _fits(shape[0], h.mesh, h.batch_axes) else None
+    m = h.model_axis
+    seq = m if (h.seq_sp and m and _fits(shape[1], h.mesh, (m,))) else None
+    if batch is None and seq is None:
+        return None
+    return (batch, seq) + (None,) * (len(shape) - 2)
+
+
+def sharded_compute() -> Optional[ShardingHints]:
+    """The installed hints when they ask for sharded compute (not exact
+    TP), else None."""
+    h = get_hints()
+    return h if h is not None and not h.exact_tp else None
+
+
 class Sharded:
     """This rank's block of a tensor that rests sharded over the mesh:
     ``local`` and the spec it was cut by (one entry a dimension, padded
-    with ``None``).  Model code never computes on it: the weight reads of
-    ``models.layers`` gather it first (:func:`constrain_replicated`), and
-    any other use fails for want of tensor methods.  Indexing the leading
-    dimension, which must be unsharded (the layer stack), keeps the rest
-    of the spec."""
+    with ``None``).  Model code reads it only through the weight reads of
+    ``models.layers``: under exact TP they gather it first
+    (:func:`constrain_replicated`); under sharded compute they gather its
+    FSDP blocks and compute on the block that stays (``layers.matmul``,
+    ``take_rows``, ``deq``).  Any other use fails for want of tensor
+    methods.  Indexing the leading dimension, which must be unsharded (the
+    layer stack), keeps the rest of the spec."""
     __slots__ = ("local", "spec")
 
     def __init__(self, local: torch.Tensor, spec: Sequence):

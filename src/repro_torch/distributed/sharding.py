@@ -259,6 +259,28 @@ def kv_divisible(cfg, mesh) -> bool:
     return bool(cfg.n_kv_heads) and cfg.n_kv_heads % m == 0
 
 
+def kv_serve_rules(cfg, mesh, *, long_context: bool = False
+                   ) -> Tuple[Rules, Tuple[str, ...]]:
+    """The reference's arch-aware serving rules (``launch/specs.py``'s
+    ``_serve_rules``): the KV-cache heads over model when whole heads
+    divide it, otherwise the cache's sequence over model (the
+    flash-decoding layout); for the single-request long-context cell the
+    sequence over the data axes.  Returns (rules, the cache's T axes)."""
+    table = dict(serve_rules(mesh, long_context=long_context).table)
+    if long_context:
+        kv_seq = _axes(mesh, "pod", "data")
+        table["kv"] = "model" if kv_divisible(cfg, mesh) else None
+        table["kv_seq"] = kv_seq
+        return Rules(table), kv_seq
+    if kv_divisible(cfg, mesh):
+        table["kv"] = "model"
+        table["kv_seq"] = ()
+        return Rules(table), ()
+    table["kv"] = None
+    table["kv_seq"] = "model"
+    return Rules(table), ("model",)
+
+
 def arch_rules(cfg, mesh, base: Rules) -> Rules:
     """KV weight columns shard over model only when whole KV heads divide
     the axis; otherwise wk / wv stay replicated over model."""

@@ -166,7 +166,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 
     ``cfg`` replaces the registry's config of ``arch`` (a reduced one in
     tests) and ``batch`` the shape's global batch (a per-data-rank share of
-    it on a smaller mesh)."""
+    it on a smaller mesh); ``kw`` goes to ``specs.build_cell``
+    (``serve_mode=`` of a decode cell)."""
     cfg = cfg or registry.get(arch)
     shape = SHAPES[shape_name]
     if batch is not None:
@@ -277,8 +278,12 @@ def run_on_device(arch: str, shape_name: str, *, device, batch: int,
 
 def print_cell(d: Dict[str, Any]) -> None:
     ma = d["memory_analysis"]
+    mode = d["meta"].get("serve_mode")
     print(f"== {d['arch']} x {d['shape']} on {d['mesh']} ({d['kind']}, "
-          f"weights={d['meta'].get('weights')}) ==")
+          f"weights={d['meta'].get('weights')}"
+          + (f", {mode}" if mode else "")
+          + (", sharded compute" if d["meta"].get("sharded_compute")
+             else "") + ") ==")
     print(f"  per rank: args={ma['argument_size'] / 2**30:.2f}GiB "
           f"peak={ma['peak'] / 2**30:.2f}GiB fits={d['fits']} "
           f"(H100 {mesh_lib.HBM_PER_CHIP / 2**30:.2f}GiB)")

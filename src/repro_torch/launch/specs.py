@@ -7,21 +7,27 @@ the shape's kind) and its arguments as this rank holds them — ``meta``
 tensors in rank 0's shard shapes on the production mesh, so nothing is
 allocated.  :meth:`Cell.materialize` makes the same arguments real on a
 device (random values from a seed), which is how the card runs a cell that
-the dry-run priced.
+the dry-run priced; :meth:`Cell.place` cuts whole weights one device holds
+into this rank's blocks instead.
 
 Placement is the port's, through ``distributed/sharding.py`` (whose specs
 equal the reference's on the production meshes):
 
 * weights rest as the reference's rules resolve them — serving cells by
   the serve rules with the KV-head adjustment, train cells by the ZeRO
-  (optimizer-state) rules, where the fp32 moments rest too — and are
-  all-gathered at their use (exact TP, ``layers.gather_weight``);
-* batch rows split over the data axes; the KV cache as the serving engine
-  places it (``ServeSteps.cache_shardings``: rows over data, and for the
-  dense and MoE families the KV heads over model where whole heads divide
-  it, every head on every rank otherwise).  The reference would shard the
-  cache's sequence axis over model instead (``_serve_rules``); that
-  resolution is recorded in the cell's ``meta`` beside the port's.
+  (optimizer-state) rules, where the fp32 moments rest too;
+* the dense and MoE serving cells compute sharded, as the reference's do
+  under the hints of :func:`_install_contexts`: each rank computes its
+  block (heads over model, FSDP blocks gathered at use, row-parallel
+  partial sums reduced, the prefill carries split along S over model),
+  and the KV cache rests by the reference's ``_serve_rules`` — rows over
+  data, the KV heads over model where whole heads divide it, the sequence
+  over model otherwise (attended block by block with an exact combine);
+  ``serve_mode="stationary"`` is the reference's weight-stationary decode
+  (rows whole, D over the data axes, no weight gathered);
+* the ssm, hybrid and encdec serving cells, and every train cell, keep
+  exact TP: weights all-gathered at use, each rank repeating its rows'
+  full-width compute along model.
 
 Weight formats for serving cells: ``bf16``, ``int8`` (QT triples, uint8
 symbols dequantized at use) and ``int4`` (QT4, nibbles packed along the
@@ -37,9 +43,11 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
 from repro_torch.core.spec import quantizable_shape
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.ctx import Sharded, local_block, shard
+from repro_torch.distributed.ctx import (ShardingHints, Sharded, local_block,
+                                         shard)
 from repro_torch.models import api
 from repro_torch.models.layers import QT, QT4
+from repro_torch.models.moe import EPContext
 from repro_torch.serving import engine
 from repro_torch.training import optimizer as opt, train_loop
 
@@ -51,6 +59,8 @@ Q8_OPT_THRESHOLD = 100e9
 # query-block length of the long-sequence cells' attention
 Q_BLOCK = 1024
 LONG_SEQ = 8192
+# the families whose serving cells compute sharded (the others: exact TP)
+SHARDED_FAMILIES = engine.EXACT_TP_FAMILIES
 
 
 @dataclasses.dataclass
@@ -61,9 +71,33 @@ class Cell:
     fn: Callable
     args: Tuple[Any, ...]
     meta: Dict[str, Any]
+    param_specs: Optional[Dict[str, Any]] = None
+    row_axes: Tuple[str, ...] = ()
 
     def run(self):
         return self.fn(*self.args)
+
+    def place(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Whole weights (a tensor, or a QT / QT4 triple, a name) cut into
+        the blocks this rank holds by the cell's specs: the weight
+        argument of a serving cell, real."""
+        out = {}
+        for name, w in params.items():
+            sp = self.param_specs[name]
+            if isinstance(w, (QT, QT4)):
+                out[name] = type(w)(*(_place(p, ps, self.mesh)
+                                      for p, ps in zip(w, sp)))
+            else:
+                out[name] = _place(w, sp, self.mesh)
+        return out
+
+    def local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole (B, ...) batch input, as the cell's
+        step takes them (all of them when its rows are whole)."""
+        if not self.row_axes:
+            return t
+        e = self.row_axes if len(self.row_axes) > 1 else self.row_axes[0]
+        return local_block(t, (e,), self.mesh)
 
     def materialize(self, device, seed: int = 0) -> Tuple[Any, ...]:
         """The arguments made real on ``device``: random symbols and
@@ -177,26 +211,23 @@ def param_structs(cfg: ArchConfig, mesh, rules: shd.Rules,
     return structs, specs
 
 
-def _serve_rules(cfg: ArchConfig, mesh, *, long_context: bool
-                 ) -> Tuple[shd.Rules, Tuple[str, ...]]:
-    """The reference's arch-aware serving rules: shard KV-cache heads over
-    model when they divide it, otherwise shard the cache sequence axis over
-    model (the flash-decoding layout).  Returns (rules, kv_seq axes).  The
-    port places weights by these rules; its cache follows the serving
-    engine's placement, and ``kv_seq`` is recorded beside it."""
-    table = dict(shd.serve_rules(mesh, long_context=long_context).table)
-    if long_context:
-        kv_seq = tuple(a for a in ("pod", "data") if a in mesh.shape)
-        table["kv"] = "model" if shd.kv_divisible(cfg, mesh) else None
-        table["kv_seq"] = kv_seq
-        return shd.Rules(table), kv_seq
-    if shd.kv_divisible(cfg, mesh):
-        table["kv"] = "model"
-        table["kv_seq"] = ()
-        return shd.Rules(table), ()
-    table["kv"] = None
-    table["kv_seq"] = "model"
-    return shd.Rules(table), ("model",)
+def _install_contexts(cfg: ArchConfig, mesh, *, batch_sharded: bool,
+                      kv_seq_axes: Tuple[str, ...] = (),
+                      feature_axes: Tuple[str, ...] = ()
+                      ) -> Tuple[ShardingHints, Optional[EPContext]]:
+    """The reference's sharded-compute hints and, for the MoE family, its
+    EP context, for a serving cell.  The reference installs them
+    process-wide; here the cell's ``ServeSteps`` installs them around
+    each step it runs.  Sequence-parallel carries for every family but
+    the hybrid, as in the reference."""
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    ep = EPContext(mesh=mesh, model_axis="model", data_axes=data_axes,
+                   batch_sharded=batch_sharded) if cfg.moe else None
+    hints = ShardingHints(
+        mesh=mesh, batch_axes=data_axes if batch_sharded else (),
+        model_axis="model", kv_seq_axes=tuple(kv_seq_axes),
+        feature_axes=tuple(feature_axes), seq_sp=cfg.family != "hybrid")
+    return hints, ep
 
 
 def _batch_struct(cfg: ArchConfig, B: int, S: int, *, train: bool) -> Dict:
@@ -280,24 +311,41 @@ def _cache_struct(cfg: ArchConfig, steps, B: int, S: int):
             for k, v in full.items()}, specs
 
 
-def _port_kv(specs: Dict[str, Any]) -> str:
-    """The port's cache placement in one word a dim of the ``k`` leaf."""
+def _port_kv(specs: Dict[str, Any]) -> Dict[str, str]:
+    """The port's cache placement: ``kv_port``, the axes the ``k`` leaf's
+    T rests on (the form of ``kv_seq_reference``), and ``kv_port_spec``,
+    one word a dim."""
     if "k" not in specs:
-        return "-"
+        return {"kv_port": "-", "kv_port_spec": "-"}
     e = specs["k"].padded(5)
-    return ",".join("-" if x is None else
-                    "+".join(shd.entry_axes(x)) for x in e)
+
+    def word(x):
+        return "-" if x is None else "+".join(shd.entry_axes(x))
+    return {"kv_port": word(e[2]),
+            "kv_port_spec": ",".join(word(x) for x in e)}
+
+
+def _steps(cfg: ArchConfig, sc, mesh, **ctx_kw):
+    """The cell's ``ServeSteps``: sharded compute under the reference's
+    hints for the dense and MoE families, exact TP for the others."""
+    if cfg.family not in SHARDED_FAMILIES:
+        return engine.ServeSteps(cfg, sc, mesh=mesh)
+    hints, ep = _install_contexts(cfg, mesh, **ctx_kw)
+    return engine.ServeSteps(cfg, sc, mesh=mesh, hints=hints, ep=ep)
 
 
 def build_prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
-                       weights: str = "int8") -> Cell:
-    rules, kv_seq = _serve_rules(cfg, mesh, long_context=False)
+                       weights: str = "int8",
+                       max_len: Optional[int] = None) -> Cell:
+    """The prefill of a ``B x S`` prompt into a cache of ``max_len`` rows
+    (``S`` by default, as in the reference), this rank's rows of it."""
+    rules, kv_seq = shd.kv_serve_rules(cfg, mesh, long_context=False)
     rules = shd.arch_rules(cfg, mesh, rules)
     B, S = shape.global_batch, shape.seq_len
-    sc = engine.ServeConfig(max_len=S,
+    sc = engine.ServeConfig(max_len=max_len or S,
                             q_block=Q_BLOCK if S > LONG_SEQ else 0)
-    params, _ = param_structs(cfg, mesh, rules, weights)
-    steps = engine.ServeSteps(cfg, sc, mesh=mesh)
+    params, pspecs = param_structs(cfg, mesh, rules, weights)
+    steps = _steps(cfg, sc, mesh, batch_sharded=True)
     if cfg.family == "encdec":
         prompt = _local_rows(_batch_struct(cfg, B, S, train=False), mesh,
                              rules)
@@ -312,11 +360,12 @@ def build_prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
 
     specs = steps.cache_shardings(B) if cfg.family != "ssm" else {}
     return Cell(cfg=cfg, shape=shape, mesh=mesh, fn=prefill_step,
-                args=(params, prompt),
+                args=(params, prompt), param_specs=pspecs, row_axes=axes,
                 meta=_names({"kind": "prefill", "weights": weights,
                              "q_block": sc.q_block,
+                             "sharded_compute": steps.hints is not None,
                              "kv_seq_reference": "+".join(kv_seq) or "-",
-                             "kv_port": _port_kv(specs)}, mesh))
+                             **_port_kv(specs)}, mesh))
 
 
 def build_decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
@@ -324,42 +373,65 @@ def build_decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                       kv_bits: int = 16) -> Cell:
     """One decode step at the last position of a full ``S``-row cache.
 
-    ``serve_mode="fsdp"``: weights at rest by the serve rules, gathered at
-    use; rows over data.  ``serve_mode="stationary"`` (the reference's
-    weight-stationary decode) needs activation layouts the port does not
-    have yet and raises."""
-    if serve_mode != "fsdp":
+    ``serve_mode``:
+
+    * ``fsdp``: weights at rest by the serve rules, rows over data; the
+      dense and MoE families compute sharded (their FSDP blocks gathered
+      at use), the others by exact TP;
+    * ``stationary`` (dense and MoE): the reference's weight-stationary
+      decode — weights never move: the rows replicate over the data axes,
+      the carry's D rides them (``feature_axes``), each projection is a
+      partial dot summed over them, the experts' hidden dim rests over
+      them, and only the KV cache stays split by rows (and sequence)."""
+    if serve_mode not in ("fsdp", "stationary"):
+        raise ValueError(f"serve_mode must be 'fsdp' or 'stationary', got "
+                         f"{serve_mode!r}")
+    stationary = serve_mode == "stationary"
+    if stationary and cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
-            f"serve_mode={serve_mode!r}: the weight-stationary decode needs "
-            f"the activation-constraint counterparts (sharded compute "
-            f"layouts), the port's next slice (ROADMAP queue 1); only "
-            f"'fsdp' is ported")
+            f"serve_mode='stationary' for the {cfg.family} family: its "
+            f"sharded-compute layouts are a later slice (ROADMAP queue 1)")
     if kv_bits != 16:
         raise NotImplementedError("the dry-run's decode cells take the bf16 "
                                   "cache (kv_bits=16)")
     long_context = shape.name == "long_500k"
-    rules, kv_seq = _serve_rules(cfg, mesh, long_context=long_context)
+    rules, kv_seq = shd.kv_serve_rules(cfg, mesh,
+                                       long_context=long_context)
     rules = shd.arch_rules(cfg, mesh, rules)
     B, S = shape.global_batch, shape.seq_len
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    batch_sharded = (not stationary) and B % _batch_ways(mesh) == 0
+    if stationary:
+        # the expert FFN's hidden dim rides the data axes (x replicates
+        # there); dense weights keep embed -> data for the partial dot
+        rules = shd.Rules({**rules.table, "expert_embed": None,
+                           "expert_mlp": data_axes})
+    io_rules = rules if not stationary else shd.Rules(
+        {**rules.table, "batch": ()})
     sc = engine.ServeConfig(max_len=S)
-    params, _ = param_structs(cfg, mesh, rules, weights)
-    steps = engine.ServeSteps(cfg, sc, mesh=mesh)
+    params, pspecs = param_structs(cfg, mesh, rules, weights)
+    steps = _steps(cfg, sc, mesh, batch_sharded=batch_sharded,
+                   kv_seq_axes=kv_seq,
+                   feature_axes=data_axes if stationary else ())
     cache, cspecs = _cache_struct(cfg, steps, B, S)
     token = _local_rows({"t": _meta((B, 1), torch.int32)}, mesh,
-                        rules)["t"]
-    axes = steps.batch_axes(B)
+                        io_rules)["t"]
+    cache_axes = steps.batch_axes(B)
+    axes = () if stationary else cache_axes
 
     def serve_step(p, token, cache, pos):
-        with steps.rows_over(axes):
+        with steps.rows_over(axes, cache_axes):
             return steps.decode_fn(p, token, cache, pos)
 
     return Cell(cfg=cfg, shape=shape, mesh=mesh, fn=serve_step,
-                args=(params, token, cache, S - 1),
+                args=(params, token, cache, S - 1), param_specs=pspecs,
+                row_axes=axes,
                 meta=_names({"kind": "decode", "weights": weights,
                              "kv_bits": kv_bits, "serve_mode": serve_mode,
                              "long_context": long_context,
+                             "sharded_compute": steps.hints is not None,
                              "kv_seq_reference": "+".join(kv_seq) or "-",
-                             "kv_port": _port_kv(cspecs)}, mesh))
+                             **_port_kv(cspecs)}, mesh))
 
 
 def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,

@@ -6,6 +6,14 @@ Layers are stacked on a leading axis, as in the JAX package; where it runs
 full-sequence forward takes every layer's views at once with
 :func:`layers.stacked_layers`, so that its backward stacks the gradients
 once).
+
+Under sharded-compute hints the layer carry rests as the JAX package's
+``constrain_activation`` decides (:func:`layers.carry_spec`, None on one
+device and under exact TP): each step takes that layout once and passes it
+with the carry.  A block gathers the carry's S before its column-parallel
+projections (:func:`layers.whole_activation`) and its row-parallel ones
+hand the carry back in its layout (``layers.matmul``'s ``carry``);
+:func:`layers.constrain_carry` asserts it at the JAX package's places.
 """
 from __future__ import annotations
 
@@ -14,11 +22,15 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from .layers import (Schema, Spec, checkpointed, deq, gather_blocks,
-                     gather_heads, gqa_attention, head_block, init_params,
-                     kv_dequantize, kv_quantize, layer_slice, matmul,
-                     rms_norm, rope, scatter_blocks, softmax_xent,
-                     stacked_layers, swiglu, take_rows, update_kv_cache)
+from repro_torch.distributed.ctx import sharded_compute
+from .layers import (Schema, Spec, attention_blocks, cache_rows,
+                     cache_seq_block, carry_features, carry_spec,
+                     checkpointed, constrain_carry, deq, gather_blocks,
+                     gather_cache_rows, gather_heads, gqa_attention,
+                     head_block, init_params, kv_dequantize, kv_quantize,
+                     last_position, layer_slice, matmul, rms_norm, rope,
+                     scatter_blocks, softmax_xent, stacked_layers, swiglu,
+                     take_rows, update_kv_cache, whole_activation)
 
 
 def schema(cfg: ArchConfig) -> Schema:
@@ -77,14 +89,26 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return q.to(torch.bfloat16) * s.to(torch.bfloat16)
 
 
-def _qkv(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, positions):
-    """The attention block's q, k, v: projections, qk-norm and RoPE."""
-    B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    h = rms_norm(x, lp["attn_norm"])
-    q = matmul(h, lp["wq"]).reshape(B, S, H, hd)
-    k = matmul(h, lp["wk"]).reshape(B, S, KV, hd)
-    v = matmul(h, lp["wv"]).reshape(B, S, KV, hd)
+def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The carry's first value, this rank's block of the tokens' embedding
+    rows (the JAX package's ``constrain_activation(take_rows(...))``)."""
+    B, S = tokens.shape
+    rows = take_rows(params["embed"], tokens,
+                     carry_spec(B, S, cfg.d_model))
+    return constrain_carry(rows, S, cfg.d_model)
+
+
+def _qkv(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, positions,
+         carry: Optional[tuple] = None):
+    """The attention block's q, k, v: projections, qk-norm and RoPE (under
+    sharded compute, of the carry ``x`` of layout ``carry``, its S
+    gathered, with the heads each projection's weight holds here)."""
+    hd = cfg.hd
+    fx = carry_features(carry)
+    h = whole_activation(rms_norm(x, lp["attn_norm"], x_axes=fx), carry)
+    q = matmul(h, lp["wq"], x_axes=fx).unflatten(-1, (-1, hd))
+    k = matmul(h, lp["wk"], x_axes=fx).unflatten(-1, (-1, hd))
+    v = matmul(h, lp["wv"], x_axes=fx).unflatten(-1, (-1, hd))
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"])
         k = rms_norm(k, lp["k_norm"])
@@ -94,7 +118,8 @@ def _qkv(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, positions):
 
 def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
           cache: Optional[Tuple[torch.Tensor, ...]] = None, pos: Any = 0,
-          q_block: int = 0):
+          q_block: int = 0, keep: Optional[Tuple[int, int]] = None,
+          carry: Optional[tuple] = None):
     """Attention sub-block; returns (out, (k, v) or the cache).
 
     Without ``cache`` the block attends causally over ``x`` and returns the
@@ -105,70 +130,111 @@ def _attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *, positions,
     and dequantizes the whole cache for the attention.  ``pos`` is an int
     (lockstep batch) or a ``(B,)`` tensor (slot batch, one independent
     position a row).  ``q_block`` chunks the queries of the cache-less
-    path (:func:`layers.gqa_attention`).
+    path (:func:`layers.gqa_attention`); ``keep`` = ``(lo, hi)`` returns
+    only those positions' (k, v) (the rows of a cache split along T that
+    this rank holds); ``carry`` is the layout of the carry ``x``
+    (:func:`layers.carry_spec`), which ``out`` takes.
     """
-    B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
+    B, S = x.shape[0], positions.shape[-1]
     # on a mesh whose heads split: this rank's heads (the cache holds them)
-    q, k, v = head_block(*_qkv(cfg, lp, x, positions))
+    q, k, v = head_block(*_qkv(cfg, lp, x, positions, carry))
+    heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
     if cache is None:
-        attn = gqa_attention(q, k, v, causal=True, q_block=q_block)
-        kv = (k, v)
-    elif len(cache) == 4:
-        kq, ks = quantize_kv(k)
-        vq, vs = quantize_kv(v)
-        update_kv_cache(cache[0], cache[1], kq, vq, pos)
-        update_kv_cache(cache[2], cache[3], ks, vs, pos)
-        attn = gqa_attention(q, dequantize_kv(cache[0], cache[2]),
-                             dequantize_kv(cache[1], cache[3]), causal=S > 1,
-                             q_offset=pos, kv_len=pos + S)
-        kv = cache
+        qa, ka, va, kv_axes, h_axes = attention_blocks(q, k, v, **heads)
+        attn = gqa_attention(qa, ka, va, causal=True, q_block=q_block,
+                             kv_axes=kv_axes)
+        kv = (k, v) if keep is None else (k[:, keep[0]:keep[1]],
+                                          v[:, keep[0]:keep[1]])
     else:
-        update_kv_cache(cache[0], cache[1], k, v, pos)
-        attn = gqa_attention(q, cache[0], cache[1], causal=S > 1,
-                             q_offset=pos, kv_len=pos + S)
+        # the weight-stationary decode: every rank's rows here, the cache
+        # holding a block of them
+        q, k, v, pos_r = (cache_rows(t) for t in (q, k, v, pos))
+        if len(cache) == 4:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            update_kv_cache(cache[0], cache[1], kq, vq, pos_r)
+            update_kv_cache(cache[2], cache[3], ks, vs, pos_r)
+            ck = dequantize_kv(cache[0], cache[2])
+            cv = dequantize_kv(cache[1], cache[3])
+        else:
+            update_kv_cache(cache[0], cache[1], k, v, pos_r)
+            ck, cv = cache[0], cache[1]
+        qa, ka, va, kv_axes, h_axes = attention_blocks(
+            q, ck, cv, cache_side=True, **heads)
+        attn = gather_cache_rows(gqa_attention(
+            qa, ka, va, causal=S > 1, q_offset=pos_r, kv_len=pos_r + S,
+            kv_axes=kv_axes))
         kv = cache
-    out = matmul(gather_heads(attn).reshape(B, S, H * hd), lp["wo"])
+    out = matmul(gather_heads(attn).reshape(B, S, -1), lp["wo"],
+                 x_axes=h_axes, carry=carry)
     return out, kv
 
 
 def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0,
-           q_block: int = 0):
+           q_block: int = 0, keep: Optional[Tuple[int, int]] = None):
+    carry = carry_spec(x.shape[0], positions.shape[-1], cfg.d_model)
     attn_out, kv = _attn(cfg, lp, x, positions=positions, cache=cache, pos=pos,
-                         q_block=q_block)
+                         q_block=q_block, keep=keep, carry=carry)
     x = x + attn_out
-    h = rms_norm(x, lp["mlp_norm"])
-    x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    fx = carry_features(carry)
+    h = whole_activation(rms_norm(x, lp["mlp_norm"], x_axes=fx), carry)
+    x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], x_axes=fx,
+                   carry=carry)
     return x, kv
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             remat: bool = False, collect_cache: bool = False,
-            q_block: int = 0):
+            q_block: int = 0, cache_len: Optional[int] = None):
     """Full-sequence forward.  Returns (hidden, [(k, v) per layer] | None).
 
     ``remat`` recomputes each layer in the backward (the JAX package's
     ``jax.checkpoint`` of the scan body); ``q_block`` chunks attention's
-    queries."""
+    queries.  Under sharded-compute hints whose cache rests split along T,
+    each layer's collected (k, v) keeps only the prompt positions this
+    rank's block of a ``cache_len``-row cache holds
+    (:func:`layers.cache_seq_block`)."""
     S = tokens.shape[1]
-    x = take_rows(params["embed"], tokens)
+    carry = carry_spec(tokens.shape[0], S, cfg.d_model)
+    x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)
+    keep = _kept_rows(S, cache_len) if collect_cache else None
     block = checkpointed(
         lambda lp, x: _block(cfg, lp, x, positions=positions,
-                             q_block=q_block), remat)
+                             q_block=q_block, keep=keep), remat)
     caches = []
     for lp in stacked_layers(params, "layers", cfg.n_layers):
         x, kv = block(lp, x)
+        x = constrain_carry(x, S, cfg.d_model)
         if collect_cache:
             caches.append(kv)
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry))
     return x, (caches if collect_cache else None)
 
 
-def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+def _kept_rows(S: int, cache_len: Optional[int]) -> Optional[Tuple[int, int]]:
+    """The prompt positions ``(lo, hi)`` this rank's block of a cache split
+    along T holds (``layers.cache_seq_block``); None when the cache's T
+    rests whole."""
+    h = sharded_compute()
+    if h is None or not h.cache_seq_axes:
+        return None
+    lo, hi, _, _ = cache_seq_block(S, cache_len or S)
+    return lo, hi
+
+
+def logits_fn(cfg: ArchConfig, params, x: torch.Tensor, *,
+              x_axes: Any = None) -> torch.Tensor:
+    """Logits over the padded vocabulary; under sharded compute ``lm_head``
+    is column-parallel over the vocabulary and the logits leave it
+    gathered (``x_axes``: the axes ``x``'s features are split over)."""
     if cfg.tie_embeddings:
+        if sharded_compute() is not None:
+            raise NotImplementedError(
+                "sharded compute of tied embeddings (no dense or MoE "
+                "config ties them)")
         return matmul(x, deq(params["embed"]).T)
-    return matmul(x, params["lm_head"])
+    return matmul(x, params["lm_head"], gather=True, x_axes=x_axes)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
@@ -231,25 +297,31 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None, q_block: int = 0):
     """Run the prompt; return (last-position logits, cache padded to max_len)."""
+    S = tokens.shape[1]
     x, caches = forward(cfg, params, tokens, collect_cache=True,
-                        q_block=q_block)
-    cache = _prefill_cache(cfg, caches, max_len or tokens.shape[1])
-    logits = logits_fn(cfg, params, x[:, -1:, :])
+                        q_block=q_block, cache_len=max_len or S)
+    cache = _prefill_cache(cfg, caches, max_len or S, S)
+    carry = carry_spec(tokens.shape[0], S, cfg.d_model)
+    logits = logits_fn(cfg, params, last_position(x, carry),
+                       x_axes=carry_features(carry))
     return logits, cache
 
 
-def _prefill_cache(cfg: ArchConfig, caches, max_len: int):
+def _prefill_cache(cfg: ArchConfig, caches, max_len: int, S: int):
     """A slot cache of ``max_len`` rows holding each layer's prompt (k, v)
-    (B, S, KV, hd) in its first S rows, zeros after (the JAX package's
+    (B, S, KV, hd) in its first ``S`` rows, zeros after (the JAX package's
     padded stack); KV is the heads the layers gave (a rank's block of them
-    when the heads split over a mesh)."""
+    when the heads split over a mesh).  A cache whose T rests split holds
+    this rank's block of the rows, and ``caches`` the prompt positions
+    that land in it (:func:`layers.cache_seq_block`)."""
     k0 = caches[0][0]
-    B, S, KV = k0.shape[:3]
-    cache = init_cache(cfg, B, max_len, dtype=k0.dtype, device=k0.device,
+    B, KV = k0.shape[0], k0.shape[2]
+    lo, hi, t0, Tl = cache_seq_block(S, max_len)
+    cache = init_cache(cfg, B, Tl, dtype=k0.dtype, device=k0.device,
                        kv_heads=KV)
     for l, (k, v) in enumerate(caches):
-        cache["k"][l, :, :S] = k
-        cache["v"][l, :, :S] = v
+        cache["k"][l, :, lo - t0:hi - t0] = k
+        cache["v"][l, :, lo - t0:hi - t0] = v
     return cache
 
 
@@ -283,13 +355,18 @@ def prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, cache, pos):
     ragged prompts ride in fixed-size chunks (pad tokens land in the cache
     but stay masked, because ``kv_len`` never reaches them).
     """
-    x = take_rows(params["embed"], tokens)
-    positions = _positions(pos, tokens.shape[1], tokens.device)
+    S = tokens.shape[1]
+    carry = carry_spec(tokens.shape[0], S, cfg.d_model)
+    x = _embed(cfg, params, tokens)
+    positions = _positions(pos, S, tokens.device)
     for l in range(cfg.n_layers):
         x, _ = _block(cfg, _layer(params, l), x, positions=positions,
                       cache=_cache_layer(cache, l), pos=pos)
-    x = rms_norm(x, params["final_norm"])
-    return logits_fn(cfg, params, x), cache
+        x = constrain_carry(x, S, cfg.d_model)
+    fx = carry_features(carry)
+    x = rms_norm(x, params["final_norm"], x_axes=fx)
+    return logits_fn(cfg, params, whole_activation(x, carry),
+                     x_axes=fx), cache
 
 
 def _cache_layer(cache: Dict[str, torch.Tensor], l: int) -> Tuple:
@@ -314,7 +391,7 @@ def _cache_layer(cache: Dict[str, torch.Tensor], l: int) -> Tuple:
 def embed_step(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding against the resident globals (the pre-loop line of
     `forward` / `decode_step`).  tokens: (B, S) int."""
-    return take_rows(params["embed"], tokens)
+    return _embed(cfg, params, tokens)
 
 
 def head_step(cfg: ArchConfig, params, x: torch.Tensor, *,
@@ -332,7 +409,8 @@ def resident_prefill_block(cfg: ArchConfig, lp, x: torch.Tensor, *,
     """One `forward`-collect-cache iteration: full causal attention over the
     prompt, returning the layer's (k, v) for the caller to write into the
     cache at its layer row."""
-    return _block(cfg, lp, x, positions=positions, q_block=q_block)
+    x, kv = _block(cfg, lp, x, positions=positions, q_block=q_block)
+    return constrain_carry(x, positions.shape[-1], cfg.d_model), kv
 
 
 def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int,
@@ -347,7 +425,7 @@ def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int,
     positions = _positions(pos, x.shape[1], x.device)
     x, _ = _block(cfg, lp, x, positions=positions,
                   cache=_cache_layer(cache, l), pos=pos)
-    return x, cache
+    return constrain_carry(x, positions.shape[-1], cfg.d_model), cache
 
 
 # ------------------------------------------------------------- paged KV cache
@@ -407,6 +485,9 @@ def _paged_attn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
     (B, MB*BS) sequence that ``gqa_attention`` masks by ``kv_len`` (then).
     Quantized pools quantize the step's K/V per (token, head) before the
     scatter and dequantize the gathered sequence."""
+    if sharded_compute() is not None:
+        raise NotImplementedError("the paged KV cache under sharded "
+                                  "compute (the pool rests whole)")
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     positions = _positions(pos, S, x.device)                   # (B, S)
@@ -447,11 +528,13 @@ def paged_prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, pool,
     request: ``serving/kvcache/blocks.py``).  Returns (logits (B, S, V),
     pool).
     """
-    x = take_rows(params["embed"], tokens)
+    S = tokens.shape[1]
+    x = _embed(cfg, params, tokens)
     keys, _ = _pool_meta(cfg, pool)
     for l in range(cfg.n_layers):
         x = _paged_block(cfg, _layer(params, l), x,
                          pc={k: pool[k][l] for k in keys}, bt=bt, pos=pos)
+        x = constrain_carry(x, S, cfg.d_model)
     x = rms_norm(x, params["final_norm"])
     return logits_fn(cfg, params, x), pool
 

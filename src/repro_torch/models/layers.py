@@ -16,6 +16,17 @@ decode→dequant→matmul kernel instead.
 Numerics follow the JAX package op for op: dequantize in bf16, attention
 scores from bf16 operands accumulated in float32, RMS norm statistics in
 float32.
+
+Under sharded-compute hints (``distributed.ctx``, the production cells)
+the same functions compute this rank's block: :func:`matmul` is column-
+parallel for a weight whose output channels rest on the model axis and
+row-parallel (a partial sum, reduced in float32) for one whose input
+channels do; :func:`gqa_attention` attends over this rank's heads, or over
+its block of the cache's T with an exact combine; :func:`rms_norm` and
+:func:`take_rows` run on the rank's block of the layer carry, whose layout
+(:func:`carry_spec`) the model code passes with it.  With no hints, and
+under exact TP, every one of them computes what it computed before, op
+for op.
 """
 from __future__ import annotations
 
@@ -26,8 +37,9 @@ import numpy as np
 import torch
 
 from ..distributed import collectives
-from ..distributed.ctx import (Sharded, block_index, constrain_replicated,
-                               get_hints)
+from ..distributed.ctx import (Sharded, block_index, constrain_activation,
+                               constrain_heads, constrain_replicated,
+                               constrain_scores, get_hints, sharded_compute)
 from ..kernels.fused_decode_matmul import FusedQT, fused_decode_matmul
 
 # --------------------------------------------------------------------------- schema
@@ -210,43 +222,193 @@ def gather_weight(w: Any) -> Any:
     """Exact sharded serving and training: all-gather a weight sharded at
     rest (or each part of a QT / QT4 / QTG triple) at its use site; its
     gradient, on a training mesh, goes back to this rank's block summed
-    over the data axes (``distributed.ctx._GatherAtUse``).  The identity
-    unless ``exact_tp`` hints are installed, so every single-device path is
-    unchanged.  A fused payload handle has no sharded form: compressed
-    residency is single-device."""
+    over the data axes (``distributed.ctx._GatherAtUse``).  Under
+    sharded-compute hints only the blocks along axes that are not computed
+    sharded are gathered — the FSDP (data) blocks — and none at all under
+    ``feature_axes``: what stays on the model axis (or the feature axes)
+    stays a :class:`Sharded` block for :func:`matmul` to compute on.  The
+    identity with no hints, so every single-device path is unchanged.  A
+    fused payload handle has no sharded form: compressed residency is
+    single-device."""
     h = get_hints()
-    if h is None or not h.exact_tp:
+    if h is None:
         return w
     if isinstance(w, FusedQT):
         raise NotImplementedError(
             "compressed-resident serving is single-device (see "
             "docs/SERVING.md §\"Which mode when\"); drop mesh= or use "
             "resident='dense'")
+    if not h.exact_tp:
+        if isinstance(w, QTG):
+            raise NotImplementedError("sharded compute serves; training "
+                                      "keeps exact TP")
+        keep = {h.model_axis} | set(h.feature_axes)
+        if isinstance(w, (QT, QT4)):
+            return type(w)(*(_gather_blocks(p, h.mesh, keep) for p in w))
+        return _gather_blocks(w, h.mesh, keep)
     if isinstance(w, (QT, QT4, QTG)):
         return type(w)(*(constrain_replicated(p) for p in w))
     return constrain_replicated(w)
 
 
+def _entry(e) -> Tuple[str, ...]:
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+def _gather_blocks(p: Any, mesh, keep) -> Any:
+    """``p`` with every sharded dim whose axes are not in ``keep``
+    all-gathered: a :class:`Sharded` of the dims still sharded, or the
+    tensor when none is."""
+    if not isinstance(p, Sharded):
+        return p
+    out, spec = p.local, []
+    for d, e in enumerate(p.spec):
+        axes = _entry(e)
+        gone = [a for a in axes if a not in keep]
+        assert not gone or len(gone) == len(axes), \
+            f"a dim sharded over kept and gathered axes {p.spec}"
+        if gone:
+            out = collectives.all_gather(mesh, out, d, e)
+            spec.append(None)
+        else:
+            spec.append(e)
+    return Sharded(out, spec) if any(e is not None for e in spec) else out
+
+
+def _local_weight(w: Any, mesh) -> Tuple[Any, Tuple]:
+    """This rank's block of a (partly gathered) weight as plain tensors — a
+    tensor or a QT / QT4 triple — and the spec its symbols are cut by (one
+    entry a dim).  A replicated scale / zero that spans a sharded dim of
+    the symbols (a per-row scale) is cut to the same block."""
+    parts = tuple(w) if isinstance(w, (QT, QT4)) else (w,)
+    main = parts[0]
+    spec = main.spec if isinstance(main, Sharded) else (None,) * main.dim()
+    loc = main.local if isinstance(main, Sharded) else main
+    full = [n * block_index(mesh, e)[0] for n, e in zip(loc.shape, spec)]
+    out = [loc]
+    for p in parts[1:]:
+        if isinstance(p, Sharded):
+            out.append(p.local)
+            continue
+        t = p
+        for d, (e, n) in enumerate(zip(spec, full)):
+            if e is not None and d < t.dim() and t.shape[d] == n and n > 1:
+                size, idx = block_index(mesh, e)
+                t = t.narrow(d, idx * (n // size), n // size)
+        out.append(t)
+    if isinstance(w, (QT, QT4)):
+        return type(w)(*out), tuple(spec)
+    return out[0], tuple(spec)
+
+
 def deq(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
+    """The weight dequantized in ``dtype`` (bf16 by default); under
+    sharded-compute hints this rank's block of it (after
+    :func:`gather_weight`)."""
     w = gather_weight(w)
+    h = sharded_compute()
+    if h is not None:
+        w, _ = _local_weight(w, h.mesh)
+    if isinstance(w, QTG):
+        return _SteDeq.apply(w.master, w.q, w.scale, w.zero).to(dtype)
+    return _deq_plain(w, dtype)
+
+
+def matmul(x: torch.Tensor, w: Any, *, gather: bool = False,
+           x_axes: Any = None, carry: Optional[tuple] = None) -> torch.Tensor:
+    """x @ w with dequantization at use (bf16 for QT / QT4 weights); a
+    :class:`FusedQT` weight decodes inside the fused kernel (plain ``x @ w``
+    only, as in the JAX package).
+
+    Under sharded-compute hints the product is this rank's block
+    (:func:`_matmul`): ``x_axes`` names the mesh axes ``x``'s last dim is
+    split over (None: whole), ``carry`` the layout of the layer carry a
+    row-parallel product over the model axis hands back
+    (:func:`carry_spec`), and ``gather`` asks for the whole output (the
+    logits, the router's)."""
+    return _matmul(x, w, gather=gather, x_axes=x_axes, carry=carry)[0]
+
+
+def _matmul(x: torch.Tensor, w: Any, *, gather: bool = False,
+            x_axes: Any = None, carry: Optional[tuple] = None
+            ) -> Tuple[torch.Tensor, Tuple[str, ...]]:
+    """:func:`matmul` and the mesh axes its product's last dim is split
+    over (``()`` when whole).
+
+    One rank's ``x @ w`` under sharded compute: the weight stays where it
+    rests after :func:`gather_weight` (its model-axis and feature-axis
+    blocks).  Its output channels on the model axis make the product
+    column-parallel: this rank's output block.  Its input channels on an
+    axis make it row-parallel: ``x``'s matching block (cut here when ``x``
+    is whole along K, gathered first when ``x`` is split over other axes)
+    times the weight's rows is a partial sum, summed over those axes in
+    float32 and rounded once — over the model axis a reduce-scatter along
+    S when ``carry`` splits S there, else an all-reduce; over the feature
+    axes (the weight-stationary decode) an all-reduce of the partial
+    dot."""
+    if isinstance(w, FusedQT):
+        gather_weight(w)            # refuses a mesh
+        return fused_decode_matmul(x, w), ()
+    h = sharded_compute()
+    if h is None:
+        return x @ deq(w, x.dtype), ()
+    mesh = h.mesh
+    wl, spec = _local_weight(gather_weight(w), mesh)
+    wd = _deq_plain(wl, x.dtype)
+    k_axes, x_axes = _split(mesh, spec[-2]), _split(mesh, x_axes)
+    if x_axes and x_axes != k_axes:
+        # x is a block of its features that this weight does not take:
+        # whole features first
+        x = collectives.all_gather(mesh, x, x.dim() - 1, x_axes)
+        x_axes = ()
+    if not k_axes:                  # no rank holds another block of K
+        y = x @ wd
+    else:
+        if not x_axes:
+            K = wd.shape[-2]
+            x = x.narrow(-1, block_index(mesh, k_axes)[1] * K, K)
+        y = _reduce_partial((x @ wd).float(), k_axes, h, carry).to(x.dtype)
+    n_axes = _split(mesh, spec[-1])
+    if gather and spec[-1] is not None:
+        y = collectives.all_gather(mesh, y, y.dim() - 1, spec[-1])
+        n_axes = ()
+    return y, n_axes
+
+
+def _split(mesh, entry) -> Tuple[str, ...]:
+    """The axes of the spec entry ``entry`` when they split a dim (more
+    than one block), else ``()``."""
+    return _entry(entry) if block_index(mesh, entry)[0] > 1 else ()
+
+
+def _reduce_partial(y: torch.Tensor, axes: Tuple[str, ...], h,
+                    carry: Optional[tuple]) -> torch.Tensor:
+    """The sum over ``axes`` of a row-parallel partial product, along S in
+    the layer carry's layout ``carry``: this rank's S block when the carry
+    splits S (a reduce-scatter when over those axes), else an
+    all-reduce."""
+    if carry is not None and carry[1] is not None:
+        if _entry(carry[1]) == axes:
+            return collectives.reduce_scatter(h.mesh, y, 1, carry[1])
+        return _cut(collectives.all_reduce_sum(h.mesh, y, axes), 1,
+                    carry[1], h.mesh)
+    return collectives.all_reduce_sum(h.mesh, y, axes)
+
+
+def _global_rows(n: int, h) -> int:
+    """The global batch of ``n`` rows split over the hints' batch axes."""
+    return n * block_index(h.mesh, h.batch_axes or None)[0]
+
+
+def _deq_plain(w: Any, dtype) -> torch.Tensor:
+    """A tensor or QT / QT4 triple held whole here, dequantized in
+    ``dtype`` (no hints consulted)."""
     if isinstance(w, QT):
         return w.q.to(dtype) * w.scale.to(dtype) + w.zero.to(dtype)
     if isinstance(w, QT4):
         return (_unpack4(w.q).to(dtype) * w.scale.to(dtype)
                 + w.zero.to(dtype))
-    if isinstance(w, QTG):
-        return _SteDeq.apply(w.master, w.q, w.scale, w.zero).to(dtype)
     return w.to(dtype) if w.dtype != dtype else w
-
-
-def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ w with dequantization at use (bf16 for QT / QT4 weights); a
-    :class:`FusedQT` weight decodes inside the fused kernel (plain ``x @ w``
-    only, as in the JAX package)."""
-    if isinstance(w, FusedQT):
-        gather_weight(w)            # refuses a mesh
-        return fused_decode_matmul(x, w)
-    return x @ deq(w, x.dtype)
 
 
 def _row_block_entry(w: Any):
@@ -277,7 +439,7 @@ def _take_sharded_rows(w: Any, idx: torch.Tensor, mesh,
     local = tuple(p.local if isinstance(p, Sharded) else p for p in parts)
     n_loc = next(p for p in parts if isinstance(p, Sharded)).local.shape[0]
     table = type(w)(*local) if isinstance(w, (QT, QT4)) else local[0]
-    rows = take_rows(table, (idx - rank * n_loc).clamp(0, n_loc - 1))
+    rows = _lookup(table, (idx - rank * n_loc).clamp(0, n_loc - 1))
     every = collectives.all_gather(mesh, rows[None], 0, entry)
     owner = (idx // n_loc).clamp(max=size - 1)
     pick = owner.reshape((1,) + owner.shape + (1,)).expand(
@@ -285,20 +447,57 @@ def _take_sharded_rows(w: Any, idx: torch.Tensor, mesh,
     return torch.gather(every, 0, pick)[0]
 
 
-def take_rows(w: Any, idx: torch.Tensor) -> torch.Tensor:
+def take_rows(w: Any, idx: torch.Tensor,
+              carry: Optional[tuple] = None) -> torch.Tensor:
     """Embedding lookup honoring quantized tables (dequantize only gathered
     rows; a :class:`QTG` table's rows go through the straight-through
     estimator with the master's rows).  A table sharded at rest is
     gathered first (:func:`gather_weight`), or, when only its rows are
     sharded and no gradient is taken on the mesh (``grad_axes``), only the
-    looked-up rows are (:func:`_take_sharded_rows`)."""
+    looked-up rows are (:func:`_take_sharded_rows`).  Under sharded-compute
+    hints the rows are handed back as the layer carry ``carry``
+    (:func:`carry_spec`) rests."""
     h = get_hints()
     if h is not None and h.exact_tp and not h.grad_axes \
             and not isinstance(w, QTG):
         entry = _row_block_entry(w)
         if entry is not None:
             return _take_sharded_rows(w, idx, h.mesh, entry)
-    w = gather_weight(w)
+    if h is not None and not h.exact_tp:
+        # sharded compute: the FSDP blocks gathered; a table whose rows rest
+        # on the model axis is a row-parallel product (one-hot rows times
+        # the table): each rank's rows of the tokens it holds, zeros for
+        # the others, summed onto the carry's layout (exact: one term a
+        # row is not zero); under feature_axes each rank's rows keep its
+        # block of the features (the stationary carry)
+        table, spec = _local_weight(gather_weight(w), h.mesh)
+        rows_axes, f_axes = _split(h.mesh, spec[0]), _split(h.mesh, spec[-1])
+        if not rows_axes:
+            out = _lookup(table, idx)
+            if carry is not None:
+                out = _cut(out, 1, carry[1], h.mesh)
+        else:
+            parts = tuple(table) if isinstance(table, (QT, QT4)) \
+                else (table,)
+            n_loc = parts[0].shape[0]
+            local = idx - block_index(h.mesh, rows_axes)[1] * n_loc
+            own = ((local >= 0) & (local < n_loc))[..., None]
+            rows = _lookup(table, local.clamp(0, n_loc - 1))
+            out = _reduce_partial(
+                torch.where(own, rows, torch.zeros_like(rows)), rows_axes, h,
+                carry)
+        if carry is not None and not f_axes:
+            out = _cut(out, -1, carry[-1], h.mesh)
+        assert not f_axes or (carry is not None
+                              and f_axes == _split(h.mesh, carry[-1])), \
+            (spec, carry)
+        return out
+    return _lookup(gather_weight(w), idx)
+
+
+def _lookup(w: Any, idx: torch.Tensor) -> torch.Tensor:
+    """The rows ``idx`` of a table held whole (a tensor or a QT / QT4 /
+    QTG), dequantized."""
     if isinstance(w, QTG):
         scale = w.scale if w.scale.shape[0] == 1 else w.scale[idx]
         zero = w.zero if w.zero.shape[0] == 1 else w.zero[idx]
@@ -318,9 +517,21 @@ def take_rows(w: Any, idx: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------------ primitives
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+             x_axes: Any = None) -> torch.Tensor:
+    """RMS norm over the last dim, statistics in float32.  Under
+    sharded-compute hints ``x_axes`` names the mesh axes ``x``'s features
+    are split over (a layer carry's in the weight-stationary decode): the
+    squares are summed over them and ``scale`` is cut to the block."""
     scale = gather_weight(scale)
+    h = sharded_compute()
+    axes = () if h is None else _split(h.mesh, x_axes)
+    if axes:
+        xf = x.float()
+        ss = collectives.all_reduce_sum(
+            h.mesh, torch.sum(xf * xf, dim=-1, keepdim=True), axes)
+        return (xf * torch.rsqrt(ss / scale.shape[-1] + eps)).to(x.dtype) \
+            * _cut(scale, -1, axes, h.mesh).to(x.dtype)
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
@@ -370,10 +581,14 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def swiglu(x: torch.Tensor, w_gate: Any, w_up: Any, w_down: Any) -> torch.Tensor:
-    g = matmul(x, w_gate)
-    u = matmul(x, w_up)
-    return matmul(silu(g) * u, w_down)
+def swiglu(x: torch.Tensor, w_gate: Any, w_up: Any, w_down: Any, *,
+           x_axes: Any = None, carry: Optional[tuple] = None) -> torch.Tensor:
+    """``silu(x @ w_gate) * (x @ w_up) @ w_down``; under sharded compute
+    the hidden is the gate's column block and ``w_down`` takes it
+    row-parallel (``x_axes`` and ``carry`` as in :func:`matmul`)."""
+    g, g_axes = _matmul(x, w_gate, x_axes=x_axes)
+    u = matmul(x, w_up, x_axes=x_axes)
+    return matmul(silu(g) * u, w_down, x_axes=g_axes, carry=carry)
 
 
 # -------------------------------------------------------------------------- attention
@@ -383,7 +598,8 @@ NEG_INF = -1e9
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, q_offset: Any = 0,
-                  kv_len: Any = None, q_block: int = 0) -> torch.Tensor:
+                  kv_len: Any = None, q_block: int = 0,
+                  kv_axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """Grouped-query attention.
 
     q: (B, S, H, hd); k, v: (B, T, KV, hd).  ``q_offset`` (global position
@@ -399,6 +615,12 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     multiple of it), so the live score tensor is (B, H, q_block, T) instead
     of (B, H, S, T); each block's softmax is exact over all of T.  Per-slot
     offsets take one block, as in the JAX package.
+
+    Sharded compute: q / k / v are this rank's heads
+    (:func:`attention_blocks`), and with ``kv_axes`` k / v are this rank's
+    block of a T split over those mesh axes (the block at the rank's
+    coordinate, its positions global): :func:`_combine` makes the softmax
+    over all of T exact across the blocks.
     """
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -410,6 +632,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = k[:, :, :, None, :].expand(B, T, KV, G, hd).reshape(B, T, H, hd)
         v = v[:, :, :, None, :].expand(B, T, KV, G, hd).reshape(B, T, H, hd)
 
+    t0 = 0
+    if kv_axes:
+        h = get_hints()
+        t0 = block_index(h.mesh, kv_axes)[1] * T
+
     def block(qb: torch.Tensor, off: Any, kf=None) -> torch.Tensor:
         # one block's float32 copy of k is a temporary of the product;
         # blocks share one (``kf``)
@@ -419,15 +646,20 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          kf if kf is not None
                          else k.to(torch.bfloat16).float())
         if _per_slot(off) or _per_slot(kv_len):
-            mask = _slot_mask(B, Sb, T, causal, off, kv_len, q.device)
+            mask = _slot_mask(B, Sb, T, causal, off, kv_len, q.device, t0)
         else:
             tpos = torch.arange(T, device=q.device)
+            if t0:
+                tpos = tpos + t0
             qpos = off + torch.arange(Sb, device=q.device)
             mask = torch.ones((Sb, T), dtype=torch.bool, device=q.device)
             if causal:
                 mask &= tpos <= qpos[:, None]
             if kv_len is not None:
                 mask &= tpos < kv_len
+        if kv_axes:
+            return _combine(torch.where(mask, s, NEG_INF), v, h.mesh,
+                            kv_axes)
         p = softmax(torch.where(mask, s, NEG_INF))
         return torch.einsum("bnst,btnh->bsnh", p.to(v.dtype), v)
 
@@ -439,6 +671,105 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.to(torch.bfloat16).float()
     return torch.cat([block(q[:, i:i + q_block], q_offset + i, kf)
                       for i in range(0, S, q_block)], dim=1)
+
+
+def _combine(s: torch.Tensor, v: torch.Tensor, mesh,
+             axes: Tuple[str, ...]) -> torch.Tensor:
+    """``softmax(s) @ v`` over a T split across the ranks of ``axes``, each
+    holding its block of the masked float32 scores ``s`` (B, H, Sq, T_loc)
+    and of ``v``: the row maxima all-reduced by max (exact), each block's
+    exps taken against that global max and their sums all-reduced, so
+    every probability is the unsplit softmax's up to the order of that
+    float32 sum; the probabilities are cast to ``v``'s dtype before the
+    second product, as unsplit; the partial outputs are accumulated and
+    summed over the ranks in float32, then rounded to ``v``'s dtype once.
+    A block that every row masks contributes exps of 0."""
+    m = collectives.all_reduce(mesh, s.amax(dim=-1, keepdim=True), axes,
+                               "max")
+    e = torch.exp(s - m)
+    total = collectives.all_reduce_sum(mesh, e.sum(dim=-1, keepdim=True),
+                                       axes)
+    p = (e / total).to(v.dtype)
+    o = torch.einsum("bnst,btnh->bsnh", p.float(), v.float())
+    return collectives.all_reduce_sum(mesh, o, axes).to(v.dtype)
+
+
+def _kv_run(H: int, KV: int, h0: int, Hl: int) -> Optional[Tuple[int, int]]:
+    """The KV heads ``[kv0, kv1)`` q heads ``[h0, h0 + Hl)`` read, when they
+    read them as whole groups (or all one head); None otherwise."""
+    G = H // KV
+    kv0, kv1 = h0 // G, (h0 + Hl - 1) // G + 1
+    if Hl % (kv1 - kv0) == 0 and (Hl // (kv1 - kv0) == G or kv1 - kv0 == 1):
+        return kv0, kv1
+    return None
+
+
+def attention_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     n_heads: int, n_kv_heads: int, cache_side: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                Tuple[str, ...], Tuple[str, ...]]:
+    """q (B, S, Hq, hd), k / v (B, T, KVc, hd) as this rank attends them
+    under sharded-compute hints, the axes their T is split over
+    (``gqa_attention``'s ``kv_axes``) and the axes the heads are (the
+    attention output's, ``wo``'s ``x_axes``); the inputs themselves and
+    ``()``, ``()`` otherwise.
+
+    q arrives with the heads its projection's weight holds (all ``n_heads``
+    or the model-axis block), k / v with the KV heads theirs hold (all or
+    the block) and, on the cache side, the T block the cache holds
+    (``cache_seq_axes``).  :func:`~repro_torch.distributed.ctx.
+    constrain_scores` decides the compute's layout: heads over the model
+    axis, or T over ``kv_seq_axes`` (then every head on every rank).  q
+    head h reads KV head ``h // (n_heads / n_kv_heads)``, so a block of q
+    heads reads a contiguous run of KV heads."""
+    h = sharded_compute()
+    if h is None:
+        return q, k, v, (), ()
+    mesh = h.mesh
+    B, S, _, hd = q.shape
+    H, KV = n_heads, n_kv_heads
+    G = H // KV
+    T = k.shape[1]
+    split_t = cache_side and bool(h.cache_seq_axes)
+    if split_t:
+        T *= block_index(mesh, h.cache_seq_axes)[0]
+    Bg = _global_rows(B, h)
+    _, heads, _, seq = constrain_scores((Bg, H, S, T))
+    kseq = constrain_heads((Bg, T, H, hd), is_cache_side=cache_side)[1]
+    assert kseq in (None, seq), (kseq, seq)
+    if split_t:
+        assert _entry(seq) == tuple(h.cache_seq_axes), \
+            (seq, h.cache_seq_axes)
+    m = h.model_axis
+    if heads is not None:
+        size, idx = block_index(mesh, heads)
+        Hl = H // size
+        h0 = idx * Hl
+        if q.shape[2] == H:
+            q = q[:, :, h0:h0 + Hl]
+        assert q.shape[2] == Hl, (tuple(q.shape), Hl)
+        run = _kv_run(H, KV, h0, Hl)
+        if k.shape[2] == KV and (run is None or run[1] - run[0] < KV):
+            # every KV head rests here: those the block reads
+            if run is not None:
+                k, v = k[:, :, run[0]:run[1]], v[:, :, run[0]:run[1]]
+            else:                     # no whole group: one KV head a q head
+                sel = torch.arange(h0, h0 + Hl, device=k.device) // G
+                k, v = k[:, :, sel], v[:, :, sel]
+        # else the KV heads the block reads already (the projection's block)
+        assert Hl % k.shape[2] == 0, (Hl, tuple(k.shape))
+    else:
+        if q.shape[2] != H:
+            q = collectives.all_gather(mesh, q, 2, m)
+        if k.shape[2] != KV:
+            k = collectives.all_gather(mesh, k, 2, m)
+            v = collectives.all_gather(mesh, v, 2, m)
+    if seq is not None and not split_t:
+        # a whole T attended split (a T-split decision over a whole k)
+        size, idx = block_index(mesh, seq)
+        Tl = T // size
+        k, v = k[:, idx * Tl:(idx + 1) * Tl], v[:, idx * Tl:(idx + 1) * Tl]
+    return q, k, v, _entry(seq), _split(mesh, heads)
 
 
 def head_block(q: torch.Tensor, k: torch.Tensor,
@@ -475,11 +806,16 @@ def _per_slot(a: Any) -> bool:
 
 
 def _slot_mask(B: int, S: int, T: int, causal: bool, q_offset: Any,
-               kv_len: Any, device: torch.device) -> torch.Tensor:
+               kv_len: Any, device: torch.device,
+               t0: int = 0) -> torch.Tensor:
     """(B, 1, S, T) mask of a slot batch: row b keeps ``tpos <= q_offset[b]
     + s`` (causal) and ``tpos < kv_len[b]``; a scalar stands for every row.
-    The head axis broadcasts against the (B, H, S, T) scores."""
+    The head axis broadcasts against the (B, H, S, T) scores.  ``t0`` is
+    the global position of the first of the T columns (a block of a split
+    T)."""
     tpos = torch.arange(T, device=device)
+    if t0:
+        tpos = tpos + t0
     qpos = (torch.as_tensor(q_offset, device=device).reshape(-1, 1)
             + torch.arange(S, device=device))                 # (B|1, S)
     mask = torch.ones((B, S, T), dtype=torch.bool, device=device)
@@ -502,6 +838,10 @@ def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
     step).
     """
     S = k.shape[1]
+    h = sharded_compute()
+    if h is not None and h.cache_seq_axes:
+        _update_owned(cache_k, cache_v, k, v, pos, h)
+        return
     if _per_slot(pos):
         rows = torch.arange(k.shape[0], device=k.device)[:, None]
         cols = pos.to(k.device).reshape(-1, 1) + torch.arange(S,
@@ -511,6 +851,158 @@ def update_kv_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
         return
     cache_k[:, pos:pos + S] = k.to(cache_k.dtype)
     cache_v[:, pos:pos + S] = v.to(cache_v.dtype)
+
+
+def _update_owned(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, pos: Any, h) -> None:
+    """:func:`update_kv_cache` of a cache whose T rests split over
+    ``cache_seq_axes``: this rank holds the positions
+    ``[t0, t0 + T_loc)`` and writes only the step's rows that land there
+    (the others' owners write theirs)."""
+    S, Tl = k.shape[1], cache_k.shape[1]
+    t0 = block_index(h.mesh, h.cache_seq_axes)[1] * Tl
+    if _per_slot(pos):
+        gpos = pos.to(k.device).reshape(-1, 1) + torch.arange(
+            S, device=k.device)                             # (B, S)
+        own = (gpos >= t0) & (gpos < t0 + Tl)
+        rows = torch.arange(k.shape[0], device=k.device)[:, None].expand(
+            -1, S)
+        cache_k[rows[own], gpos[own] - t0] = k[own].to(cache_k.dtype)
+        cache_v[rows[own], gpos[own] - t0] = v[own].to(cache_v.dtype)
+        return
+    lo, hi = max(pos, t0), min(pos + S, t0 + Tl)
+    if lo < hi:
+        cache_k[:, lo - t0:hi - t0] = k[:, lo - pos:hi - pos].to(
+            cache_k.dtype)
+        cache_v[:, lo - t0:hi - t0] = v[:, lo - pos:hi - pos].to(
+            cache_v.dtype)
+
+
+# --------------------------------------------------------- the layer carry
+#
+# Under sharded-compute hints a layer carry (B, S, D) rests as
+# ``distributed.ctx.constrain_activation`` decides for its global shape
+# (:func:`carry_spec`): this rank's rows (split by the caller), and its
+# block of S over the model axis (sequence parallelism) or of D over the
+# feature axes (the weight-stationary decode).  The model code takes that
+# decision once a step and hands it, with the carry, to the functions that
+# read the layout (these, :func:`take_rows`, :func:`rms_norm`,
+# :func:`matmul`), which never infer it from a tensor's size.  With no
+# hints, or exact-TP ones, the decision is None and each is the identity.
+
+
+def carry_spec(rows: int, S: int, D: int) -> Optional[tuple]:
+    """The layout of a layer carry of this rank's ``rows`` rows, ``S``
+    positions and ``D`` features under sharded-compute hints (the spec
+    ``constrain_activation`` decides for its global shape); None when it
+    rests whole, with no hints or exact-TP ones."""
+    h = sharded_compute()
+    if h is None:
+        return None
+    return constrain_activation((_global_rows(rows, h), S, D))
+
+
+def carry_features(spec: Optional[tuple]) -> Any:
+    """The mesh axes a carry of layout ``spec`` splits its features over
+    (None when whole): the ``x_axes`` of its norm and of its products."""
+    return None if spec is None else spec[-1]
+
+
+def _cut(x: torch.Tensor, dim: int, entry, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` (whole along ``dim``) over the spec entry
+    ``entry``; ``x`` itself when ``entry`` is None."""
+    size, idx = block_index(mesh, entry)
+    n = x.shape[dim] // size
+    assert n * size == x.shape[dim], (tuple(x.shape), dim, entry)
+    return x if size == 1 else x.narrow(dim, idx * n, n)
+
+
+def activation_block(x: torch.Tensor, spec: Optional[tuple]) -> torch.Tensor:
+    """This rank's block of a layer carry held whole along S and D (its
+    rows this rank's): cut along each dim its layout ``spec`` splits."""
+    if spec is None:
+        return x
+    mesh = sharded_compute().mesh
+    return _cut(_cut(x, 1, spec[1], mesh), -1, spec[-1], mesh)
+
+
+def constrain_carry(x: torch.Tensor, S: int, D: int) -> torch.Tensor:
+    """The JAX package's ``constrain_activation`` of a layer carry of ``S``
+    positions and ``D`` features, at its places (after the embedding, after
+    each layer).  The carry's producers here — :func:`take_rows` and the
+    row-parallel products, and the residual sums of them — already hand
+    back this rank's block of the layout :func:`carry_spec` decides, so
+    this asserts it and returns ``x``."""
+    spec = carry_spec(x.shape[0], S, D)
+    if spec is not None:
+        mesh = sharded_compute().mesh
+        want = (x.shape[0], S // block_index(mesh, spec[1])[0],
+                D // block_index(mesh, spec[-1])[0])
+        assert tuple(x.shape) == want, (tuple(x.shape), want, spec)
+    return x
+
+
+def whole_activation(x: torch.Tensor, spec: Optional[tuple], *,
+                     features: bool = False) -> torch.Tensor:
+    """A layer carry of layout ``spec`` with its S positions whole
+    (all-gathered over the model axis when sequence-parallel) and, with
+    ``features``, its D whole (all-gathered over the feature axes); rows
+    stay this rank's."""
+    if spec is None:
+        return x
+    mesh = sharded_compute().mesh
+    if spec[1] is not None:
+        x = collectives.all_gather(mesh, x, 1, spec[1])
+    if features and spec[-1] is not None:
+        x = collectives.all_gather(mesh, x, x.dim() - 1, spec[-1])
+    return x
+
+
+def last_position(x: torch.Tensor, spec: Optional[tuple]) -> torch.Tensor:
+    """``x[:, -1:]`` of a layer carry of layout ``spec``: from the last
+    rank along the model axis when the carry is split along S."""
+    if spec is None or spec[1] is None:
+        return x[:, -1:]
+    mesh = sharded_compute().mesh
+    (m,) = _entry(spec[1])
+    return collectives.pick(mesh, x[:, -1:], m, mesh.shape[m] - 1)
+
+
+def cache_rows(t: Any) -> Any:
+    """This rank's block of activation rows that are whole on every rank
+    where the cache's rows are split (``cache_batch_axes``, the
+    weight-stationary decode); ``t`` otherwise (ints too)."""
+    h = sharded_compute()
+    if h is None or not h.cache_batch_axes or not isinstance(
+            t, torch.Tensor) or t.dim() == 0:
+        return t
+    size, idx = block_index(h.mesh, h.cache_batch_axes)
+    n = t.shape[0] // size
+    return t[idx * n:(idx + 1) * n]
+
+
+def gather_cache_rows(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`cache_rows`: every rank's rows, gathered."""
+    h = sharded_compute()
+    if h is None or not h.cache_batch_axes:
+        return t
+    return collectives.all_gather(h.mesh, t, 0, h.cache_batch_axes)
+
+
+def cache_seq_block(S: int, max_len: int) -> Tuple[int, int, int, int]:
+    """(lo, hi, t0, T_loc): the positions ``[lo, hi)`` of a prompt's
+    ``[0, S)`` that this rank's block of a ``max_len``-row cache holds,
+    the block's first position and its length — ``(0, S, 0, max_len)``
+    unless the cache's T rests split (``cache_seq_axes``)."""
+    h = sharded_compute()
+    if h is None or not h.cache_seq_axes:
+        return 0, S, 0, max_len
+    size, idx = block_index(h.mesh, h.cache_seq_axes)
+    Tl = max_len // size
+    assert Tl * size == max_len, (max_len, h.cache_seq_axes)
+    t0 = idx * Tl
+    hi = min(S, t0 + Tl)
+    return min(t0, hi), hi, t0, Tl
 
 
 # ------------------------------------------------------------- paged KV cache

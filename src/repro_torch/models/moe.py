@@ -22,7 +22,13 @@ local.
 Under exact-TP serving hints (``ServeSteps`` on a mesh) whose batch rows
 are split over data axes, the feed-forward gathers the rows of the whole
 batch first: the capacity is shared across the batch, so only the whole
-batch routes and drops tokens exactly as one device does.
+batch routes and drops tokens exactly as one device does.  Under
+sharded-compute hints (the production cells) it gathers what the dispatch
+needs — the batch's rows, the carry's S and, in the weight-stationary
+layout, its features — routes and runs this rank's experts under the
+installed :class:`EPContext`, and hands back its block of the carry; the
+shared experts are column- / row-parallel matmuls on the carry as the
+dense family's feed-forward is.
 
 Attention, caches, the per-layer weight slots of compressed-resident
 serving and the paged block pool are the dense family's.
@@ -38,9 +44,11 @@ from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed.ctx import get_hints, local_block, set_hints
 from . import dense
-from .layers import (Schema, Spec, checkpointed, deq, init_params, matmul,
-                     rms_norm, silu, softmax, softmax_xent, stacked_layers,
-                     swiglu, take_rows, top_k)
+from .layers import (Schema, Spec, activation_block, carry_features,
+                     carry_spec, checkpointed, constrain_carry, deq,
+                     init_params, last_position, matmul, rms_norm, silu,
+                     softmax, softmax_xent, stacked_layers, swiglu, top_k,
+                     whole_activation)
 
 # ----------------------------------------------------------------- EP mesh context
 
@@ -156,7 +164,7 @@ def route(x: torch.Tensor, router: Any,
     """The router: float32 probabilities over the experts, and each token's
     top-``K`` choices with their gates renormalised to sum to one.
     Returns (probs, gates, idx)."""
-    logits = matmul(x, router).float()                      # (B, S, E)
+    logits = matmul(x, router, gather=True).float()         # (B, S, E)
     probs = softmax(logits)
     gates, idx = top_k(probs, K)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -192,14 +200,60 @@ def _whole_batch(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
     return local_block(y, (entry,), h.mesh), aux
 
 
+def _sharded_moe(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
+                 E: int, h, carry: Optional[tuple]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_mlp` under sharded-compute hints.  ``x`` is this rank's
+    rows with every position and feature (the caller gathers them).  The
+    routed experts run on the whole batch's rows (the capacity is shared,
+    as on one device) under the installed EP context — this rank's experts,
+    summed over the model axis — and the rank keeps its rows, then its
+    block of the carry's layout ``carry``; the shared experts compute on
+    ``x`` and hand back that block themselves (row-parallel
+    ``shared_w_down``)."""
+    assert get_ep_context() is not None, \
+        "sharded compute of the MoE family needs an EPContext installed"
+    full = collectives.all_gather(h.mesh, x, 0, h.batch_axes) \
+        if h.batch_axes else x
+    set_hints(dataclasses.replace(h, batch_axes=()))
+    try:
+        y, aux = _routed(full, wts, mcfg, E)
+    finally:
+        set_hints(h)
+    if h.batch_axes:
+        entry = h.batch_axes if len(h.batch_axes) > 1 else h.batch_axes[0]
+        y = local_block(y, (entry,), h.mesh)
+    y = activation_block(y, carry)
+    if mcfg.shared_experts:
+        y = y + swiglu(x, wts["shared_w_gate"], wts["shared_w_up"],
+                       wts["shared_w_down"], carry=carry)
+    return y, aux
+
+
 def moe_mlp(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
-            n_experts_padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE feed-forward.  Returns (y, load_balance_aux)."""
-    B, S, D = x.shape
-    E, K = n_experts_padded, mcfg.top_k
+            n_experts_padded: int, carry: Optional[tuple] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE feed-forward.  Returns (y, load_balance_aux).  Under
+    sharded-compute hints ``y`` takes the layer carry's layout ``carry``
+    (``layers.carry_spec``)."""
+    E = n_experts_padded
     h = get_hints()
     if h is not None and h.exact_tp and h.batch_axes:
         return _whole_batch(x, wts, mcfg, E, h)
+    if h is not None and not h.exact_tp:
+        return _sharded_moe(x, wts, mcfg, E, h, carry)
+    y, aux = _routed(x, wts, mcfg, E)
+    if mcfg.shared_experts:
+        y = y + swiglu(x, wts["shared_w_gate"], wts["shared_w_up"],
+                       wts["shared_w_down"])
+    return y, aux
+
+
+def _routed(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
+            E: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts' output and the load-balance aux."""
+    B, S, D = x.shape
+    K = mcfg.top_k
     probs, gates, idx = route(x, wts["router"], K)
 
     # Switch-style load-balance aux: E * sum_e f_e * p_e
@@ -229,9 +283,6 @@ def moe_mlp(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
                      E_loc=E // msize,
                      C=_capacity(B * S, K, E, mcfg.capacity_factor),
                      psum_axes=tuple(ctx.data_axes) if stationary else ())
-    if mcfg.shared_experts:
-        y = y + swiglu(x, wts["shared_w_gate"], wts["shared_w_up"],
-                       wts["shared_w_down"])
     return y, aux
 
 
@@ -293,36 +344,44 @@ def _moe_wts(lp: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0,
-           q_block: int = 0):
+           q_block: int = 0, keep: Optional[Tuple[int, int]] = None):
+    carry = carry_spec(x.shape[0], positions.shape[-1], cfg.d_model)
     attn_out, kv = dense._attn(cfg, lp, x, positions=positions, cache=cache,
-                               pos=pos, q_block=q_block)
+                               pos=pos, q_block=q_block, keep=keep,
+                               carry=carry)
     x = x + attn_out
-    h = rms_norm(x, lp["mlp_norm"])
-    y, aux = moe_mlp(h, _moe_wts(lp), cfg.moe, _padded_experts(cfg))
+    h = whole_activation(rms_norm(x, lp["mlp_norm"],
+                                  x_axes=carry_features(carry)),
+                         carry, features=True)
+    y, aux = moe_mlp(h, _moe_wts(lp), cfg.moe, _padded_experts(cfg), carry)
     return x + y, kv, aux
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             remat: bool = False, collect_cache: bool = False,
-            q_block: int = 0):
+            q_block: int = 0, cache_len: Optional[int] = None):
     """Full-sequence forward.  Returns (hidden, [(k, v) per layer] | None,
     the load-balance aux averaged over the layers).  ``remat`` recomputes
     each layer in the backward; the replay routes the same tokens to the
-    same slots, since it sees the same inputs."""
+    same slots, since it sees the same inputs.  ``cache_len`` as in
+    :func:`dense.forward`."""
     S = tokens.shape[1]
-    x = take_rows(params["embed"], tokens)
+    carry = carry_spec(tokens.shape[0], S, cfg.d_model)
+    x = dense._embed(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)
     aux_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    keep = dense._kept_rows(S, cache_len) if collect_cache else None
     block = checkpointed(
         lambda lp, x: _block(cfg, lp, x, positions=positions,
-                             q_block=q_block), remat)
+                             q_block=q_block, keep=keep), remat)
     caches = []
     for lp in stacked_layers(params, "layers", cfg.n_layers):
         x, kv, aux = block(lp, x)
+        x = constrain_carry(x, S, cfg.d_model)
         aux_sum = aux_sum + aux
         if collect_cache:
             caches.append(kv)
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry))
     return x, (caches if collect_cache else None), aux_sum / cfg.n_layers
 
 
@@ -345,10 +404,13 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None, q_block: int = 0):
     """Run the prompt; return (last-position logits, cache padded to
     max_len)."""
+    S = tokens.shape[1]
     x, caches, _ = forward(cfg, params, tokens, collect_cache=True,
-                           q_block=q_block)
-    cache = dense._prefill_cache(cfg, caches, max_len or tokens.shape[1])
-    return dense.logits_fn(cfg, params, x[:, -1:, :]), cache
+                           q_block=q_block, cache_len=max_len or S)
+    cache = dense._prefill_cache(cfg, caches, max_len or S, S)
+    carry = carry_spec(tokens.shape[0], S, cfg.d_model)
+    return dense.logits_fn(cfg, params, last_position(x, carry),
+                           x_axes=carry_features(carry)), cache
 
 
 def _kv(cache: Dict[str, torch.Tensor], l: int) -> Tuple:
@@ -371,13 +433,18 @@ def prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, cache, pos):
     overflows: serve with ``capacity_factor >= E / top_k`` where outputs
     must not depend on the batch packing.
     """
-    x = take_rows(params["embed"], tokens)
-    positions = dense._positions(pos, tokens.shape[1], tokens.device)
+    S = tokens.shape[1]
+    carry = carry_spec(tokens.shape[0], S, cfg.d_model)
+    x = dense._embed(cfg, params, tokens)
+    positions = dense._positions(pos, S, tokens.device)
     for l in range(cfg.n_layers):
         x, _, _ = _block(cfg, dense._layer(params, l), x, positions=positions,
                          cache=_kv(cache, l), pos=pos)
-    x = rms_norm(x, params["final_norm"])
-    return dense.logits_fn(cfg, params, x), cache
+        x = constrain_carry(x, S, cfg.d_model)
+    fx = carry_features(carry)
+    x = rms_norm(x, params["final_norm"], x_axes=fx)
+    return dense.logits_fn(cfg, params, whole_activation(x, carry),
+                           x_axes=fx), cache
 
 
 # ------------------------------------------------- compressed-resident serving
@@ -398,7 +465,7 @@ def resident_prefill_block(cfg: ArchConfig, lp, x: torch.Tensor, *,
     """One `forward`-collect-cache iteration; the load-balance aux is
     dropped (serving never reads it, matching `prefill`)."""
     x, kv, _ = _block(cfg, lp, x, positions=positions, q_block=q_block)
-    return x, kv
+    return constrain_carry(x, positions.shape[-1], cfg.d_model), kv
 
 
 def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int, pos):
@@ -407,7 +474,7 @@ def resident_block(cfg: ArchConfig, lp, x: torch.Tensor, cache, l: int, pos):
     positions = dense._positions(pos, x.shape[1], x.device)
     x, _, _ = _block(cfg, lp, x, positions=positions, cache=_kv(cache, l),
                      pos=pos)
-    return x, cache
+    return constrain_carry(x, positions.shape[-1], cfg.d_model), cache
 
 
 # ------------------------------------------------------------- paged KV cache
@@ -430,11 +497,13 @@ def paged_prefill_chunk(cfg: ArchConfig, params, tokens: torch.Tensor, pool,
                         bt: torch.Tensor, pos: torch.Tensor):
     """Chunked prefill through the block table (see
     :func:`dense.paged_prefill_chunk`).  Returns (logits (B, S, V), pool)."""
-    x = take_rows(params["embed"], tokens)
+    S = tokens.shape[1]
+    x = dense._embed(cfg, params, tokens)
     keys, _ = dense._pool_meta(cfg, pool)
     for l in range(cfg.n_layers):
         x = _paged_block(cfg, dense._layer(params, l), x,
                          pc={k: pool[k][l] for k in keys}, bt=bt, pos=pos)
+        x = constrain_carry(x, S, cfg.d_model)
     x = rms_norm(x, params["final_norm"])
     return dense.logits_fn(cfg, params, x), pool
 

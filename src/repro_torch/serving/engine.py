@@ -322,10 +322,20 @@ class ServeSteps:
     installed for the step only, so co-resident single-device work never
     sees them.  Compressed residency is single-device (``mesh`` must stay
     None).
+
+    ``hints`` replaces the exact-TP profile by sharded compute (the
+    production cells' :class:`~repro_torch.distributed.ctx.ShardingHints`,
+    ``exact_tp`` off; ``ep``, the MoE family's
+    :class:`~repro_torch.models.moe.EPContext`, is installed beside them):
+    each rank computes only its block, within a tolerance of one device.
+    The cache is then placed by the reference's serving rules
+    (``sharding.kv_serve_rules``): the KV heads over the model axis where
+    whole heads divide it, the sequence over it otherwise.  Dense and MoE
+    families only; the paged twins are not offered (the pool rests whole).
     """
 
     def __init__(self, cfg: ArchConfig, sc: ServeConfig, *,
-                 mesh=None, resident: str = "dense"):
+                 mesh=None, resident: str = "dense", hints=None, ep=None):
         if resident not in ("dense", "compressed"):
             raise ValueError(f"resident must be 'dense' or 'compressed', "
                              f"got {resident!r}")
@@ -346,6 +356,9 @@ class ServeSteps:
         self.resident = resident
         self.mesh = mesh
         self.rules = None
+        self.hints, self.ep = hints, ep
+        self.cache_seq: tuple = ()
+        self._cache_row_axes: tuple = ()
         self.head_axes: tuple = ()
         self.local_heads_kw: dict = {}
         self._cache_shardings_memo: dict = {}
@@ -360,10 +373,23 @@ class ServeSteps:
             self.paged_decode_fn = self._paged_decode
             self.paged_prefill_chunk_fn = self._paged_prefill_chunk
         self._row_axes: tuple = ()
+        if hints is not None:
+            if mesh is None or hints.exact_tp \
+                    or cfg.family not in EXACT_TP_FAMILIES:
+                raise ValueError(
+                    f"sharded-compute hints need a mesh and a dense or MoE "
+                    f"config (family {cfg.family!r}, exact_tp "
+                    f"{hints.exact_tp})")
+            self.paged_decode_fn = self.paged_prefill_chunk_fn = None
         if mesh is not None:
             from repro_torch.distributed import sharding as shd
             rules = serve_mesh_rules(cfg, mesh)
-            if cfg.family in EXACT_TP_FAMILIES:
+            if hints is not None:
+                rules, _ = shd.kv_serve_rules(cfg, mesh)
+                rules = shd.arch_rules(cfg, mesh, rules)
+                self.cache_seq = shd.entry_axes(shd.resolve_spec(
+                    ("kv_seq",), (sc.max_len,), rules, mesh).padded(1)[0])
+            elif cfg.family in EXACT_TP_FAMILIES:
                 # the mesh axes the KV heads split over, as the cache's
                 # "kv" dim resolves (none unless whole heads divide them)
                 self.head_axes = shd.entry_axes(shd.resolve_spec(
@@ -384,36 +410,59 @@ class ServeSteps:
                     self.paged_prefill_chunk_fn)
 
     @contextlib.contextmanager
-    def rows_over(self, axes: tuple):
+    def rows_over(self, axes: tuple, cache_axes: Optional[tuple] = None):
         """Steps called inside take batch rows split over the mesh ``axes``
         (this rank's block; ``()`` for rows every rank of the data axes
         holds alike): the hints say so to the layers whose semantics span
         the whole batch (the MoE dispatch's shared capacity), which gather
-        the rows they need."""
-        prev, self._row_axes = self._row_axes, tuple(axes)
+        the rows they need.  ``cache_axes`` (sharded compute) names the
+        axes the cache's rows split over when they differ: rows whole
+        (``axes`` empty) over a cache split by rows, the weight-stationary
+        decode."""
+        cache_axes = tuple(axes) if cache_axes is None else tuple(cache_axes)
+        if cache_axes != tuple(axes) and axes:
+            raise ValueError(f"rows split over {axes} with a cache split "
+                             f"over {cache_axes}")
+        prev = self._row_axes, self._cache_row_axes
+        self._row_axes = tuple(axes)
+        self._cache_row_axes = () if cache_axes == tuple(axes) else cache_axes
         try:
             yield
         finally:
-            self._row_axes = prev
+            self._row_axes, self._cache_row_axes = prev
 
     def _scoped(self, mesh) -> Callable:
         """Wrap a step so it runs under the exact-TP hints (weights gathered
         at use, attention over this rank's heads, no activation
-        constraint), restoring whatever hints were installed before."""
+        constraint) or under the sharded-compute hints given (with this
+        step's rows and the cache's placement, and the EP context),
+        restoring whatever was installed before."""
         from repro_torch.distributed.ctx import (ShardingHints, get_hints,
                                                  set_hints)
+        from repro_torch.models import moe
+
+        def step_hints():
+            if self.hints is not None:
+                return dataclasses.replace(
+                    self.hints, batch_axes=self._row_axes,
+                    cache_seq_axes=self.cache_seq,
+                    cache_batch_axes=self._cache_row_axes)
+            return ShardingHints(
+                mesh=mesh, batch_axes=self._row_axes, model_axis=None,
+                kv_seq_axes=(), seq_sp=False, exact_tp=True,
+                head_axes=self.head_axes)
 
         def scoped(fn):
             def run(*args):
-                prev = get_hints()
-                set_hints(ShardingHints(
-                    mesh=mesh, batch_axes=self._row_axes, model_axis=None,
-                    kv_seq_axes=(), seq_sp=False, exact_tp=True,
-                    head_axes=self.head_axes))
+                prev, prev_ep = get_hints(), moe.get_ep_context()
+                set_hints(step_hints())
+                if self.hints is not None:
+                    moe.set_ep_context(self.ep)
                 try:
                     return fn(*args)
                 finally:
                     set_hints(prev)
+                    moe.set_ep_context(prev_ep)
             return run
         return scoped
 
@@ -423,10 +472,11 @@ class ServeSteps:
         serve mesh (None on one device), memoized by shape and options: the
         batch / slot rows over data and, for the :data:`EXACT_TP_FAMILIES`,
         the KV heads over model where whole heads divide it (the serve
-        rules' resolution; other families' heads stay whole).  Every other
-        dim is whole on every rank: the steps compute it at the reference's
-        width (an SSM state's channels too, which the rules would put on
-        model)."""
+        rules' resolution; other families' heads stay whole); under
+        sharded-compute hints the sequence over model where they do not.
+        Every other dim is whole on every rank: the steps compute it at the
+        reference's width (an SSM state's channels too, which the rules
+        would put on model)."""
         if self.mesh is None:
             return None
         key = (batch, layout, tuple(sorted(cache_kw.items())))
@@ -436,7 +486,8 @@ class ServeSteps:
                 self.cfg, self.mesh, self.rules, batch, self.sc.max_len,
                 layout=layout, **cache_kw)
             logical = api.cache_specs(self.cfg, layout=layout, **cache_kw)
-            split = ("batch", "slot", "kv")
+            split = ("batch", "slot", "kv") + (
+                ("kv_seq",) if self.hints is not None else ())
             self._cache_shardings_memo[key] = {
                 k: shd.P(*[e if a in split else None for a, e in
                            zip(logical[k], s.padded(len(logical[k])))])

@@ -134,19 +134,22 @@ def test_reduced_cell_args_equal_reference_shards(shape, ref):
 
 def test_production_decode_cell():
     """qwen3-1.7b x decode_32k on 16 x 16: args are the reference's weight
-    shards plus the port's cache, every KV head on every rank (8 heads do
-    not divide 16; the reference would split the sequence over model)."""
+    and cache shards — 8 KV heads do not divide 16, so the cache's sequence
+    rests split over model, as the reference's ``_serve_rules`` place it."""
     jcfg = jreg.get("qwen3-1.7b")
     fm = FakeMesh(data=16, model=16)
     d = dryrun.run_cell("qwen3-1.7b", "decode_32k", verbose=False)
     rules = _serve_rules(jcfg, fm)
     B, S = 128, 32768
-    cache = 2 * jcfg.n_layers * (B // 16) * S * jcfg.n_kv_heads * jcfg.hd * 2
+    cache = 2 * jcfg.n_layers * (B // 16) * (S // 16) * jcfg.n_kv_heads \
+        * jcfg.hd * 2
     token = (B // 16) * 4
     want = _ref_param_bytes(jcfg, fm, rules, "int8") + cache + token
     assert d["memory_analysis"]["argument_size"] == want
+    assert want == _ref_decode_args(jcfg, fm, B, S)
     assert d["meta"]["kv_seq_reference"] == "model"
-    assert d["meta"]["kv_port"] == "-,data,-,-,-"
+    assert d["meta"]["kv_port"] == "model"
+    assert d["meta"]["kv_port_spec"] == "-,data,model,-,-"
     from repro.launch import roofline as jroof
     keys = set(jroof.Roofline(
         arch="qwen3-1.7b", shape="decode_32k", mesh="16x16", kind="decode",
@@ -156,8 +159,126 @@ def test_production_decode_cell():
     assert keys | {"fits", "run_s"} == set(d)
     assert d["fits"] and d["dominant"] == "collective"
     assert d["collective_detail"]["counts"]["all-gather"] > 0
-    # exact TP: every rank of a model group repeats its rows' compute
-    assert d["flops_ratio"] < 1.0 / 8
+    # sharded compute: the ranks of a model group split the work (exact TP
+    # repeated it: 0.0196); attention over 32k, which model_flops leaves
+    # out, keeps the ratio below 1
+    assert 0.2 < d["flops_ratio"] < 1.0
+    assert d["meta"]["sharded_compute"]
+    assert not dist.is_initialized()
+
+
+SERVING = [(a, s) for a, cfg in treg.ARCHS.items()
+           if cfg.family in ("dense", "moe")
+           for s in ("prefill_32k", "decode_32k")]
+
+
+def test_kv_port_equals_reference_in_every_dense_and_moe_serving_cell():
+    """Every dense and MoE serving cell of ``all_cells`` places its cache's
+    sequence where the reference's ``_serve_rules`` do (cells built on the
+    production mesh, not run)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import specs
+    assert {(a, s) for a, s, ok in specs.all_cells(treg.ARCHS) if ok
+            and treg.get(a).family in ("dense", "moe")
+            and s in ("prefill_32k", "decode_32k")} == set(SERVING)
+    with tmesh.fake_world(256):
+        mesh = tmesh.make_production_mesh()
+        for a, s in SERVING:
+            cell = specs.build_cell(treg.get(a), SHAPES[s], mesh)
+            assert cell.meta["sharded_compute"], (a, s)
+            assert cell.meta["kv_port"] == cell.meta["kv_seq_reference"], \
+                (a, s, cell.meta)
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-moe-a2.7b"])
+def test_stationary_cell_builds_counts_and_gathers_no_weight(arch,
+                                                            monkeypatch):
+    """``serve_mode="stationary"`` on 2 x 2: its args are the reference's
+    stationary weight shards (the experts' hidden dim over data) and
+    cache; it runs with no weight block gathered (every rest block stays
+    where it is) and sums partial dots over data instead."""
+    import dataclasses
+    from repro_torch.distributed.ctx import Sharded
+    from repro_torch.models import layers
+    tcfg = treg.reduced(treg.get(arch))
+    jcfg = jreg.reduced(jreg.get(arch))
+    real = layers._gather_blocks
+
+    def no_gather(p, mesh, keep):
+        out = real(p, mesh, keep)
+        assert not isinstance(p, Sharded) or (
+            isinstance(out, Sharded) and out.spec == p.spec), p
+        return out
+    monkeypatch.setattr(layers, "_gather_blocks", no_gather)
+    B = 4
+    d = dryrun.run_cell(arch, "decode_32k", cfg=tcfg, mesh_shape=(2, 2),
+                        batch=B, serve_mode="stationary", verbose=False)
+    assert d["meta"]["serve_mode"] == "stationary" and d["fits"]
+    cd = d["collective_detail"]
+    assert cd["counts"]["all-reduce"] > 0 and d["flops_per_chip"] > 0
+    fm = FakeMesh(data=2, model=2)
+    rules = _serve_rules(jcfg, fm)
+    rules = jshd.Rules({**rules.table, "expert_embed": None,
+                        "expert_mlp": ("data",)})
+    mod = japi.build(jcfg)
+    shapes = jax.eval_shape(lambda: mod.init_cache(jcfg, B, 32768))
+    cache = sum(_local(v.shape, jshd.resolve_spec(
+        mod.cache_specs(jcfg)[k], v.shape, rules, fm), fm)
+        * np.dtype(v.dtype).itemsize for k, v in shapes.items())
+    want = _ref_param_bytes(jcfg, fm, rules, "int8") + cache + B * 4
+    assert d["memory_analysis"]["argument_size"] == want
+    assert not dist.is_initialized()
+
+
+def test_reduce_scatter_is_recorded_and_priced_as_the_reference_ring():
+    """``collectives.reduce_scatter`` on the fake backend: recorded with
+    its output and input bytes, priced as the reference prices an HLO
+    reduce-scatter of the same output shape (output x (n - 1))."""
+    from repro.launch import roofline as jroof
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import roofline
+    with tmesh.fake_world(16):
+        mesh = tmesh.make_mesh((1, 16), ("data", "model"))
+        t = torch.empty((4, 256, 32), dtype=torch.bfloat16, device="meta")
+        with collectives.recording() as recs:
+            out = collectives.reduce_scatter(mesh, t, 1, "model")
+    assert tuple(out.shape) == (4, 16, 32)
+    (r,) = recs
+    assert r["kind"] == "reduce-scatter" and r["group"] == 16
+    assert r["bytes"] == 4 * 16 * 32 * 2 and r["in_bytes"] == 4 * 256 * 32 * 2
+    hlo = ("  %c0 = bf16[4,16,32]{2,1,0} reduce-scatter(bf16[4,256,32]{2,1,0}"
+           " %p0), replica_groups={{" + ",".join(map(str, range(16)))
+           + "}}, dimensions={1}")
+    want = jroof.collective_wire_bytes(hlo, 256)["reduce-scatter"]
+    got = roofline.collective_detail(recs)
+    assert got["reduce-scatter"] == pytest.approx(want, rel=1e-12)
+    assert want == 4 * 16 * 32 * 2 * 15
+    assert not dist.is_initialized()
+
+
+def test_command_r_like_cache_is_split_sixteen_ways():
+    """A reduced command-r-plus-104b with its 8 KV heads on a model axis of
+    16: the cache's sequence rests split over model, so a rank holds
+    ``cache_bytes / 16`` of it (the reference's placement), not every head
+    of every position."""
+    import dataclasses
+    from repro_torch.launch import roofline
+    over = dict(n_heads=16, n_kv_heads=8, head_dim=16)
+    tcfg = dataclasses.replace(treg.reduced(treg.get("command-r-plus-104b")),
+                               **over)
+    jcfg = dataclasses.replace(jreg.reduced(jreg.get("command-r-plus-104b")),
+                               **over)
+    B, S = 1, 32768
+    d = dryrun.run_cell("command-r-plus-104b", "decode_32k", cfg=tcfg,
+                        mesh_shape=(1, 16), batch=B, verbose=False)
+    fm = FakeMesh(data=1, model=16)
+    assert d["meta"]["kv_port"] == d["meta"]["kv_seq_reference"] == "model"
+    params = _ref_param_bytes(jcfg, fm, _serve_rules(jcfg, fm), "int8")
+    cache = d["memory_analysis"]["argument_size"] - params - B * 4
+    assert cache * 16 == roofline._cache_bytes(tcfg, B, S)
+    assert d["memory_analysis"]["argument_size"] == \
+        _ref_decode_args(jcfg, fm, B, S)
     assert not dist.is_initialized()
 
 

@@ -1,0 +1,121 @@
+"""Sharded compute on the card: ranks sharing one card over ``gloo``.
+
+Every test needs an NVIDIA card (marker ``cuda``) and skips elsewhere.  The
+file imports neither ``jax`` nor the JAX package, so it runs on a machine
+that has only the port:
+
+    PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_sharded_cuda.py
+
+The machine has one card and NCCL refuses two ranks on one device, so the
+ranks share ``cuda:0`` over ``gloo``.  Against one device on the same card:
+
+* the exact combine of attention over a T split 4 ways (a rank whose
+  block is masked whole, ragged per-row lengths, a causal chunk), within
+  1e-2, and its mutant without the cross-rank max, which must miss;
+* a column-parallel then a row-parallel product over 4 ranks, the partial
+  sums all-reduced or reduce-scattered along S, within one bf16 step of
+  the outputs' scale;
+* reduced qwen3-1.7b (2 layers) through the sharded prefill and decode
+  cells on 1 x 2 and glm4-9b on 1 x 4 (its cache split along T), logits
+  within 2e-2 of the single device's.
+"""
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.launch import mesh as tmesh
+from repro_torch.models import api, layers
+
+import torch_sharded_cases as cases
+
+TIMEOUT_S = 300
+ATOL = 2e-2
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _combine_inputs():
+    rng = np.random.default_rng(7)
+    Bc, H, KV, hd, T = 4, 8, 2, 64, 64
+    mk = lambda *s: rng.normal(0, 1, s).astype(np.float32)  # noqa: E731
+    k, v = mk(Bc, T, KV, hd), mk(Bc, T, KV, hd)
+    q = mk(Bc, 1, H, hd) * 4
+    lens = np.array([3, 17, 40, 64], np.int64)
+    return [(q, k, v, 20, False, 19),
+            (q, k, v, lens, False, lens - 1),
+            (mk(Bc, 5, H, hd) * 4, k, v, 30, True, 25)]
+
+
+def _unsplit(card, q, k, v, kv_len, causal, q_offset):
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16).to(card)  # noqa: E731
+    as_t = lambda a: torch.from_numpy(a).to(card) \
+        if isinstance(a, np.ndarray) else a  # noqa: E731
+    return layers.gqa_attention(t(q), t(k), t(v), causal=causal,
+                                q_offset=as_t(q_offset),
+                                kv_len=as_t(kv_len)).float().cpu().numpy()
+
+
+def test_combine_on_the_card(card):
+    inputs = _combine_inputs()
+    want = [_unsplit(card, *c) for c in inputs]
+    for mutant in (False, True):
+        got = tmesh.spawn(cases.combine_cases, 1, 4, backend="gloo",
+                          device="cuda", timeout_s=TIMEOUT_S,
+                          args=(inputs, mutant))
+        worst = max(float(np.abs(g - w).max())
+                    for g, w in zip(got[0], want))
+        if mutant:
+            assert worst > 0.1, worst
+        else:
+            assert worst <= 1e-2, worst
+            for r in got[1:]:
+                for a, b in zip(r, got[0]):
+                    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("sp", [False, True], ids=["all-reduce",
+                                                   "reduce-scatter"])
+def test_parallel_matmuls_on_the_card(card, sp):
+    rng = np.random.default_rng(9)
+    x = rng.normal(0, 1, (2, 16, 256)).astype(np.float32)
+    wc = rng.normal(0, 0.05, (256, 512)).astype(np.float32)
+    wr = rng.normal(0, 0.05, (512, 256)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16).to(card)  # noqa: E731
+    want = (layers.silu(t(x) @ t(wc)) @ t(wr)).float().cpu().numpy()
+    got = tmesh.spawn(cases.parallel_matmuls, 1, 4, backend="gloo",
+                      device="cuda", timeout_s=TIMEOUT_S,
+                      args=(x, wc, wr, sp))
+    scale = float(np.abs(want).max())
+    step = 2.0 ** (math.frexp(scale)[1] - 8)
+    for y, counts in got:
+        np.testing.assert_allclose(y, want, atol=step, rtol=0)
+        assert counts["reduce_scatter" if sp else "all_reduce"] == 1
+
+
+@pytest.mark.parametrize("arch,model", [("qwen3-1.7b", 2), ("glm4-9b", 4)])
+def test_sharded_cells_on_the_card(card, arch, model):
+    cfg = dataclasses.replace(registry.reduced(registry.get(arch)),
+                              n_layers=2)
+    params = api.build(cfg).init(cfg, 0, "cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (4, 8))
+    fed = cases.greedy(cfg, params, prompt, 4, card)
+    single, _ = cases.one_device(cfg, params, prompt, fed, card)
+    got = tmesh.spawn(cases.serve_cells, 1, model, backend="gloo",
+                      device="cuda", timeout_s=TIMEOUT_S,
+                      args=(cfg, params, prompt, fed))
+    for r in got:
+        for step, (g, w) in enumerate(zip(r["logits"], single)):
+            np.testing.assert_allclose(g, w, atol=ATOL, rtol=0,
+                                       err_msg=f"step {step}")
