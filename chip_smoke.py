@@ -254,18 +254,23 @@ Phases, each printing one JSON line:
 12. sharded — the production cells' sharded compute (``launch/specs.py``
    under the reference's sharding hints: column- and row-parallel
    matmuls, sequence-parallel carries, the cache split along T with the
-   exact combine, the weight-stationary decode) on ``SHARDED_CASES``:
-   qwen3-1.7b and glm4-9b at full width cut to ``DEPTH`` layers, on gloo
-   ranks sharing the card (``launch/mesh.spawn``).  Each rank makes the
-   same seeded whole weights the single device makes, cuts its blocks by
-   the cells' specs (``Cell.place``, ``local_block``), prefills the batch
-   of 4 x 32 and runs ``GEN`` decode steps through the cells' step
-   functions, fed the single device's greedy tokens; logits within
-   ``SHARDED_TOL_STEPS`` bf16 steps of the single device's (at the
-   largest |logit|) and tokens equal up to a near-tie
-   (``sharded_compare``).  One ``sharded``
-   line a case: wall time, collective counts, weight and cache bytes a
-   rank.  No kernel runs on this path (launches must read 0).
+   exact combine, the weight-stationary decode, an SSM's heads split
+   over model) on ``SHARDED_CASES``: qwen3-1.7b, glm4-9b and mamba2-370m
+   at full width cut to ``DEPTH`` layers, seamless-m4t-medium to
+   ``ENCDEC_DEPTH`` + ``ENCDEC_DEPTH``, one period of jamba-1.5-large-398b
+   at its published widths (``SHARDED_HYBRID_CUT``), on gloo ranks sharing
+   the card (``launch/mesh.spawn``).  Each rank draws the same seeded
+   weights the single device draws, a tensor at a time
+   (``sharded_weights``), cuts its blocks by the cells' specs
+   (``Cell.place``, ``local_block``), prefills the batch of 4 x 32 and
+   runs ``GEN`` decode steps through the cells' step functions, fed the
+   single device's greedy tokens; logits within ``SHARDED_TOL_STEPS`` bf16
+   steps of the single device's (at the largest |logit|) and tokens equal
+   up to a near-tie (``sharded_compare``; a routed config is fed one
+   device's router choices too, ``replayed_routes``).  One
+   ``sharded`` line a case: its cut, wall time, collective counts, weight
+   and cache bytes a rank beside one device's.  No kernel runs on this
+   path (launches must read 0).
 
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
@@ -374,15 +379,31 @@ MESH = (2, 2)
 MESH_MOE = (1, 2)
 MESH_BACKEND = "gloo"
 MESH_TIMEOUT_S = 300
-# the sharded phase: the production cells' sharded compute (the dense
-# family's prefill and decode cells) at full width, DEPTH layers, on ranks
-# sharing the card over gloo: (arch, (data, model), serve_mode).  qwen3's 8
-# KV heads split over a model axis of 2; glm4's 2 do not divide 4, so its
-# cache rests split along T and decode combines the blocks; the stationary
-# decode keeps every weight where it rests on 2 x 1
+# the sharded phase: the production cells' sharded compute at full width
+# on ranks sharing the card over gloo: (arch, (data, model), serve_mode).
+# qwen3's 8 KV heads split over a model axis of 2; glm4's 2 do not divide 4,
+# so its cache rests split along T and decode combines the blocks; the
+# stationary decode keeps every weight where it rests on 2 x 1.  DEPTH
+# layers, but the encdec's ENCDEC_DEPTH encoder and decoder layers and the
+# hybrid's one period (sharded_config).  mamba2's SSD heads, inner channels
+# and states split over model (in_zx re-blocked at placement); seamless's
+# 16 heads and 16 KV heads over model on 2 x 2, the carries split along S;
+# jamba at its published widths, its carry batch-only
 SHARDED_CASES = (("qwen3-1.7b", (1, 2), "fsdp"),
                  ("glm4-9b", (1, 4), "fsdp"),
-                 ("qwen3-1.7b", (2, 1), "stationary"))
+                 ("qwen3-1.7b", (2, 1), "stationary"),
+                 ("mamba2-370m", (1, 2), "fsdp"),
+                 ("seamless-m4t-medium", (2, 2), "fsdp"),
+                 ("jamba-1.5-large-398b", (1, 2), "fsdp"),
+                 ("mamba2-370m", (2, 1), "stationary"))
+# jamba's one period at full width holds ~44 G weights with 16 experts in
+# each of its 4 MoE FFNs, which does not fit the card twice (one device,
+# then the ranks).  Cutting the experts to 4 does not shrink it: the
+# schema pads the experts to a multiple of 16 (padded_experts(16)), and
+# the padded ones are routable.  So the cut is the MoE FFNs' count: one
+# MoE FFN a period (every_n 8) of 16 experts, top-2, the other 7 FFNs
+# dense: ~18 G weights, 36 GB in bf16
+SHARDED_HYBRID_CUT = {"every_n": 8}
 SHARDED_SEED = 11
 # sharded logits against the single device's, where the two have decoded
 # the same tokens: partial sums in float32 over other splits of K, and
@@ -390,9 +411,13 @@ SHARDED_SEED = 11
 # activations only, so the limit is SHARDED_TOL_STEPS bf16 steps at the
 # largest |logit|.  It lies between the sound layouts and wrong ones at
 # full width (scripts/probe_sharded_faults.py on an H100 80GB HBM3 at
-# 700 W): the sound cases read 1.75-2.5 steps (e.g. 0.0547 at logits up
-# to 5.09 for qwen3-1.7b on 1 x 2); a T block's offset dropped 26.4, the
-# combine without its max 242.5, a row-parallel sum dropped 176.75-317.
+# 700 W): the sound cases read 1.5-4.0 steps (e.g. 0.0547 at logits up
+# to 5.09 for qwen3-1.7b on 1 x 2; jamba's one period 0.25 at 9.25); a T
+# block's offset dropped 26.4, the combine without its max 242.5, a
+# row-parallel sum dropped 176.75-317, the SSM's gated norm without its
+# cross-rank sum 31.4, swapped z / x blocks 277, a cross-attention K / V
+# head offset dropped 202.5: the limit stays, 2x the worst sound reading
+# and 3.9x below the weakest fault.
 # Greedy tokens equal up to a near-tie (the sharded choice within
 # SHARDED_NEAR_TIE bf16 steps of the single device's best).  Both are fed
 # the single device's greedy tokens, so every (row, step) is compared:
@@ -3678,9 +3703,99 @@ def production_phase(dev):
 
 
 def sharded_config(arch):
-    """``arch`` at full width cut to ``DEPTH`` layers."""
+    """``arch`` at full width cut to ``DEPTH`` layers (the encdec to
+    ``ENCDEC_DEPTH`` encoder and decoder layers, the hybrid to one period
+    with ``SHARDED_HYBRID_CUT``).  A routed config admits every choice
+    (``capacity_factor`` = E / top_k): the sharded dispatch sizes the
+    capacity by each data rank's rows and one device by the whole batch's,
+    which drop alike only while nothing is dropped."""
     from repro_torch.configs import registry
-    return dataclasses.replace(registry.get(arch), n_layers=DEPTH)
+    cfg = registry.get(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(
+            cfg, n_layers=cfg.attn_period,
+            moe=dataclasses.replace(cfg.moe, **SHARDED_HYBRID_CUT))
+    elif cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_layers=ENCDEC_DEPTH,
+                                  enc_layers=ENCDEC_DEPTH)
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH)
+    if cfg.moe:
+        cf = float(cfg.moe.padded_experts(16) // cfg.moe.top_k)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def sharded_cut(arch):
+    """What the sharded case of ``arch`` cut from the published config."""
+    cfg = sharded_config(arch)
+    cut = {"n_layers": cfg.n_layers}
+    if cfg.family == "encdec":
+        cut["enc_layers"] = cfg.enc_layers
+    if cfg.family == "hybrid":
+        cut.update(SHARDED_HYBRID_CUT, moe_ffns=cfg.n_layers
+                   // cfg.moe.every_n, experts=cfg.moe.padded_experts(16))
+    if cfg.moe:
+        cut["capacity_factor"] = cfg.moe.capacity_factor
+    return cut
+
+
+# a tensor of more elements than SHARDED_DRAW_WHOLE is drawn in chunks of
+# SHARDED_DRAW_CHUNK: its float32 draw would otherwise double the card's
+# transient on every rank at once (jamba's expert stacks: 3.2 G elements)
+SHARDED_DRAW_WHOLE = 1 << 30
+SHARDED_DRAW_CHUNK = 1 << 28
+
+
+def sharded_weights(cfg, dev):
+    """``cfg``'s weights from ``SHARDED_SEED``, one (name, tensor) at a
+    time in sorted name order: ``mod.init``'s draws (one generator on
+    ``dev``) where a tensor has at most ``SHARDED_DRAW_WHOLE`` elements,
+    else drawn a chunk at a time (so the single device and every rank,
+    which all draw this way, hold the same weights)."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models.layers import init_param
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SHARDED_SEED)
+    schema = api.build(cfg).schema(cfg)
+    for name in sorted(schema):
+        spec = schema[name]
+        n = 1
+        for d in spec.shape:
+            n *= d
+        if n <= SHARDED_DRAW_WHOLE or not isinstance(spec.init, float):
+            yield name, init_param(gen, spec, dev)
+            continue
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+        flat = out.view(-1)
+        for i in range(0, n, SHARDED_DRAW_CHUNK):
+            m = min(SHARDED_DRAW_CHUNK, n - i)
+            flat[i:i + m] = (spec.init * torch.randn(
+                m, generator=gen, dtype=torch.float32, device=dev)
+            ).to(spec.dtype)
+        yield name, out
+
+
+def sharded_inputs(cfg):
+    """The case's prompt (BATCH x PROMPT tokens from ``SHARDED_SEED``) and,
+    for the encdec, PROMPT source frames (normal, drawn after them)."""
+    import numpy as np
+    rng = np.random.default_rng(SHARDED_SEED)
+    prompt = rng.integers(0, cfg.vocab, (BATCH, PROMPT))
+    src = rng.normal(0, 1, (BATCH, PROMPT, cfg.d_model)).astype(
+        np.float32) if cfg.family == "encdec" else None
+    return prompt, src
+
+
+def _sharded_prompt(prompt, src, rows, dev):
+    import torch
+    toks = rows(torch.as_tensor(prompt, dtype=torch.int64, device=dev))
+    if src is None:
+        return toks
+    return {"tokens": toks, "src_embeds": rows(
+        torch.as_tensor(src, device=dev).to(torch.bfloat16))}
 
 
 def sharded_rank_check(mesh):
@@ -3689,22 +3804,24 @@ def sharded_rank_check(mesh):
         raise AssertionError(f"rank {mesh.rank} on {mesh.device}")
 
 
-def sharded_rank(mesh, arch, mode, prompt, fed):
-    """One rank of a sharded case: the whole weights made from
-    ``SHARDED_SEED`` on the card (as the single device makes them), cut
-    into this rank's blocks by each cell's specs, then the prefill cell on
-    ``prompt`` and ``GEN`` steps of the decode cell fed the single
-    device's greedy tokens ``fed`` (so that every step of every row is
-    compared).  Rank 0 returns every step's logits; every rank the argmax
-    of each step, a fingerprint of its logits, its bytes, counts and
-    times."""
+def sharded_rank(mesh, arch, mode, prompt, fed, routes=()):
+    """One rank of a sharded case: the weights made from ``SHARDED_SEED``
+    on the card one tensor at a time (:func:`sharded_weights`, as the
+    single device makes them), each cut into this rank's blocks by the
+    cells' specs (the decode cell's own placement only where its specs
+    differ), then the prefill cell on ``prompt`` and ``GEN`` steps of the
+    decode cell fed the single device's greedy tokens ``fed`` and, in a
+    routed config, its router choices ``routes`` (:func:`replayed_routes`),
+    so that every step of every row is compared.  Rank 0 returns every
+    step's logits; every rank the argmax of each step, a fingerprint of
+    its logits, its bytes, counts and times, and its router calls' largest
+    probability difference and own-choice differences."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import collectives
     from repro_torch.kernels import build
     from repro_torch.launch import specs
-    from repro_torch.models import api
     from repro_torch.serving import engine
     t_start = time.perf_counter()
     sharded_rank_check(mesh)
@@ -3718,13 +3835,21 @@ def sharded_rank(mesh, arch, mode, prompt, fed):
     dcell = specs.build_decode_cell(
         cfg, ShapeConfig("decode_32k", T, B, "decode"), mesh,
         weights="bf16", serve_mode=mode)
-    full = api.build(cfg).init(cfg, SHARDED_SEED, mesh.device)
-    pp, dp = pcell.place(full), dcell.place(full)
-    del full
+    shared = pcell.param_specs == dcell.param_specs
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    pp, dp = {}, {}
+    for name, t in sharded_weights(cfg, mesh.device):
+        pp.update(pcell.place({name: t}))
+        if not shared:
+            dp.update(dcell.place({name: t}))
+        del t
+    if shared:
+        dp = pp
     torch.cuda.empty_cache()
     for k in build.launches:
         build.launches[k] = 0
     collectives.reset_counts()
+    _, src = sharded_inputs(cfg)
 
     def whole(logits, cell):
         if cell.row_axes:
@@ -3732,16 +3857,17 @@ def sharded_rank(mesh, arch, mode, prompt, fed):
         return logits[:, -1].float()
 
     logits_out, toks, prints = [], [], []
-    with torch.inference_mode():
-        tokens = torch.as_tensor(prompt, dtype=torch.int64,
-                                 device=mesh.device)
+    rows = [pcell.local_rows]
+    with torch.inference_mode(), replayed_routes(routes, rows) as seen:
+        first = _sharded_prompt(prompt, src, pcell.local_rows, mesh.device)
         fed = torch.as_tensor(fed, dtype=torch.int64, device=mesh.device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = pcell.fn(pp, pcell.local_rows(tokens))
+        lg, cache = pcell.fn(pp, first)
         lg = whole(lg, pcell)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
+        rows[0] = dcell.local_rows
         t0 = time.perf_counter()
         for i in range(GEN + 1):
             toks.append(torch.argmax(lg, dim=-1)[:, None])
@@ -3763,10 +3889,10 @@ def sharded_rank(mesh, arch, mode, prompt, fed):
                 launches=dict(build.launches),
                 weight_bytes=engine.local_bytes(dp),
                 cache_bytes=engine.local_bytes(cache),
-                cache_shape=list(cache["k"].shape),
+                cache_shape={k: list(v.shape) for k, v in cache.items()},
                 peak_bytes=torch.cuda.max_memory_allocated(mesh.device),
                 wall_s=time.perf_counter() - t_start,
-                rows=np.int64(B))
+                routes=seen, rows=np.int64(B))
 
 
 def sharded_single(arch, prompt, dev):
@@ -3778,11 +3904,12 @@ def sharded_single(arch, prompt, dev):
     cfg = sharded_config(arch)
     mod = api.build(cfg)
     P = prompt.shape[1]
-    params = mod.init(cfg, SHARDED_SEED, dev)
+    params = dict(sharded_weights(cfg, dev))
+    _, src = sharded_inputs(cfg)
     logits, toks = [], []
-    with torch.inference_mode():
-        lg, cache = mod.prefill(cfg, params, torch.as_tensor(
-            prompt, dtype=torch.int64, device=dev), max_len=P + GEN)
+    with torch.inference_mode(), recording_routes() as routes:
+        lg, cache = mod.prefill(cfg, params, _sharded_prompt(
+            prompt, src, lambda t: t, dev), max_len=P + GEN)
         for i in range(GEN + 1):
             last = lg[:, -1].float()
             logits.append(last.cpu().numpy())
@@ -3792,7 +3919,7 @@ def sharded_single(arch, prompt, dev):
                                             P + i)
     out = dict(logits=logits, tokens=torch.cat(toks, 1).cpu().numpy(),
                weight_bytes=engine.local_bytes(params),
-               cache_bytes=engine.local_bytes(cache))
+               cache_bytes=engine.local_bytes(cache), routes=routes)
     del params, cache
     torch.cuda.empty_cache()
     return out
@@ -3804,13 +3931,67 @@ def bf16_step(x):
     return 2.0 ** (math.frexp(abs(x))[1] - 8)
 
 
+@contextlib.contextmanager
+def recording_routes():
+    """Record every MoE router call inside the block: a list of (float32
+    probabilities, top-k indices) numpy pairs, in call order."""
+    from repro_torch.models import moe
+    real, calls = moe.route, []
+
+    def route(x, router, K):
+        probs, gates, idx = real(x, router, K)
+        calls.append((probs.float().cpu().numpy(), idx.cpu().numpy()))
+        return probs, gates, idx
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+@contextlib.contextmanager
+def replayed_routes(routes, rows):
+    """Feed one device's router choices ``routes`` (its calls' (float32
+    probabilities, top-k indices), whole batch) to the sharded run, call by
+    call, as its greedy tokens are fed: each call routes this rank's rows
+    (``rows[0]``, the current cell's ``local_rows``) to one device's
+    experts, with gates from the call's own probabilities over them,
+    renormalised as ``moe.route`` does.  The sharded layout rounds the
+    router's input otherwise than one device, and at full width that moves
+    a probability by up to a few hundredths (jamba on an H100: 0.036):
+    enough to flip an expert that is no near-tie, which moves that token
+    by far more than rounding.  Yields a list, a call each, of (the largest
+    |probability difference| against one device's, the tokens whose own
+    top-k differs from the one fed)."""
+    import torch
+    from repro_torch.models import moe
+    real, seen = moe.route, []
+
+    def route(x, router, K):
+        probs, _, idx = real(x, router, K)
+        want_p, want_i = (rows[0](torch.as_tensor(a, device=x.device))
+                          for a in routes[len(seen)])
+        flips = (torch.sort(idx, -1)[0] != torch.sort(want_i, -1)[0]).any(-1)
+        seen.append((float((probs - want_p).abs().max()),
+                     int(flips.sum())))
+        gates = probs.gather(-1, want_i)
+        return probs, gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                          min=1e-9), want_i
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
 def sharded_compare(got, want):
     """Every step's sharded logits against the single device's, both fed
-    the single device's greedy tokens: within ``SHARDED_TOL_STEPS`` bf16
-    steps of the largest |logit|; each sharded greedy choice the single
-    device's, or a near-tie of its logits (within ``SHARDED_NEAR_TIE``
-    bf16 steps of its best).  Returns (max |delta|, the limit, the largest
-    |delta| at each step, compared tokens, near-ties)."""
+    the single device's greedy tokens (and router choices): within
+    ``SHARDED_TOL_STEPS`` bf16 steps of the largest |logit|; each sharded
+    greedy choice the single device's, or a near-tie of its logits (within
+    ``SHARDED_NEAR_TIE`` bf16 steps of its best).  Returns (max |delta|,
+    the limit, the largest |delta| at each step, compared tokens,
+    near-ties)."""
     import numpy as np
     scale = max(float(np.abs(w).max()) for w in want["logits"])
     tol = SHARDED_TOL_STEPS * bf16_step(scale)
@@ -3841,54 +4022,78 @@ def sharded_compare(got, want):
 def sharded_phase(dev):
     """Phase 12: each ``SHARDED_CASES`` case through the production cells'
     step functions on ranks sharing the card, held against the single
-    device.  Any failed case raises.  Returns the kernels' launches on the
+    device; the cases of one mesh shape run in one world.  Any failed
+    case raises.  Returns the kernels' launches on the
     path (all 0: the cells dequantize in-graph)."""
     import numpy as np
     t_phase = time.perf_counter()
     launches = {}
-    for arch, shape, mode in SHARDED_CASES:
-        cfg = sharded_config(arch)
-        prompt = np.random.default_rng(SHARDED_SEED).integers(
-            0, cfg.vocab, (BATCH, PROMPT))
-        want = sharded_single(arch, prompt, dev)
-        got, wall = mesh_spawn(sharded_rank, shape,
-                               (arch, mode, prompt, want["tokens"][:, :GEN]))
-        r0 = got[0]
-        for r in got[1:]:
-            if not (np.array_equal(r["tokens"], r0["tokens"])
-                    and r["prints"] == r0["prints"]):
-                raise AssertionError(f"sharded rank {r['coord']} differs "
-                                     f"from rank 0")
-        err, tol, by_step, compared, ties = sharded_compare(r0, want)
-        for r in got:
-            for k, v in r["launches"].items():
-                launches[k] = launches.get(k, 0) + v
-        emit("sharded", arch=arch, mesh=list(shape), serve_mode=mode,
-             ranks=len(got), backend=MESH_BACKEND,
-             shared_card="every rank on cuda:0: one card's times shared by "
-                         "the ranks over gloo (through host memory), not a "
-                         "multi-card figure",
-             batch=BATCH, prompt=PROMPT, decode_steps=GEN,
-             wall_s=wall, rank_wall_s=[r["wall_s"] for r in got],
-             prefill_s=[r["prefill_s"] for r in got],
-             decode_s=[r["decode_s"] for r in got],
-             decode_tok_per_s=BATCH * GEN / max(r0["decode_s"], 1e-9),
-             collectives=[r["collectives"] for r in got],
-             weight_bytes_per_rank=[r["weight_bytes"] for r in got],
-             single_device_weight_bytes=want["weight_bytes"],
-             cache_bytes_per_rank=[r["cache_bytes"] for r in got],
-             single_device_cache_bytes=want["cache_bytes"],
-             cache_shape=r0["cache_shape"],
-             peak_bytes=[r["peak_bytes"] for r in got],
-             max_abs_err=err, tol=tol, max_abs_err_by_step=by_step,
-             logits_scale=float(max(np.abs(w).max()
-                                    for w in want["logits"])),
-             tokens_compared=compared, near_ties=ties,
-             launches=[r["launches"] for r in got])
+    shapes = list(dict.fromkeys(shape for _, shape, _ in SHARDED_CASES))
+    for shape in shapes:
+        cases = [(a, m) for a, sh, m in SHARDED_CASES if sh == shape]
+        wants, jobs = [], []
+        for arch, mode in cases:
+            prompt, _ = sharded_inputs(sharded_config(arch))
+            wants.append(sharded_single(arch, prompt, dev))
+            jobs.append((arch, mode, prompt, wants[-1]["tokens"][:, :GEN],
+                         wants[-1]["routes"]))
+        ranks, wall = mesh_spawn(sharded_ranks, shape, (jobs,))
+        for i, ((arch, mode), want) in enumerate(zip(cases, wants)):
+            launches = _sharded_case(arch, shape, mode, want,
+                                     [r[i] for r in ranks], wall, launches)
     if any(launches.values()):
         raise AssertionError(f"the sharded path launched kernels: "
                              f"{launches}")
     emit("sharded", run="phase", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def sharded_ranks(mesh, jobs):
+    """:func:`sharded_rank` of each job in turn, in one world (a world of
+    each mesh shape: its ranks start once)."""
+    return [sharded_rank(mesh, *job) for job in jobs]
+
+
+def _sharded_case(arch, shape, mode, want, got, wall, launches):
+    """Hold one case's ranks ``got`` to the single device's run ``want``,
+    emit its ``sharded`` line and add its launches to ``launches``."""
+    import numpy as np
+    r0 = got[0]
+    for r in got[1:]:
+        if not (np.array_equal(r["tokens"], r0["tokens"])
+                and r["prints"] == r0["prints"]):
+            raise AssertionError(f"sharded rank {r['coord']} differs "
+                                 f"from rank 0")
+    err, tol, by_step, compared, ties = sharded_compare(r0, want)
+    for r in got:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    emit("sharded", arch=arch, mesh=list(shape), serve_mode=mode,
+         cut=sharded_cut(arch), ranks=len(got), backend=MESH_BACKEND,
+         shared_card="every rank on cuda:0: one card's times shared by "
+                     "the ranks over gloo (through host memory), not a "
+                     "multi-card figure",
+         batch=BATCH, prompt=PROMPT, decode_steps=GEN,
+         world_wall_s=wall, wall_s=r0["wall_s"],
+         rank_wall_s=[r["wall_s"] for r in got],
+         prefill_s=[r["prefill_s"] for r in got],
+         decode_s=[r["decode_s"] for r in got],
+         decode_tok_per_s=BATCH * GEN / max(r0["decode_s"], 1e-9),
+         collectives=[r["collectives"] for r in got],
+         weight_bytes_per_rank=[r["weight_bytes"] for r in got],
+         single_device_weight_bytes=want["weight_bytes"],
+         cache_bytes_per_rank=[r["cache_bytes"] for r in got],
+         single_device_cache_bytes=want["cache_bytes"],
+         cache_shape=r0["cache_shape"],
+         peak_bytes=[r["peak_bytes"] for r in got],
+         max_abs_err=err, tol=tol, max_abs_err_by_step=by_step,
+         logits_scale=float(max(np.abs(w).max()
+                                for w in want["logits"])),
+         tokens_compared=compared, near_ties=ties,
+         router_max_abs_dp=max([d for d, _ in r0["routes"]],
+                               default=None),
+         router_own_choice_differs=sum(f for _, f in r0["routes"]),
+         launches=[r["launches"] for r in got])
     return launches
 
 

@@ -4,11 +4,12 @@ sound one does: the limit of ``chip_smoke.py``'s ``sharded`` phase
 (``SHARDED_TOL_STEPS`` bf16 steps at the largest |logit|) must lie between
 the two.
 
-Each case of ``chip_smoke.SHARDED_CASES`` (full width, 2 layers, gloo
-ranks sharing the card) runs through ``chip_smoke.sharded_rank`` as the
-phase runs it — prefill 4 x 32 and 16 decode steps fed one device's greedy
-tokens — once sound and once with each fault below planted in every rank
-(patched in memory; no file changes):
+Each case of ``chip_smoke.SHARDED_CASES`` (full width, gloo ranks sharing
+the card) runs through ``chip_smoke.sharded_rank`` as the phase runs it —
+prefill 4 x 32 and 16 decode steps fed one device's greedy tokens (and
+router choices) — once
+sound and once with each fault below planted in every rank (patched in
+memory; no file changes):
 
 * ``combine_without_max``: the split-T combine takes each block's exps
   against its own row maxima (the all-reduce max skipped);
@@ -16,15 +17,24 @@ tokens — once sound and once with each fault below planted in every rank
   began at position 0 (the block's global offset dropped);
 * ``partial_sum_dropped``: a row-parallel product keeps this rank's
   partial sum (its S block of it where the carry is sequence-parallel)
-  instead of the sum over the ranks.
+  instead of the sum over the ranks;
+* ``ssm_norm_local``: the SSM's gated RMS norm over this rank's block of
+  the inner channels only (its sum of squares not summed across ranks);
+* ``zx_swapped``: each rank's z and x blocks of ``in_zx`` swapped;
+* ``cross_head_offset_dropped``: each rank's cross-attention K / V heads
+  taken from the first block of ``wk`` / ``wv`` (the block's head offset
+  dropped), against its own block of the query heads and of ``wo``.
 
-The first two need a cache split along T (glm4-9b on 1 x 4); the third
-runs in every case.  Prints the card's name and power limit, then one JSON
-line a run: the largest |logit delta| against one device, the logits'
-scale, that delta in bf16 steps at the scale, the phase's limit, and the
-steps whose greedy token differs from one device's.
+The first two need a cache split along T (glm4-9b on 1 x 4), the SSM
+faults mamba2-370m's heads split over model (1 x 2), the cross-attention
+one seamless-m4t-medium; the row-parallel one runs in every case.  Prints
+the card's name and power limit, then one JSON line a run: the largest
+|logit delta| against one device, the logits' scale, that delta in bf16
+steps at the scale, the phase's limit, and the steps whose greedy token
+differs from one device's.  ``--arch A [--arch B]`` runs only those
+archs' cases.
 
-    python3 scripts/probe_sharded_faults.py
+    python3 scripts/probe_sharded_faults.py [--arch mamba2-370m]
 """
 import json
 import os
@@ -37,9 +47,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke  # noqa: E402
 
-FAULTS = {"combine_without_max": ("glm4-9b",),
-          "block_offset_zero": ("glm4-9b",),
-          "partial_sum_dropped": None}       # None: every case
+# the (arch, serve_mode) cases each fault is planted in (None: every case)
+FAULTS = {"combine_without_max": (("glm4-9b", "fsdp"),),
+          "block_offset_zero": (("glm4-9b", "fsdp"),),
+          "partial_sum_dropped": None,
+          "ssm_norm_local": (("mamba2-370m", "fsdp"),),
+          "zx_swapped": (("mamba2-370m", "fsdp"),),
+          "cross_head_offset_dropped": (("seamless-m4t-medium", "fsdp"),)}
 
 
 def plant(fault):
@@ -74,14 +88,53 @@ def plant(fault):
                 return layers._cut(y, 1, carry[1], h.mesh)
             return y
         layers._reduce_partial = reduce_partial
+    elif fault == "ssm_norm_local":
+        from repro_torch.models import mamba2
+        real_norm = mamba2.rms_norm
+
+        def rms_norm(x, scale, eps=1e-6, *, x_axes=None):
+            if x_axes is None:
+                return real_norm(x, scale, eps)
+            return real_norm(x, layers.local_weight(scale)[0], eps)
+        mamba2.rms_norm = rms_norm
+    elif fault == "zx_swapped":
+        import torch
+        from repro_torch.models import mamba2
+        real_blocks = mamba2.zx_blocks
+
+        def zx_blocks(w, n):
+            half = w.shape[-1] // 2
+            return real_blocks(torch.cat([w[..., half:], w[..., :half]], -1),
+                               n)
+        mamba2.zx_blocks = zx_blocks
+    elif fault == "cross_head_offset_dropped":
+        from repro_torch.distributed.ctx import Sharded
+        from repro_torch.launch import specs
+        real_place = specs.Cell.place
+
+        def place(self, params):
+            out = real_place(self, params)
+            for name in ("dec/cross/wk", "dec/cross/wv"):
+                if name not in params:
+                    continue
+                t = params[name]
+                entries = self.param_specs[name].padded(t.dim())
+                for d, e in enumerate(entries):
+                    if e is not None:
+                        size, i = block_index(self.mesh, e)
+                        n = t.shape[d] // size
+                        t = t.narrow(d, 0 if e == "model" else i * n, n)
+                out[name] = Sharded(t.clone(), entries)
+            return out
+        specs.Cell.place = place
     elif fault is not None:
         raise ValueError(fault)
 
 
-def faulty_rank(mesh, fault, arch, mode, prompt, fed):
+def faulty_rank(mesh, fault, arch, mode, prompt, fed, routes):
     """``chip_smoke.sharded_rank`` with ``fault`` planted first."""
     plant(fault)
-    return chip_smoke.sharded_rank(mesh, arch, mode, prompt, fed)
+    return chip_smoke.sharded_rank(mesh, arch, mode, prompt, fed, routes)
 
 
 def reading(got, want):
@@ -101,9 +154,13 @@ def reading(got, want):
                 by_step=by_step)
 
 
-def main() -> int:
-    import numpy as np
+def main(argv=None) -> int:
+    import argparse
     import torch
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", action="append", default=None,
+                   help="run only this arch's cases (repeatable)")
+    archs = p.parse_args(argv).arch
     if not torch.cuda.is_available():
         print("probe_sharded_faults: no CUDA device available",
               file=sys.stderr)
@@ -112,16 +169,17 @@ def main() -> int:
     print(chip_smoke.smi("name,power.limit"), flush=True)
     dev = torch.device("cuda")
     for arch, shape, mode in chip_smoke.SHARDED_CASES:
-        cfg = chip_smoke.sharded_config(arch)
-        prompt = np.random.default_rng(chip_smoke.SHARDED_SEED).integers(
-            0, cfg.vocab, (chip_smoke.BATCH, chip_smoke.PROMPT))
+        if archs and arch not in archs:
+            continue
+        prompt, _ = chip_smoke.sharded_inputs(chip_smoke.sharded_config(arch))
         want = chip_smoke.sharded_single(arch, prompt, dev)
         fed = want["tokens"][:, :chip_smoke.GEN]
         for fault in [None] + [f for f, only in FAULTS.items()
-                               if only is None or arch in only]:
+                               if only is None or (arch, mode) in only]:
             t0 = time.perf_counter()
-            got, _ = chip_smoke.mesh_spawn(faulty_rank, shape,
-                                           (fault, arch, mode, prompt, fed))
+            got, _ = chip_smoke.mesh_spawn(
+                faulty_rank, shape,
+                (fault, arch, mode, prompt, fed, want["routes"]))
             print(json.dumps(dict(arch=arch, mesh=list(shape),
                                   serve_mode=mode, fault=fault or "none",
                                   wall_s=time.perf_counter() - t0,

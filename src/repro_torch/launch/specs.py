@@ -16,18 +16,20 @@ equal the reference's on the production meshes):
 * weights rest as the reference's rules resolve them — serving cells by
   the serve rules with the KV-head adjustment, train cells by the ZeRO
   (optimizer-state) rules, where the fp32 moments rest too;
-* the dense and MoE serving cells compute sharded, as the reference's do
-  under the hints of :func:`_install_contexts`: each rank computes its
-  block (heads over model, FSDP blocks gathered at use, row-parallel
-  partial sums reduced, the prefill carries split along S over model),
-  and the KV cache rests by the reference's ``_serve_rules`` — rows over
-  data, the KV heads over model where whole heads divide it, the sequence
-  over model otherwise (attended block by block with an exact combine);
-  ``serve_mode="stationary"`` is the reference's weight-stationary decode
-  (rows whole, D over the data axes, no weight gathered);
-* the ssm, hybrid and encdec serving cells, and every train cell, keep
-  exact TP: weights all-gathered at use, each rank repeating its rows'
-  full-width compute along model.
+* every serving cell computes sharded, as the reference's do under the
+  hints of :func:`_install_contexts`: each rank computes its block (heads
+  over model — attention's and an SSM's —, FSDP blocks gathered at use,
+  row-parallel partial sums reduced, the prefill carries split along S
+  over model but the hybrid's), and the cache rests by the reference's
+  ``_serve_rules`` — rows over data, the KV heads over model where whole
+  heads divide it, the sequence over model otherwise (attended block by
+  block with an exact combine), an SSM state's channels and heads over
+  model; ``serve_mode="stationary"`` is the reference's weight-stationary
+  decode (rows whole, D over the data axes, no weight gathered).
+  :meth:`Cell.place` re-blocks an SSM's ``in_zx`` so that each rank's
+  block of its ``[z | x]`` columns is its heads' (``mamba2.zx_blocks``);
+* every train cell keeps exact TP: weights all-gathered at use, each rank
+  repeating its rows' full-width compute along model.
 
 Weight formats for serving cells: ``bf16``, ``int8`` (QT triples, uint8
 symbols dequantized at use) and ``int4`` (QT4, nibbles packed along the
@@ -43,9 +45,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
 from repro_torch.core.spec import quantizable_shape
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.ctx import (ShardingHints, Sharded, local_block,
-                                         shard)
-from repro_torch.models import api
+from repro_torch.distributed.ctx import (ShardingHints, Sharded, block_index,
+                                         local_block, shard)
+from repro_torch.models import api, mamba2
 from repro_torch.models.layers import QT, QT4
 from repro_torch.models.moe import EPContext
 from repro_torch.serving import engine
@@ -59,8 +61,6 @@ Q8_OPT_THRESHOLD = 100e9
 # query-block length of the long-sequence cells' attention
 Q_BLOCK = 1024
 LONG_SEQ = 8192
-# the families whose serving cells compute sharded (the others: exact TP)
-SHARDED_FAMILIES = engine.EXACT_TP_FAMILIES
 
 
 @dataclasses.dataclass
@@ -73,6 +73,7 @@ class Cell:
     meta: Dict[str, Any]
     param_specs: Optional[Dict[str, Any]] = None
     row_axes: Tuple[str, ...] = ()
+    cache_specs: Optional[Dict[str, Any]] = None
 
     def run(self):
         return self.fn(*self.args)
@@ -84,6 +85,8 @@ class Cell:
         out = {}
         for name, w in params.items():
             sp = self.param_specs[name]
+            if name.endswith("/in_zx"):
+                w = _zx_blocks(w, sp, self.mesh)
             if isinstance(w, (QT, QT4)):
                 out[name] = type(w)(*(_place(p, ps, self.mesh)
                                       for p, ps in zip(w, sp)))
@@ -106,6 +109,18 @@ class Cell:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return tuple(_real(a, "", self.cfg, device, gen) for a in self.args)
+
+
+def _zx_blocks(w: Any, spec, mesh) -> Any:
+    """An SSM's whole ``in_zx`` (a tensor or a QT / QT4 triple) re-blocked
+    for its spec (:func:`repro_torch.models.mamba2.zx_blocks`): the
+    contiguous block of its columns each rank keeps holds the rank's
+    heads' z and x columns."""
+    q_spec = spec[0] if isinstance(w, (QT, QT4)) else spec
+    n = block_index(mesh, q_spec.padded(3)[-1])[0]
+    if isinstance(w, (QT, QT4)):
+        return type(w)(mamba2.zx_blocks(w.q, n), w.scale, w.zero)
+    return mamba2.zx_blocks(w, n)
 
 
 _CACHE_LEAVES = ("k", "v", "xk", "xv", "conv_x", "conv_bc", "ssm")
@@ -325,13 +340,13 @@ def _port_kv(specs: Dict[str, Any]) -> Dict[str, str]:
             "kv_port_spec": ",".join(word(x) for x in e)}
 
 
-def _steps(cfg: ArchConfig, sc, mesh, **ctx_kw):
+def _steps(cfg: ArchConfig, sc, mesh, long_context: bool = False,
+           **ctx_kw):
     """The cell's ``ServeSteps``: sharded compute under the reference's
-    hints for the dense and MoE families, exact TP for the others."""
-    if cfg.family not in SHARDED_FAMILIES:
-        return engine.ServeSteps(cfg, sc, mesh=mesh)
+    hints, the cache placed by its serving rules."""
     hints, ep = _install_contexts(cfg, mesh, **ctx_kw)
-    return engine.ServeSteps(cfg, sc, mesh=mesh, hints=hints, ep=ep)
+    return engine.ServeSteps(cfg, sc, mesh=mesh, hints=hints, ep=ep,
+                             long_context=long_context)
 
 
 def build_prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
@@ -358,9 +373,10 @@ def build_prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         with steps.rows_over(axes):
             return steps.prefill_fn(p, prompt)
 
-    specs = steps.cache_shardings(B) if cfg.family != "ssm" else {}
+    specs = steps.cache_shardings(B)
     return Cell(cfg=cfg, shape=shape, mesh=mesh, fn=prefill_step,
                 args=(params, prompt), param_specs=pspecs, row_axes=axes,
+                cache_specs=specs,
                 meta=_names({"kind": "prefill", "weights": weights,
                              "q_block": sc.q_block,
                              "sharded_compute": steps.hints is not None,
@@ -375,22 +391,17 @@ def build_decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
 
     ``serve_mode``:
 
-    * ``fsdp``: weights at rest by the serve rules, rows over data; the
-      dense and MoE families compute sharded (their FSDP blocks gathered
-      at use), the others by exact TP;
-    * ``stationary`` (dense and MoE): the reference's weight-stationary
-      decode — weights never move: the rows replicate over the data axes,
-      the carry's D rides them (``feature_axes``), each projection is a
-      partial dot summed over them, the experts' hidden dim rests over
-      them, and only the KV cache stays split by rows (and sequence)."""
+    * ``fsdp``: weights at rest by the serve rules, rows over data, each
+      rank computing its block (FSDP blocks gathered at use);
+    * ``stationary``: the reference's weight-stationary decode — weights
+      never move: the rows replicate over the data axes, the carry's D
+      rides them (``feature_axes``), each projection is a partial dot
+      summed over them, the experts' hidden dim rests over them, and only
+      the cache stays split by rows (and sequence)."""
     if serve_mode not in ("fsdp", "stationary"):
         raise ValueError(f"serve_mode must be 'fsdp' or 'stationary', got "
                          f"{serve_mode!r}")
     stationary = serve_mode == "stationary"
-    if stationary and cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"serve_mode='stationary' for the {cfg.family} family: its "
-            f"sharded-compute layouts are a later slice (ROADMAP queue 1)")
     if kv_bits != 16:
         raise NotImplementedError("the dry-run's decode cells take the bf16 "
                                   "cache (kv_bits=16)")
@@ -410,7 +421,7 @@ def build_decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         {**rules.table, "batch": ()})
     sc = engine.ServeConfig(max_len=S)
     params, pspecs = param_structs(cfg, mesh, rules, weights)
-    steps = _steps(cfg, sc, mesh, batch_sharded=batch_sharded,
+    steps = _steps(cfg, sc, mesh, long_context, batch_sharded=batch_sharded,
                    kv_seq_axes=kv_seq,
                    feature_axes=data_axes if stationary else ())
     cache, cspecs = _cache_struct(cfg, steps, B, S)
@@ -425,7 +436,7 @@ def build_decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
 
     return Cell(cfg=cfg, shape=shape, mesh=mesh, fn=serve_step,
                 args=(params, token, cache, S - 1), param_specs=pspecs,
-                row_axes=axes,
+                row_axes=axes, cache_specs=cspecs,
                 meta=_names({"kind": "decode", "weights": weights,
                              "kv_bits": kv_bits, "serve_mode": serve_mode,
                              "long_context": long_context,

@@ -25,12 +25,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.ctx import sharded_compute
 from .layers import (Schema, Spec, attention_blocks, cache_rows,
                      cache_seq_block, carry_features, carry_spec,
-                     checkpointed, constrain_carry, deq, gather_blocks,
+                     checkpointed, constrain_carry, gather_blocks,
                      gather_cache_rows, gather_heads, gqa_attention,
                      head_block, init_params, kv_dequantize, kv_quantize,
                      last_position, layer_slice, matmul, rms_norm, rope,
                      scatter_blocks, softmax_xent, stacked_layers, swiglu,
-                     take_rows, update_kv_cache, whole_activation)
+                     take_rows, tied_logits, update_kv_cache,
+                     whole_activation)
 
 
 def schema(cfg: ArchConfig) -> Schema:
@@ -229,11 +230,7 @@ def logits_fn(cfg: ArchConfig, params, x: torch.Tensor, *,
     is column-parallel over the vocabulary and the logits leave it
     gathered (``x_axes``: the axes ``x``'s features are split over)."""
     if cfg.tie_embeddings:
-        if sharded_compute() is not None:
-            raise NotImplementedError(
-                "sharded compute of tied embeddings (no dense or MoE "
-                "config ties them)")
-        return matmul(x, deq(params["embed"]).T)
+        return tied_logits(x, params["embed"], x_axes=x_axes)
     return matmul(x, params["lm_head"], gather=True, x_axes=x_axes)
 
 

@@ -1,5 +1,5 @@
 """Jamba-style hybrid decoder: Mamba-2 and attention interleaved, with MoE
-feed-forwards (PyTorch port of ``repro/models/hybrid.py``, one device).
+feed-forwards (PyTorch port of ``repro/models/hybrid.py``).
 
 Layers are grouped into *periods* of ``attn_period`` blocks (arXiv:
 2403.19887): each period holds ONE attention block, at its middle
@@ -11,7 +11,10 @@ port loops over them in Python.
 
 The attention blocks are the dense family's and hold a KV cache, the Mamba
 blocks an O(1) conv and SSM state; the MoE dispatch is
-:func:`repro_torch.models.moe.moe_mlp`.
+:func:`repro_torch.models.moe.moe_mlp`.  Under sharded-compute hints each
+block computes its rank's share as its family does; the carry is not
+sequence-parallel (the JAX package's hints for this family), so it rests
+split by batch rows only.
 """
 from __future__ import annotations
 
@@ -21,9 +24,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from . import dense, mamba2
-from .layers import (Schema, Spec, checkpointed, init_params, layer_slice,
-                     matmul, rms_norm, softmax_xent, stacked_layers, swiglu,
-                     take_rows)
+from .layers import (Schema, Spec, cache_seq_block, carry_features,
+                     carry_spec, checkpointed, constrain_carry, init_params,
+                     last_position, layer_slice, matmul, rms_norm,
+                     softmax_xent, stacked_layers, swiglu, take_rows,
+                     whole_activation)
 from .moe import _padded_experts, moe_block_schema, moe_mlp
 
 f32 = torch.float32
@@ -98,24 +103,35 @@ def _pos_params(pp: Dict[str, Any], j: int) -> Dict[str, Any]:
     return {k[len(pre):]: v for k, v in pp.items() if k.startswith(pre)}
 
 
-def _ffn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, ffn_kind: str):
-    h = rms_norm(x, lp["mlp_norm"])
+def _ffn(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor,
+         ffn_kind: str, carry: Optional[tuple] = None):
+    """The feed-forward with its residual, and the MoE aux (0 for a dense
+    SwiGLU); under sharded compute on the carry of layout ``carry``, as the
+    dense and MoE families' blocks run it."""
+    fx = carry_features(carry)
+    h = rms_norm(x, lp["mlp_norm"], x_axes=fx)
     if ffn_kind == "moe":
         wts = {k.split("/", 1)[1]: v for k, v in lp.items()
                if k.startswith("moe/")}
-        y, aux = moe_mlp(h, wts, cfg.moe, _padded_experts(cfg))
+        y, aux = moe_mlp(whole_activation(h, carry, features=True), wts,
+                         cfg.moe, _padded_experts(cfg), carry)
         return x + y, aux
-    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), \
-        torch.zeros((), dtype=f32, device=x.device)
+    y = swiglu(whole_activation(h, carry), lp["w_gate"], lp["w_up"],
+               lp["w_down"], x_axes=fx, carry=carry)
+    return x + y, torch.zeros((), dtype=f32, device=x.device)
 
 
 def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
                  positions, caches: Optional[Dict[str, torch.Tensor]] = None,
                  pos=None, chunk: Optional[int] = None,
-                 collect: bool = False, q_block: int = 0):
+                 collect: bool = False, q_block: int = 0,
+                 keep: Optional[Tuple[int, int]] = None,
+                 carry: Optional[tuple] = None):
     """Apply one period's blocks.  ``caches``: the period's {"k", "v",
     "conv_x", "conv_bc", "ssm"} (a decode step updates them in place).
-    Returns (x, the period's new caches | None, the summed MoE aux)."""
+    Returns (x, the period's new caches | None, the summed MoE aux).
+    ``keep`` and ``carry`` as in :func:`dense._attn`: under sharded compute
+    every block takes and hands back the carry of layout ``carry``."""
     new_kv = None
     new_conv_x, new_conv_bc, new_ssm = [], [], []
     aux_total = torch.zeros((), dtype=f32, device=x.device)
@@ -128,21 +144,23 @@ def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
             # a decode step writes its (k, v) in place at ``pos``
             cache = (caches["k"], caches["v"]) if decode else None
             out, new_kv = dense._attn(cfg, lp, x, positions=positions,
-                                      cache=cache, pos=pos, q_block=q_block)
+                                      cache=cache, pos=pos, q_block=q_block,
+                                      keep=keep, carry=carry)
             x = x + out
         else:
             cs = ((caches["conv_x"][mamba_i], caches["conv_bc"][mamba_i])
                   if decode else None)
             hs = caches["ssm"][mamba_i] if decode else None
             out, ((cx2, cbc2), hs2) = mamba2._mamba_block(
-                cfg, lp, x, conv_state=cs, ssm_state=hs, chunk=chunk)
+                cfg, lp, x, conv_state=cs, ssm_state=hs, chunk=chunk,
+                carry=carry)
             x = x + out
             if decode or collect:
                 new_conv_x.append(cx2)
                 new_conv_bc.append(cbc2)
                 new_ssm.append(hs2)
             mamba_i += 1
-        x, aux = _ffn(cfg, lp, x, ffn_kind)
+        x, aux = _ffn(cfg, lp, x, ffn_kind, carry)
         aux_total = aux_total + aux
     out_caches = None
     if decode or collect:
@@ -155,33 +173,44 @@ def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             remat: bool = False, collect_cache: bool = False,
-            chunk: Optional[int] = None, q_block: int = 0):
+            chunk: Optional[int] = None, q_block: int = 0,
+            cache_len: Optional[int] = None):
     """Full-sequence forward.  Returns (hidden, [period caches] | None, the
     MoE aux averaged over the layers).  ``remat`` recomputes each period in
     the backward (the JAX package checkpoints the period and, inside it,
     each sub-block, which bounds its sharded weight gathers; one device
-    has none, and the values are the same)."""
-    S = tokens.shape[1]
-    x = take_rows(params["embed"], tokens)
+    has none, and the values are the same).  Under sharded-compute hints
+    the carry rests as the JAX package's ``constrain_activation`` decides
+    (batch rows only: the family's carries are not sequence-parallel), at
+    its places; ``cache_len`` as in :func:`dense.forward`."""
+    S, D = tokens.shape[1], cfg.d_model
+    carry = carry_spec(tokens.shape[0], S, D)
+    x = constrain_carry(take_rows(params["embed"], tokens, carry), S, D)
     positions = torch.arange(S, device=tokens.device)
+    keep = dense._kept_rows(S, cache_len) if collect_cache else None
     aux_sum = torch.zeros((), dtype=f32, device=tokens.device)
     body = checkpointed(
         lambda pp, x: _period_body(cfg, pp, x, positions=positions,
                                    chunk=chunk, collect=collect_cache,
-                                   q_block=q_block), remat)
+                                   q_block=q_block, keep=keep, carry=carry),
+        remat)
     caches = []
     for pp in stacked_layers(params, "periods",
                              cfg.n_layers // cfg.attn_period):
         x, c, aux = body(pp, x)
+        x = constrain_carry(x, S, D)
         aux_sum = aux_sum + aux
         if collect_cache:
             caches.append(c)
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry))
     return x, (caches if collect_cache else None), aux_sum / cfg.n_layers
 
 
-def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
-    return matmul(x, params["lm_head"])
+def logits_fn(cfg: ArchConfig, params, x: torch.Tensor, *,
+              x_axes: Any = None) -> torch.Tensor:
+    """Logits over the padded vocabulary, gathered under sharded compute
+    (``x_axes``: the axes ``x``'s features are split over)."""
+    return matmul(x, params["lm_head"], gather=True, x_axes=x_axes)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
@@ -235,29 +264,41 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None, chunk: Optional[int] = None,
             q_block: int = 0):
     """Run the prompt; return (last-position logits, the cache with KV rows
-    padded to ``max_len``)."""
+    padded to ``max_len``).  Under sharded compute each leaf is this
+    rank's block (its rows, KV heads or T block, inner channels, SSD
+    heads)."""
     B, S = tokens.shape
+    T = max_len or S
     x, caches, _ = forward(cfg, params, tokens, collect_cache=True,
-                           chunk=chunk, q_block=q_block)
-    cache = init_cache(cfg, B, max_len or S, dtype=x.dtype, device=x.device)
-    for p, c in enumerate(caches):
-        cache["k"][p, :, :S] = c["k"]
-        cache["v"][p, :, :S] = c["v"]
-        for key in ("conv_x", "conv_bc", "ssm"):
-            cache[key][p] = c[key]
-    return logits_fn(cfg, params, x[:, -1:, :]), cache
+                           chunk=chunk, q_block=q_block, cache_len=T)
+    lo, hi, t0, Tl = cache_seq_block(S, T)
+    cache = {key: torch.stack([c[key] for c in caches])
+             for key in ("conv_x", "conv_bc", "ssm")}
+    for key in ("k", "v"):
+        kv = torch.stack([c[key] for c in caches])        # (nP, B, *, KV, hd)
+        cache[key] = kv.new_zeros(kv.shape[:2] + (Tl,) + kv.shape[3:])
+        cache[key][:, :, lo - t0:hi - t0] = kv
+    carry = carry_spec(B, S, cfg.d_model)
+    return logits_fn(cfg, params, last_position(x, carry),
+                     x_axes=carry_features(carry)), cache
 
 
 def decode_step(cfg: ArchConfig, params, token: torch.Tensor, cache, pos):
     """One generation step at position ``pos`` (an int: lockstep); the
     cache is updated in place."""
-    x = take_rows(params["embed"], token)
+    D = cfg.d_model
+    carry = carry_spec(token.shape[0], 1, D)
+    x = constrain_carry(take_rows(params["embed"], token, carry), 1, D)
     positions = pos + torch.arange(1, device=token.device)
     for p in range(cfg.n_layers // cfg.attn_period):
         period = {k: v[p] for k, v in cache.items()}
         x, nc, _ = _period_body(cfg, _period(params, p), x,
-                                positions=positions, caches=period, pos=pos)
+                                positions=positions, caches=period, pos=pos,
+                                carry=carry)
+        x = constrain_carry(x, 1, D)
         for key in ("conv_x", "conv_bc", "ssm"):
             cache[key][p] = nc[key]
-    x = rms_norm(x, params["final_norm"])
-    return logits_fn(cfg, params, x), cache
+    fx = carry_features(carry)
+    x = rms_norm(x, params["final_norm"], x_axes=fx)
+    return logits_fn(cfg, params, whole_activation(x, carry),
+                     x_axes=fx), cache

@@ -301,6 +301,13 @@ def _local_weight(w: Any, mesh) -> Tuple[Any, Tuple]:
     return out[0], tuple(spec)
 
 
+def local_weight(w: Any) -> Tuple[Any, Tuple]:
+    """Under sharded-compute hints, this rank's block of the weight ``w``
+    as plain tensors (a tensor or a QT / QT4 triple), its FSDP blocks
+    gathered (:func:`gather_weight`), and the spec the block is cut by."""
+    return _local_weight(gather_weight(w), sharded_compute().mesh)
+
+
 def deq(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
     """The weight dequantized in ``dtype`` (bf16 by default); under
     sharded-compute hints this rank's block of it (after
@@ -373,6 +380,25 @@ def _matmul(x: torch.Tensor, w: Any, *, gather: bool = False,
         y = collectives.all_gather(mesh, y, y.dim() - 1, spec[-1])
         n_axes = ()
     return y, n_axes
+
+
+def tied_logits(x: torch.Tensor, table: Any, *,
+                x_axes: Any = None) -> torch.Tensor:
+    """``x @ deq(table).T``, the logits of a tied embedding; under
+    sharded-compute hints the table's rows (the vocabulary, its block on
+    the model axis) are the product's output channels: column-parallel,
+    the logits gathered (``x_axes`` as in :func:`matmul`)."""
+    if sharded_compute() is None:
+        return matmul(x, deq(table).T)
+    if isinstance(table, QT4):
+        raise NotImplementedError("sharded tied logits of a nibble-packed "
+                                  "table")
+    t = lambda p: (Sharded(p.local.t(), p.spec[::-1])  # noqa: E731
+                   if isinstance(p, Sharded) else
+                   p.t() if p.dim() == 2 else p)
+    w = type(table)(*(t(p) for p in table)) if isinstance(table, QT) \
+        else t(table)
+    return matmul(x, w, gather=True, x_axes=x_axes)
 
 
 def _split(mesh, entry) -> Tuple[str, ...]:
@@ -517,21 +543,29 @@ def _lookup(w: Any, idx: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------------ primitives
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+def rms_norm(x: torch.Tensor, scale: Any, eps: float = 1e-6, *,
              x_axes: Any = None) -> torch.Tensor:
     """RMS norm over the last dim, statistics in float32.  Under
     sharded-compute hints ``x_axes`` names the mesh axes ``x``'s features
-    are split over (a layer carry's in the weight-stationary decode): the
-    squares are summed over them and ``scale`` is cut to the block."""
-    scale = gather_weight(scale)
+    are split over (a layer carry's in the weight-stationary decode, an
+    SSM's inner channels over the model axis): the squares are summed over
+    them and ``scale`` is taken at this rank's block (cut here when it
+    rests whole, as it rests when split over the same axes)."""
     h = sharded_compute()
     axes = () if h is None else _split(h.mesh, x_axes)
     if axes:
+        sl, spec = local_weight(scale)
+        s_axes = _split(h.mesh, spec[-1])
+        assert s_axes in ((), axes), (spec, axes)
+        n = sl.shape[-1] * block_index(h.mesh, s_axes or None)[0]
+        if not s_axes:
+            sl = _cut(sl, -1, axes, h.mesh)
         xf = x.float()
         ss = collectives.all_reduce_sum(
             h.mesh, torch.sum(xf * xf, dim=-1, keepdim=True), axes)
-        return (xf * torch.rsqrt(ss / scale.shape[-1] + eps)).to(x.dtype) \
-            * _cut(scale, -1, axes, h.mesh).to(x.dtype)
+        return (xf * torch.rsqrt(ss / n + eps)).to(x.dtype) \
+            * sl.to(x.dtype)
+    scale = gather_weight(scale) if h is None else local_weight(scale)[0]
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)

@@ -1,5 +1,5 @@
 """Mamba-2 (SSD, state-space duality, arXiv:2405.21060) decoder (PyTorch
-port of ``repro/models/mamba2.py``, one device).
+port of ``repro/models/mamba2.py``).
 
 Chunked SSD, as in the JAX package:
 
@@ -20,6 +20,10 @@ TF32, whatever the caller set (:func:`ieee_f32`).
 ``A_log``, ``dt_bias``, ``D_skip`` and the conv weights stay float32; a
 compression spec must carve them out ahead of any catch-all rule
 (``core.spec``: a matching rule overrides the keep-fp32 predicate).
+
+Under sharded-compute hints each rank of the model axis computes a block
+of the SSD heads (:func:`_mamba_block`); the layer carry rests as the JAX
+package's ``constrain_activation`` decides, as in ``dense``.
 """
 from __future__ import annotations
 
@@ -29,9 +33,14 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from .layers import (Schema, Spec, checkpointed, deq, gather_weight,
-                     init_params, layer_slice, matmul, rms_norm, silu,
-                     softmax_xent, softplus, stacked_layers, take_rows)
+from repro_torch.distributed.ctx import block_index, sharded_compute
+from .layers import (Schema, Spec, _matmul, cache_rows, carry_features,
+                     carry_spec, checkpointed, constrain_carry,
+                     gather_cache_rows, gather_weight, init_params,
+                     last_position, layer_slice, local_weight, matmul,
+                     rms_norm, silu, softmax_xent, softplus,
+                     stacked_layers, take_rows, tied_logits,
+                     whole_activation)
 
 f32 = torch.float32
 
@@ -234,22 +243,75 @@ _DIRECT = ("conv_x_w", "conv_x_b", "conv_bc_w", "conv_bc_b", "dt_bias",
            "A_log", "D_skip")
 
 
+def _direct(w: Any) -> torch.Tensor:
+    """A parameter the block reads as a tensor: whole (gathered at use on
+    an exact-TP mesh), or this rank's block under sharded compute (the
+    depthwise conv's and the heads' parameters rest split with the inner
+    channels)."""
+    if sharded_compute() is None:
+        return gather_weight(w)
+    return local_weight(w)[0]
+
+
+def _head_offset(A_log: Any) -> int:
+    """The first SSD head of this rank's block (0 unless sharded compute
+    splits the heads over the model axis)."""
+    h = sharded_compute()
+    if h is None:
+        return 0
+    wl, spec = local_weight(A_log)
+    return block_index(h.mesh, spec[-1])[1] * wl.shape[-1]
+
+
+def zx_blocks(w: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """``in_zx`` (..., 2 Din) with its columns reordered so that each of
+    ``n_blocks`` contiguous blocks is ``[z_r | x_r]``: block ``r`` of z's
+    and of x's inner channels, the heads a rank of the model axis computes
+    (the plain cut of ``[z | x]`` would give the first ranks z only).  Any
+    last-dim packing works: both halves are cut alike."""
+    if n_blocks == 1:
+        return w
+    n = w.shape[-1] // (2 * n_blocks)
+    return w.unflatten(-1, (2, n_blocks, n)).transpose(-3, -2).flatten(-3)
+
+
 def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
-                 conv_state=None, ssm_state=None, chunk: Optional[int] = None):
+                 conv_state=None, ssm_state=None, chunk: Optional[int] = None,
+                 carry: Optional[tuple] = None):
     """One mamba2 block.  Returns (out, ((new_conv_x, new_conv_bc),
     new_ssm_state)); ``conv_state`` is the pair of the split projections'
-    conv states."""
+    conv states.
+
+    Under sharded-compute hints ``x`` is the layer carry of layout
+    ``carry`` (:func:`layers.carry_spec`): the block gathers its S (the
+    scan needs the whole sequence), and each rank computes its block of
+    the SSD heads — its ``[z_r | x_r]`` columns of ``in_zx`` (re-blocked at
+    placement, :func:`zx_blocks`), its channels of the depthwise ``conv_x``,
+    its heads' columns of ``dt`` (``in_bcdt`` and ``conv_bc`` stay whole:
+    B and C are shared by every head) — and its block of the states.  The
+    gated norm sums its squares over the ranks of the inner channels;
+    ``out_proj`` is row-parallel, handing back the carry's layout.  In the
+    weight-stationary decode the states hold a block of the rows
+    (:func:`layers.cache_rows`)."""
     ssm = cfg.ssm
-    B, S, D = x.shape
-    Din = ssm.d_inner(D)
-    H, P, N, G = ssm.n_heads(D), ssm.head_dim, ssm.d_state, 1
+    H, P, N, G = ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state, 1
     chunk = chunk or ssm.chunk
 
-    # the parameters read as tensors, whole (gathered on a mesh)
-    lp = dict(lp, **{k: gather_weight(lp[k]) for k in _DIRECT})
-    h = rms_norm(x, lp["norm"])
-    z, xs = torch.split(matmul(h, lp["in_zx"]), [Din, Din], dim=-1)
-    BC, dt = torch.split(matmul(h, lp["in_bcdt"]), [2 * G * N, H], dim=-1)
+    fx = carry_features(carry)
+    h0 = _head_offset(lp["A_log"])
+    lp = dict(lp, **{k: _direct(lp[k]) for k in _DIRECT})
+    Hl = lp["A_log"].shape[-1]
+    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx), carry)
+    zx, zx_axes = _matmul(h, lp["in_zx"], x_axes=fx)
+    Din = zx.shape[-1] // 2
+    assert Din == Hl * P, (tuple(zx.shape), Hl, P)
+    z, xs = torch.split(zx, [Din, Din], dim=-1)
+    BC, dt = torch.split(matmul(h, lp["in_bcdt"], x_axes=fx),
+                         [2 * G * N, H], dim=-1)
+    if Hl != H:
+        dt = dt[..., h0:h0 + Hl]
+    z, xs, BC, dt = (cache_rows(t) for t in (z, xs, BC, dt))
+    B, S = xs.shape[:2]
     cs_x, cs_bc = conv_state if conv_state is not None else (None, None)
     xs, new_conv_x = _causal_conv(xs, lp["conv_x_w"], lp["conv_x_b"], cs_x)
     BC, new_conv_bc = _causal_conv(BC, lp["conv_bc_w"], lp["conv_bc_b"],
@@ -258,7 +320,7 @@ def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
     dt = softplus(dt.float() + lp["dt_bias"].float())
     A = -torch.exp(lp["A_log"].float())                  # (H,) negative
 
-    xh = xs.reshape(B, S, H, P)
+    xh = xs.reshape(B, S, Hl, P)
     if S == 1 and ssm_state is not None:
         y, h_new = ssd_step(xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0],
                             ssm_state)
@@ -267,8 +329,10 @@ def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
         y, h_new = ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=ssm_state)
     y = y + xh * lp["D_skip"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, Din)
-    y = rms_norm(y * silu(z.float()).to(y.dtype), lp["ssm_norm"])
-    out = matmul(y, lp["out_proj"])
+    y = rms_norm(y * silu(z.float()).to(y.dtype), lp["ssm_norm"],
+                 x_axes=zx_axes or None)
+    out = matmul(gather_cache_rows(y), lp["out_proj"],
+                 x_axes=zx_axes or None, carry=carry)
     return out, ((new_conv_x, new_conv_bc), h_new)
 
 
@@ -276,24 +340,34 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             remat: bool = False, collect_cache: bool = False,
             chunk: Optional[int] = None):
     """Full-sequence forward.  Returns (hidden, [((conv_x, conv_bc), ssm)
-    per layer] | None).  ``remat`` recomputes each layer in the backward."""
-    x = take_rows(params["embed"], tokens)
+    per layer] | None).  ``remat`` recomputes each layer in the backward.
+    Under sharded-compute hints the carry rests as the JAX package's
+    ``constrain_activation`` decides, at its places (after the embedding,
+    after each layer)."""
+    S = tokens.shape[1]
+    carry = carry_spec(tokens.shape[0], S, cfg.d_model)
+    x = constrain_carry(take_rows(params["embed"], tokens, carry), S,
+                        cfg.d_model)
     block = checkpointed(
-        lambda lp, x: _mamba_block(cfg, lp, x, chunk=chunk), remat)
+        lambda lp, x: _mamba_block(cfg, lp, x, chunk=chunk, carry=carry),
+        remat)
     caches = []
     for lp in stacked_layers(params, "layers", cfg.n_layers):
         out, st = block(lp, x)
-        x = x + out
+        x = constrain_carry(x + out, S, cfg.d_model)
         if collect_cache:
             caches.append(st)
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry))
     return x, (caches if collect_cache else None)
 
 
-def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+def logits_fn(cfg: ArchConfig, params, x: torch.Tensor, *,
+              x_axes: Any = None) -> torch.Tensor:
+    """Logits over the padded vocabulary, gathered under sharded compute
+    (``x_axes``: the axes ``x``'s features are split over)."""
     if cfg.tie_embeddings:
-        return matmul(x, deq(params["embed"]).T)
-    return matmul(x, params["lm_head"])
+        return tied_logits(x, params["embed"], x_axes=x_axes)
+    return matmul(x, params["lm_head"], gather=True, x_axes=x_axes)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
@@ -347,31 +421,33 @@ def _write_state(cache: Dict[str, torch.Tensor], l: int, st) -> None:
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None, chunk: Optional[int] = None,
             q_block: int = 0):
-    """Run the prompt; return (last-position logits, the state cache);
-    ``q_block`` is accepted, as in the JAX package, and unused."""
-    x = take_rows(params["embed"], tokens)
-    cache = init_cache(cfg, tokens.shape[0], max_len or tokens.shape[1],
-                       dtype=x.dtype, device=x.device)
-    for l in range(cfg.n_layers):
-        out, st = _mamba_block(cfg, _layer(params, l), x, chunk=chunk)
-        x = x + out
-        _write_state(cache, l, st)
-    x = rms_norm(x, params["final_norm"])
-    return logits_fn(cfg, params, x[:, -1:, :]), cache
+    """Run the prompt; return (last-position logits, the state cache, each
+    leaf this rank's block under sharded compute); ``max_len`` and
+    ``q_block`` are accepted, as in the JAX package, and unused."""
+    x, caches = forward(cfg, params, tokens, collect_cache=True, chunk=chunk)
+    cache = {"conv_x": torch.stack([cx for (cx, _), _ in caches]),
+             "conv_bc": torch.stack([cbc for (_, cbc), _ in caches]),
+             "ssm": torch.stack([hs for _, hs in caches])}
+    carry = carry_spec(tokens.shape[0], tokens.shape[1], cfg.d_model)
+    return logits_fn(cfg, params, last_position(x, carry),
+                     x_axes=carry_features(carry)), cache
 
 
 def decode_step(cfg: ArchConfig, params, token: torch.Tensor, cache, pos):
     """One generation step: each layer's conv and SSM state advance by one
-    token, in place.  ``pos`` is taken for the API's sake (the state
-    carries the position)."""
-    x = take_rows(params["embed"], token)
+    token, in place (each rank its block under sharded compute).  ``pos``
+    is taken for the API's sake (the state carries the position)."""
+    D = cfg.d_model
+    carry = carry_spec(token.shape[0], 1, D)
+    x = constrain_carry(take_rows(params["embed"], token, carry), 1, D)
     for l in range(cfg.n_layers):
         out, st = _mamba_block(
             cfg, _layer(params, l), x,
             conv_state=(cache["conv_x"][l], cache["conv_bc"][l]),
-            ssm_state=cache["ssm"][l])
-        x = x + out
+            ssm_state=cache["ssm"][l], carry=carry)
+        x = constrain_carry(x + out, 1, D)
         _write_state(cache, l, st)
-    x = rms_norm(x, params["final_norm"])
-    return logits_fn(cfg, params, x), cache
-
+    fx = carry_features(carry)
+    x = rms_norm(x, params["final_norm"], x_axes=fx)
+    return logits_fn(cfg, params, whole_activation(x, carry),
+                     x_axes=fx), cache

@@ -1,5 +1,5 @@
 """Mixture-of-Experts feed-forward and the dbrx / qwen2-moe decoder family
-(PyTorch port of ``repro/models/moe.py``, one device).
+(PyTorch port of ``repro/models/moe.py``).
 
 Dispatch is GShard's, sort-free, as in the JAX package: the router picks
 each token's top-k experts, every (token, choice) pair gets a slot in an
@@ -23,12 +23,14 @@ Under exact-TP serving hints (``ServeSteps`` on a mesh) whose batch rows
 are split over data axes, the feed-forward gathers the rows of the whole
 batch first: the capacity is shared across the batch, so only the whole
 batch routes and drops tokens exactly as one device does.  Under
-sharded-compute hints (the production cells) it gathers what the dispatch
-needs — the batch's rows, the carry's S and, in the weight-stationary
-layout, its features — routes and runs this rank's experts under the
-installed :class:`EPContext`, and hands back its block of the carry; the
-shared experts are column- / row-parallel matmuls on the carry as the
-dense family's feed-forward is.
+sharded-compute hints (the production cells) it is the JAX package's EP
+``shard_map`` body: each data rank routes its own rows and sizes the
+capacity by them (``_capacity(B_loc * S, ...)``), so a choice one device
+keeps may be dropped there, as in the JAX package; the rank runs its
+experts under the installed :class:`EPContext` and hands back its block of
+the carry.  The load-balance aux sums its statistics over the data axes:
+it is the whole batch's, as under GSPMD.  The shared experts are column- /
+row-parallel matmuls on the carry as the dense family's feed-forward is.
 
 Attention, caches, the per-layer weight slots of compressed-resident
 serving and the paged block pool are the dense family's.
@@ -42,11 +44,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.distributed import collectives
-from repro_torch.distributed.ctx import get_hints, local_block, set_hints
+from repro_torch.distributed.ctx import (block_index, get_hints,
+                                         local_block, set_hints,
+                                         sharded_compute)
 from . import dense
 from .layers import (Schema, Spec, activation_block, carry_features,
                      carry_spec, checkpointed, constrain_carry, deq,
-                     init_params, last_position, matmul, rms_norm, silu,
+                     init_params, last_position, local_weight, matmul,
+                     rms_norm, silu,
                      softmax, softmax_xent, stacked_layers, swiglu, top_k,
                      whole_activation)
 
@@ -203,26 +208,20 @@ def _whole_batch(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
 def _sharded_moe(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
                  E: int, h, carry: Optional[tuple]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`moe_mlp` under sharded-compute hints.  ``x`` is this rank's
-    rows with every position and feature (the caller gathers them).  The
-    routed experts run on the whole batch's rows (the capacity is shared,
-    as on one device) under the installed EP context — this rank's experts,
-    summed over the model axis — and the rank keeps its rows, then its
-    block of the carry's layout ``carry``; the shared experts compute on
-    ``x`` and hand back that block themselves (row-parallel
+    """:func:`moe_mlp` under sharded-compute hints, the JAX package's EP
+    ``shard_map`` body.  ``x`` is this rank's rows with every position and
+    feature (the caller gathers them).  The rank routes only its rows and
+    sizes the capacity by them, as each data rank of the JAX package does
+    (in the weight-stationary decode every data rank holds the whole
+    batch, so that is the whole batch); it runs its experts under the
+    installed EP context, summed over the model axis, and keeps its block
+    of the carry's layout ``carry``.  The aux's statistics are summed over
+    the batch axes (:func:`_routed`).  The shared experts compute on ``x``
+    and hand back that block themselves (row-parallel
     ``shared_w_down``)."""
     assert get_ep_context() is not None, \
         "sharded compute of the MoE family needs an EPContext installed"
-    full = collectives.all_gather(h.mesh, x, 0, h.batch_axes) \
-        if h.batch_axes else x
-    set_hints(dataclasses.replace(h, batch_axes=()))
-    try:
-        y, aux = _routed(full, wts, mcfg, E)
-    finally:
-        set_hints(h)
-    if h.batch_axes:
-        entry = h.batch_axes if len(h.batch_axes) > 1 else h.batch_axes[0]
-        y = local_block(y, (entry,), h.mesh)
+    y, aux = _routed(x, wts, mcfg, E, stat_axes=h.batch_axes)
     y = activation_block(y, carry)
     if mcfg.shared_experts:
         y = y + swiglu(x, wts["shared_w_gate"], wts["shared_w_up"],
@@ -250,8 +249,12 @@ def moe_mlp(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
 
 
 def _routed(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
-            E: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The routed experts' output and the load-balance aux."""
+            E: int, stat_axes: Tuple[str, ...] = ()
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts' output and the load-balance aux.  With
+    ``stat_axes`` (sharded compute: the axes this rank's rows are one block
+    of) the aux's mean probabilities and choice counts are summed over
+    them, so it is the whole batch's."""
     B, S, D = x.shape
     K = mcfg.top_k
     probs, gates, idx = route(x, wts["router"], K)
@@ -259,31 +262,61 @@ def _routed(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
     # Switch-style load-balance aux: E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))                             # (E,)
     flat = idx.reshape(-1)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+    counts = torch.zeros((E,), dtype=torch.float32,
+                         device=x.device).index_add_(
         0, flat, torch.ones(flat.shape, dtype=torch.float32,
-                            device=x.device)) / (B * S * K)
+                            device=x.device))
+    n = 1
+    if stat_axes:
+        mesh = get_hints().mesh
+        n = block_index(mesh, stat_axes)[0]
+        # equal blocks of rows: the whole batch's mean is the sum of theirs
+        # over n
+        me, counts = collectives.all_reduce_sum(
+            mesh, torch.stack([me / n, counts]), stat_axes)
+    ce = counts / (B * S * K * n)
     aux = E * torch.sum(me * ce)
 
     ctx = get_ep_context()
+    C = _capacity(B * S, K, E, mcfg.capacity_factor)
     if ctx is None:
-        C = _capacity(B * S, K, E, mcfg.capacity_factor)
         y = _dispatch_compute(
             x.reshape(B * S, D), gates.reshape(-1, K), idx.reshape(-1, K),
             wts["w_gate"], wts["w_up"], wts["w_down"], 0, E,
             C).reshape(B, S, D)
     else:
         # x holds this rank's tokens already: with batch_sharded its block
-        # of the batch (the reference's B // |data|), else the whole batch
+        # of the batch (the reference's B // |data|), else the whole batch,
+        # whose experts' hidden dim then rides the data axes
         mesh = ctx.mesh
         msize = mesh.shape[ctx.model_axis]
         assert E % msize == 0, (E, msize)
-        stationary = not ctx.batch_sharded and bool(ctx.data_axes)
-        y = _ep_body(x, gates, idx, wts["w_gate"], wts["w_up"],
-                     wts["w_down"], mesh=mesh, model_axis=ctx.model_axis,
-                     E_loc=E // msize,
-                     C=_capacity(B * S, K, E, mcfg.capacity_factor),
-                     psum_axes=tuple(ctx.data_axes) if stationary else ())
+        f_axes = tuple(ctx.data_axes) if not ctx.batch_sharded else ()
+        y = _ep_body(x, gates, idx,
+                     *(_hidden_block(wts[k], f_dim, f_axes, mesh, x.dtype)
+                       for k, f_dim in (("w_gate", 2), ("w_up", 2),
+                                        ("w_down", 1))),
+                     mesh=mesh, model_axis=ctx.model_axis, E_loc=E // msize,
+                     C=C, psum_axes=f_axes)
     return y, aux
+
+
+def _hidden_block(w: Any, f_dim: int, f_axes: Tuple[str, ...], mesh,
+                  dtype) -> Any:
+    """This rank's block of an expert stack for :func:`_ep_body`: ``w`` as
+    it rests, or, when the partial outputs are summed over ``f_axes`` (the
+    rows whole on every data rank), dequantized with its hidden dim
+    ``f_dim`` cut to this rank's block over them where it rests whole (the
+    JAX package's ``shard_map`` in-spec reshards it so)."""
+    if not f_axes or sharded_compute() is None:
+        return w            # an EP context alone: cut by ep_weight_specs
+    wl, spec = local_weight(w)
+    wd = deq(wl, dtype)
+    if spec[f_dim] is None:
+        size, i = block_index(mesh, f_axes)
+        n = wd.shape[f_dim] // size
+        wd = wd.narrow(f_dim, i * n, n)
+    return wd
 
 
 # ------------------------------------------------------- decoder family (dbrx/qwen2)

@@ -330,12 +330,16 @@ class ServeSteps:
     each rank computes only its block, within a tolerance of one device.
     The cache is then placed by the reference's serving rules
     (``sharding.kv_serve_rules``): the KV heads over the model axis where
-    whole heads divide it, the sequence over it otherwise.  Dense and MoE
-    families only; the paged twins are not offered (the pool rests whole).
+    whole heads divide it, the sequence over it otherwise, an SSM state's
+    channels and heads over it; with ``long_context`` (the single-request
+    long-context decode) its rows whole and its sequence over the data
+    axes.  Every family; the paged twins are not offered (the pool rests
+    whole).
     """
 
     def __init__(self, cfg: ArchConfig, sc: ServeConfig, *,
-                 mesh=None, resident: str = "dense", hints=None, ep=None):
+                 mesh=None, resident: str = "dense", hints=None, ep=None,
+                 long_context: bool = False):
         if resident not in ("dense", "compressed"):
             raise ValueError(f"resident must be 'dense' or 'compressed', "
                              f"got {resident!r}")
@@ -374,18 +378,17 @@ class ServeSteps:
             self.paged_prefill_chunk_fn = self._paged_prefill_chunk
         self._row_axes: tuple = ()
         if hints is not None:
-            if mesh is None or hints.exact_tp \
-                    or cfg.family not in EXACT_TP_FAMILIES:
+            if mesh is None or hints.exact_tp:
                 raise ValueError(
-                    f"sharded-compute hints need a mesh and a dense or MoE "
-                    f"config (family {cfg.family!r}, exact_tp "
-                    f"{hints.exact_tp})")
+                    f"sharded-compute hints need a mesh and exact_tp off "
+                    f"(exact_tp {hints.exact_tp})")
             self.paged_decode_fn = self.paged_prefill_chunk_fn = None
         if mesh is not None:
             from repro_torch.distributed import sharding as shd
             rules = serve_mesh_rules(cfg, mesh)
             if hints is not None:
-                rules, _ = shd.kv_serve_rules(cfg, mesh)
+                rules, _ = shd.kv_serve_rules(cfg, mesh,
+                                              long_context=long_context)
                 rules = shd.arch_rules(cfg, mesh, rules)
                 self.cache_seq = shd.entry_axes(shd.resolve_spec(
                     ("kv_seq",), (sc.max_len,), rules, mesh).padded(1)[0])
@@ -472,11 +475,13 @@ class ServeSteps:
         serve mesh (None on one device), memoized by shape and options: the
         batch / slot rows over data and, for the :data:`EXACT_TP_FAMILIES`,
         the KV heads over model where whole heads divide it (the serve
-        rules' resolution; other families' heads stay whole); under
-        sharded-compute hints the sequence over model where they do not.
-        Every other dim is whole on every rank: the steps compute it at the
-        reference's width (an SSM state's channels too, which the rules
-        would put on model)."""
+        rules' resolution; other families' heads stay whole under exact
+        TP).  Under sharded-compute hints the reference's serving rules
+        place it: the KV heads over model where whole heads divide it, the
+        sequence over model (or the data axes, long context) where they do
+        not, and an SSM state's inner channels and heads over model.  Under
+        exact TP every other dim is whole on every rank: the steps compute
+        it at the reference's width."""
         if self.mesh is None:
             return None
         key = (batch, layout, tuple(sorted(cache_kw.items())))
@@ -487,7 +492,8 @@ class ServeSteps:
                 layout=layout, **cache_kw)
             logical = api.cache_specs(self.cfg, layout=layout, **cache_kw)
             split = ("batch", "slot", "kv") + (
-                ("kv_seq",) if self.hints is not None else ())
+                ("kv_seq", "mlp", "heads") if self.hints is not None
+                else ())
             self._cache_shardings_memo[key] = {
                 k: shd.P(*[e if a in split else None for a, e in
                            zip(logical[k], s.padded(len(logical[k])))])

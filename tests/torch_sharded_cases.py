@@ -28,15 +28,67 @@ def recording_routes():
         moe.route = real
 
 
-def serve_cells(mesh, cfg, params, prompt, fed, *, serve_mode="fsdp",
-                max_len=None):
+def whole_routes(ranks):
+    """The router calls of the whole batch from the ranks' results of
+    :func:`serve_cells`: each data rank routes its own rows, so a call's
+    rows are those of the ranks at model coordinate 0, in data order; a
+    call whose rows every rank holds alike (the weight-stationary decode,
+    one row) is rank 0's."""
+    first = [r for r in ranks if r["coord"][1] == 0]
+    out = []
+    for calls in zip(*(r["routes"] for r in first)):
+        if all(np.array_equal(calls[0][0], c[0]) for c in calls[1:]):
+            out.append(calls[0])
+        else:
+            out.append(tuple(np.concatenate(x) for x in zip(*calls)))
+    return out
+
+
+def compared_rows(got, want, rows, steps, near_tie_steps):
+    """For each of ``steps`` steps, the rows held to one device: every row
+    but, from the step on which a router choice of the sharded calls
+    ``got`` first differed from one device's ``want`` (each call's
+    (probabilities, top-k indices); asserted a near-tie of the
+    probabilities, within ``near_tie_steps`` bf16 steps), that row: a
+    flipped expert moves the token's output by far more than rounding."""
+    start = {}
+    assert len(got) == len(want), (len(got), len(want))
+    per_step = max(len(want) // steps, 1)   # a step routes every MoE layer
+    for c, ((probs, tidx), (_, sidx)) in enumerate(zip(got, want)):
+        diff = (np.sort(tidx, -1) != np.sort(sidx, -1)).any(-1)
+        for b, pos in zip(*np.nonzero(diff)):
+            p = probs[b, pos]
+            lo = float(p[np.setdiff1d(tidx[b, pos], sidx[b, pos])].min())
+            hi = float(p[np.setdiff1d(sidx[b, pos], tidx[b, pos])].max())
+            step = 2.0 ** (np.frexp(abs(lo))[1] - 8)
+            assert abs(lo - hi) <= near_tie_steps * step, (c, b, pos, lo, hi)
+            start[int(b)] = min(start.get(int(b), steps), c // per_step)
+    return [[b for b in range(rows) if start.get(b, steps) > i]
+            for i in range(steps)]
+
+
+def serve_cells(mesh, cfg, params, prompt, fed, src=None, *,
+                serve_mode="fsdp", max_len=None, decode_shape="decode_32k",
+                fault=None):
     """Prefill ``prompt`` (B, P) through the port's sharded prefill cell
     into a cache of ``max_len`` rows (P + len(fed) by default), then one
     decode step a column of ``fed`` (B, N) through the decode cell of
-    ``serve_mode``, each cell's weights cut from the whole ``params`` by
-    its own specs.  Returns the float32 logits of every row (the prefill's
-    last position, then each step's), gathered over the data axes, as a
-    list of numpy arrays, and the per-rank weight and cache bytes."""
+    ``serve_mode`` and shape ``decode_shape`` (``long_500k``: the cache's
+    T over the data axes; the prefill's cache is resharded to it), each
+    cell's weights cut from the whole ``params`` by its own specs.  ``src``
+    (B, P, D) is an encdec config's source embeddings; ``fault`` plants a
+    wrong layout for the call (:func:`planted`).  Returns the float32
+    logits of every row (the prefill's last position, then each step's),
+    gathered over the data axes, as a list of numpy arrays, and the
+    per-rank weight and cache bytes."""
+    with planted(fault):
+        return _serve_cells(mesh, cfg, params, prompt, fed,
+                            serve_mode=serve_mode, max_len=max_len, src=src,
+                            decode_shape=decode_shape)
+
+
+def _serve_cells(mesh, cfg, params, prompt, fed, *, serve_mode, max_len,
+                 src, decode_shape):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import collectives
     from repro_torch.launch import specs
@@ -48,7 +100,7 @@ def serve_cells(mesh, cfg, params, prompt, fed, *, serve_mode="fsdp",
         cfg, ShapeConfig("prefill_32k", P, B, "prefill"), mesh,
         weights="bf16", max_len=T)
     dcell = specs.build_decode_cell(
-        cfg, ShapeConfig("decode_32k", T, B, "decode"), mesh,
+        cfg, ShapeConfig(decode_shape, T, B, "decode"), mesh,
         weights="bf16", serve_mode=serve_mode)
 
     def whole(logits, cell):
@@ -59,10 +111,15 @@ def serve_cells(mesh, cfg, params, prompt, fed, *, serve_mode="fsdp",
 
     full = {k: v.to(dev) for k, v in params.items()}
     pp = pcell.place(full)
-    toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    toks = pcell.local_rows(torch.as_tensor(prompt, dtype=torch.int64,
+                                            device=dev))
+    if src is not None:
+        toks = {"tokens": toks, "src_embeds": pcell.local_rows(
+            torch.as_tensor(src, device=dev).to(torch.bfloat16))}
     with torch.inference_mode(), recording_routes() as routes:
-        logits, cache = pcell.fn(pp, pcell.local_rows(toks))
+        logits, cache = pcell.fn(pp, toks)
         out = [whole(logits, pcell)]
+        cache = reshard(mesh, cache, pcell.cache_specs, dcell.cache_specs)
         dp = dcell.place(full)
         del full
         for i in range(fed.shape[1]):
@@ -73,8 +130,66 @@ def serve_cells(mesh, cfg, params, prompt, fed, *, serve_mode="fsdp",
     return {"logits": out, "routes": routes,
             "weight_bytes": engine.local_bytes(dp),
             "cache_bytes": engine.local_bytes(cache),
-            "cache_shape": tuple(cache["k"].shape),
-            "collectives": dict(collectives.counts), "coord": mesh.key()}
+            "cache_shape": tuple(cache["k"].shape) if "k" in cache else None,
+            "cache_shapes": {k: tuple(v.shape) for k, v in cache.items()},
+            "collectives": dict(collectives.counts), "coord": mesh.key(),
+            "sharded_compute": (pcell.meta["sharded_compute"]
+                                and dcell.meta["sharded_compute"])}
+
+
+def reshard(mesh, cache, src_specs, dst_specs):
+    """``cache`` (this rank's blocks under ``src_specs``) as this rank
+    holds it under ``dst_specs``: gathered whole along each dim whose
+    placement differs, then cut; ``cache`` itself when they agree."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.ctx import local_block
+    if src_specs == dst_specs:
+        return cache
+    out = {}
+    for k, t in cache.items():
+        src = src_specs[k].padded(t.dim())
+        dst = dst_specs[k].padded(t.dim())
+        for d, (a, b) in enumerate(zip(src, dst)):
+            if a != b and a is not None:
+                t = collectives.all_gather(mesh, t, d, a)
+        cut = tuple(b if a != b else None for a, b in zip(src, dst))
+        out[k] = local_block(t, cut, mesh).clone()
+    return out
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """Patch a wrong sharded layout of the SSM block into this process
+    for the block (the unit cases that the comparisons must catch):
+
+    * ``ssm_norm_local``: the gated RMS norm over this rank's block of the
+      inner channels only (no cross-rank sum of squares);
+    * ``zx_unblocked``: ``in_zx`` placed without its re-blocking, so a
+      rank's ``[z | x]`` halves come from the wrong half of the matrix;
+    * ``zx_swapped``: the rank's z and x blocks swapped."""
+    from repro_torch.models import layers, mamba2
+    saved = {"rms_norm": mamba2.rms_norm, "zx_blocks": mamba2.zx_blocks}
+    if fault == "ssm_norm_local":
+        def rms_norm(x, scale, eps=1e-6, *, x_axes=None):
+            if x_axes is None:
+                return saved["rms_norm"](x, scale, eps)
+            return saved["rms_norm"](x, layers.local_weight(scale)[0], eps)
+        mamba2.rms_norm = rms_norm
+    elif fault == "zx_unblocked":
+        mamba2.zx_blocks = lambda w, n: w
+    elif fault == "zx_swapped":
+        def zx_blocks(w, n):
+            half = w.shape[-1] // 2
+            return saved["zx_blocks"](
+                torch.cat([w[..., half:], w[..., :half]], -1), n)
+        mamba2.zx_blocks = zx_blocks
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(mamba2, k, v)
 
 
 def load_params(cfg, path: str, device="cpu"):
@@ -105,7 +220,16 @@ def run_jobs(mesh, jobs):
     return out
 
 
-def one_device(cfg, params, prompt, fed, device="cpu"):
+def _prompt(prompt, src, device):
+    """The prefill's input: tokens, or with ``src`` an encdec batch."""
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=device)
+    if src is None:
+        return toks
+    return {"tokens": toks, "src_embeds": torch.as_tensor(
+        src, device=device).to(torch.bfloat16)}
+
+
+def one_device(cfg, params, prompt, fed, device="cpu", src=None):
     """The single-device logits of the same prefill and teacher-forced
     decode steps (the family's own step functions, no mesh), and the MoE
     router calls (:func:`recording_routes`)."""
@@ -115,8 +239,8 @@ def one_device(cfg, params, prompt, fed, device="cpu"):
     T = P + fed.shape[1]
     with torch.inference_mode(), recording_routes() as routes:
         p = {k: v.to(device) for k, v in params.items()}
-        logits, cache = mod.prefill(cfg, p, torch.as_tensor(
-            prompt, dtype=torch.int64, device=device), max_len=T)
+        logits, cache = mod.prefill(cfg, p, _prompt(prompt, src, device),
+                                    max_len=T)
         out = [logits.float()[:, -1].cpu().numpy()]
         for i in range(fed.shape[1]):
             logits, cache = mod.decode_step(
@@ -126,7 +250,7 @@ def one_device(cfg, params, prompt, fed, device="cpu"):
     return out, routes
 
 
-def greedy(cfg, params, prompt, steps, device="cpu"):
+def greedy(cfg, params, prompt, steps, device="cpu", src=None):
     """The single device's greedy continuation (B, steps) of ``prompt``:
     the tokens every variant is then fed."""
     from repro_torch.models import api
@@ -134,8 +258,8 @@ def greedy(cfg, params, prompt, steps, device="cpu"):
     P = prompt.shape[1]
     with torch.inference_mode():
         p = {k: v.to(device) for k, v in params.items()}
-        logits, cache = mod.prefill(cfg, p, torch.as_tensor(
-            prompt, dtype=torch.int64, device=device), max_len=P + steps)
+        logits, cache = mod.prefill(cfg, p, _prompt(prompt, src, device),
+                                    max_len=P + steps)
         toks = []
         for i in range(steps):
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
