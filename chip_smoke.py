@@ -22,13 +22,13 @@ Phases, each printing one JSON line:
    and 8 KV heads of 128, d_ff 6144, padded vocab 152064, qk-norm) with its
    depth cut from 28 to ``DEPTH`` layers and seeded random weights.  The
    weights are compressed under ``SPEC`` (Huffman-8 embed, lm_head and
-   ``wo``, rANS-4 for the other layer matrices, fp32 norms), saved and
-   loaded as a container, decoded onto the card through the ``cuda``
-   backend (both decode kernels), held bitwise against the symbols
+   ``wo``, rANS-4 for the other layer matrices, fp32 norms) by a child started
+   first, saved and loaded as a container, decoded onto the card through the
+   ``cuda`` backend (both decode kernels), held bitwise against the symbols
    ``quant.quantize`` gives, and served with ``Engine.generate`` (batch 4,
-   prompt 32, 16 greedy tokens).  Launch counts are zeroed just before the
-   load and read just after the generate, and must equal the load plan's
-   chunks of each kernel (as in the moe, ssm and encdec phases).
+   prompt 32, 16 greedy tokens).  Launch counts are zeroed just before the load
+   and read just after the generate, and must equal the load plan's chunks of
+   each kernel (as in the moe, ssm and encdec phases).
    Then ``profile``: the same few decode steps timed without and then with
    ``torch.profiler``, and device time by operator under it.
    Then ``continuous``: the same decoded weights serve a seeded Poisson
@@ -145,6 +145,9 @@ Phases, each printing one JSON line:
    the logits held within ``REF_ATOL`` when every choice agrees.  Then the
    reduced mamba2-370m, jamba-1.5-large-398b and seamless-m4t-medium the
    same way (``FAMILY_SPEC``; the hybrid's router choice by choice).
+   This phase runs first, after the build, while a child encodes the
+   serve phase's container (the moe, ssm and encdec containers are
+   encoded by children too, beside the phases before theirs).
 7. kernels — each decode kernel on the first chunk the main path decoded
    with it, held bitwise against its plain PyTorch version on the card, with
    its time (``ms``: launches paced by the host, as every row is timed),
@@ -235,13 +238,13 @@ Phases, each printing one JSON line:
 
 11. production — the production dry-run (``launch/dryrun.py``) and its
    check on the card.  (a) Every applicable cell of ``PROD_ARCHS`` on the
-   16 x 16 mesh, dry-run on the host in ``PROD_WORKERS`` processes while
-   the card works: one ``production`` line a cell (per-rank arguments and
-   peak, ``fits``, the three H100-priced terms, ``dominant``,
-   ``flops_ratio``).  (b) qwen3-1.7b whole on the card at 1 x 1 (one data
-   rank's share of a 16 x 16 cell with ``model`` at 1): ``prefill_32k`` at
-   one row in query blocks of 1,024 and ``decode_32k`` at 8 rows over a
-   32,768-row cache, each dry-run and run (``dryrun.run_on_device``): the
+   16 x 16 mesh, dry-run on the host in ``PROD_WORKERS`` processes, started
+   after the serve phase, while the card works: one ``production`` line a cell
+   (per-rank arguments and peak, ``fits``, the three H100-priced terms,
+   ``dominant``, ``flops_ratio``).  (b) qwen3-1.7b whole on the card at 1 x 1
+   (one data rank's share of a 16 x 16 cell with ``model`` at 1):
+   ``prefill_32k`` at one row in query blocks of 1,024 and ``decode_32k`` at 8
+   rows over a 32,768-row cache, each dry-run and run (``dryrun.run_on_device``): the
    measured step and ``max_memory_allocated`` beside the predicted
    ``step_s`` and peak, which must be within ``PROD_PEAK_RTOL``; logits
    finite.  (c) One ``mesh`` line (``run`` ``train``): qwen3-1.7b at full
@@ -299,6 +302,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEPTH = 2
 SPEC = ("*norm*:fp32; layers/wo:bits=8,codec=huffman; "
         "layers/*:bits=4,codec=rans; *:bits=8,codec=huffman")
+SERVE_ARCH = "qwen3-1.7b"
 BATCH, PROMPT, GEN = 4, 32, 16
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # integer work of one decode step (window bytes, shift, mask, table loads,
@@ -427,6 +431,39 @@ SHARDED_SEED = 11
 SHARDED_TOL_STEPS = 8
 SHARDED_NEAR_TIE = 2
 SHARDED_MIN_COMPARED = BATCH * (GEN + 1)
+# the sharded phase's train cases: the dense and MoE train cells' step
+# (launch.specs.train_contexts: sharded compute, every collective with its
+# backward) at full width, PROD_TRAIN's batch and sequence, 2 steps on
+# ranks sharing the card, against one device's steps on the card from the
+# same seeded weights: (arch, (data, model), q8_gather).  qwen3-1.7b cut to
+# DEPTH layers on 1 x 2 with f32 moments and with q8_gather=8, and with
+# q8_gather=8 on 2 x 2 too, where its FSDP gathers (over data) exist;
+# qwen2-moe-a2.7b cut to 1 layer (every routed choice admitted, as in
+# sharded_config; the ranks are fed one device's router choices, as the
+# serving cases are)
+SHARDED_TRAIN_CASES = (("qwen3-1.7b", (1, 2), 0),
+                       ("qwen3-1.7b", (1, 2), 8),
+                       ("qwen3-1.7b", (2, 2), 8),
+                       ("qwen2-moe-a2.7b", (1, 2), 0))
+SHARDED_TRAIN_DEPTH = {"qwen3-1.7b": DEPTH, "qwen2-moe-a2.7b": 1}
+# the worlds of the sharded phase, by mesh shape, in waves: the worlds of a
+# wave run together, sharing the card and the host (a rank's process
+# takes seconds to start).  1 x 2 alone: jamba's period holds 25.7 GB a
+# rank there (with the MoE train case's one-device steps, 23.5 GB); the
+# others' ranks peak at 6.3 GB or less, 56 GB together
+SHARDED_WAVES = (((1, 2),), ((1, 4), (2, 1), (2, 2)))
+# loss and grad norm within 2e-3 (PROD_TRAIN_TOL's); each leaf's update within
+# 0.25 relative L2 (tests/test_torch_sharded_train.py's limit, whose
+# docstring gives the reason: Adam moves an element whose gradient is
+# within rounding of zero by the learning rate either way, and the sharded
+# layout rounds otherwise than one device) and its first moment within
+# 0.1: the moments are linear in the gradients, but the second step's
+# gradient is taken at params that the first update already parted, and
+# at full width they read up to 0.0487 (wk, 2 x 2; the updates up to
+# 0.158) on an H100 80GB HBM3 at 700 W, where the reduced configs read
+# 0.02 on the CPU
+SHARDED_TRAIN_TOL = dict(loss=2e-3, grad_norm=2e-3, update=0.25,
+                         moment=0.1)
 # EP's forward of the moe layer 0 against the single-device forward: the
 # partial outputs of the model ranks are summed in bf16 in another order
 # (and a choice of two experts on two ranks meets there), so an output may
@@ -562,7 +599,10 @@ NONDETERMINISTIC_OPS = {
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """Print one result line; ``at_s`` is the script's clock when it was
+    printed (where the time goes between the phases' own timings)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - START}), flush=True)
 
 
 def smi(query):
@@ -700,36 +740,43 @@ def dense_serve(cfg, cm, host, spec_text, prompt, dev):
     return eng, out, logits, launches, fields
 
 
-def serve_main_path(dev):
-    import numpy as np
+def serve_config():
+    """(published qwen3-1.7b, the serve phase's config: cut to ``DEPTH``
+    layers)."""
     from repro_torch.configs import registry
-    from repro_torch.core.store import CompressedModel
+    full = registry.get(SERVE_ARCH)
+    return full, dataclasses.replace(full, n_layers=DEPTH)
+
+
+def serve_host_weights(cfg):
+    """The serve phase's seeded weights, drawn on the card and brought to
+    the host: the child that compresses them and the phase that checks
+    the card's decode draw the same ones."""
+    import torch
     from repro_torch.models import dense
+    params = dense.init(cfg, 0, torch.device("cuda"))
+    return {k: v.float().cpu().numpy() for k, v in params.items()}
 
-    full = registry.get("qwen3-1.7b")
-    cfg = dataclasses.replace(full, n_layers=DEPTH)
+
+def serve_main_path(child, dev):
+    """The serve phase on the container the ``serve`` child compressed
+    (started first, so that the encode runs beside the build and the
+    reference checks)."""
+    import numpy as np
+
+    full, cfg = serve_config()
     t0 = time.perf_counter()
-    params = dense.init(cfg, 0, dev)
-    host = {k: v.float().cpu().numpy() for k, v in params.items()}
-    del params
+    host = serve_host_weights(cfg)
     init_s = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    cm = CompressedModel.compress(host, spec=parse_spec(SPEC))
-    compress_s = time.perf_counter() - t0
     # kept under build/ for the mesh phase's ranks, which remove it
-    path = mesh_container("qwen3-1.7b")
-    t0 = time.perf_counter()
-    cm.save(path)
-    cm = CompressedModel.load(path)
-    save_load_s = time.perf_counter() - t0
+    cm, made = containers(*child, keep={"serve": SERVE_ARCH})["serve"]
 
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
     eng, out, logits, launches, fields = dense_serve(cfg, cm, host, SPEC,
                                                      prompt, dev)
     emit("serve", **fields, reduced={"n_layers": [full.n_layers, DEPTH]},
          heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd], d_ff=cfg.d_ff,
-         init_s=init_s, compress_s=compress_s, save_load_s=save_load_s)
+         init_s=init_s, compress_s=made["compress_s"], container=made)
     return cm, launches, eng, prompt, logits.float().cpu(), out.cpu()
 
 
@@ -1746,13 +1793,14 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev, rows=FUSED_ROWS):
     """Each fused kernel on layer 0's handles of the resident path
     (``rows``: by default qwen3's ``wo`` prefix and ``wq``, ``wk``,
     ``w_down`` tANS), at the ``FUSED_M`` row counts.  A row marked so is
-    held against the plain version, the others against
-    ``x @ deq(symbols)``, the symbols from the decode kernel (the plain
-    version's Python loop would cost the script a minute more a case): the
-    plain version's own arithmetic on exact symbols.  Two launches must be
-    bitwise equal, and one-hot rows of x bitwise the dequantized weight's
-    rows.  Returns a summary row for each kernel with a plain-checked
-    tensor."""
+    held against the plain version, called once on the rows of every shape
+    stacked (``plain_ms`` is that call's, ``plain_rows`` its rows), the
+    others against ``x @ deq(symbols)``, the symbols from the decode kernel
+    (the plain version's Python loop would cost the script seconds more a
+    tensor): the plain version's own arithmetic on exact symbols.  Two
+    launches must be bitwise equal, and one-hot rows of x bitwise the
+    dequantized weight's rows.  Returns a summary row for each kernel with
+    a plain-checked tensor."""
     import numpy as np
     import torch
     from repro_torch.core.scheduler import plan_fused_spans
@@ -1782,10 +1830,18 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev, rows=FUSED_ROWS):
         span = plan_fused_spans(rw.model, rw.n_layers,
                                 [f"layers/{short}"])[f"layers/{short}"][0]
         stream_bytes = sum(int(s.nbytes) for s in span.segs)
+        xs = [torch.from_numpy(np.random.default_rng(M).normal(
+            0, 1, (M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+            for M in FUSED_M]
+        if plain_checked:
+            # one plain call on every shape's rows stacked (its decode, the
+            # Python loop, costs seconds; its product is row by row), cut
+            # back into each shape's rows
+            plain_ms, stacked = cuda_ms(
+                lambda: fdm.fused_decode_matmul_plain(torch.cat(xs), fq), 1)
+            plain_refs = stacked.split(list(FUSED_M))
         per_m = {}
-        for M in FUSED_M:
-            x = torch.from_numpy(np.random.default_rng(M).normal(
-                0, 1, (M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+        for i, (M, x) in enumerate(zip(FUSED_M, xs)):
             first = fdm.fused_decode_matmul(x, fq)           # warm-up
             torch.cuda.synchronize()
             queued_ms, _ = cuda_ms_queued(
@@ -1803,11 +1859,10 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev, rows=FUSED_ROWS):
             deterministic = torch.equal(first, got)
             dense_ms, dense = cuda_ms(lambda: x @ w, TIMED_LAUNCHES)
             if plain_checked:
-                plain_ms, ref = cuda_ms(
-                    lambda: fdm.fused_decode_matmul_plain(x, fq), 1)
+                ref = plain_refs[i]
                 against = "plain version"
             else:
-                plain_ms, ref = None, dense
+                ref = dense
                 against = "x @ deq(decode kernel's symbols)"
             err = float((got.float() - ref.float()).abs().max())
             close = bool(torch.allclose(got.float(), ref.float(),
@@ -1828,7 +1883,9 @@ def fused_kernel_rows(rw, launches, clock_mhz, dev, rows=FUSED_ROWS):
             ops_ms = (int_ops / SCALAR_OPS_PER_S
                       + flops / BF16_FLOPS_PER_S) * 1e3
             per_m[M] = dict(
-                ms=ms, device_queued_ms=queued_ms, plain_ms=plain_ms,
+                ms=ms, device_queued_ms=queued_ms,
+                plain_ms=plain_ms if plain_checked else None,
+                plain_rows=sum(FUSED_M) if plain_checked else None,
                 max_abs_err=err, against=against,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -2100,18 +2157,22 @@ def write_containers(dirpath, families):
     """Child process (``--containers DIR FAMILY...``): each family's phase
     config (:func:`family_config`) with seeded weights made on the host,
     compressed under its ``FAMILY_SPEC`` and saved to ``DIR/FAMILY.npz``,
-    its timings beside it (``.json``).  Runs on the host alone, beside the
-    phases on the card."""
+    its timings beside it (``.json``); the family ``serve`` is the serve
+    phase's (:func:`serve_config`, weights drawn on the card, ``SPEC``).
+    Encodes on the host, beside the phases on the card."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.store import CompressedModel
     for family in families:
-        _, cfg = family_config(family)
         t0 = time.perf_counter()
-        host = family_host_weights(cfg)
+        if family == "serve":
+            _, cfg = serve_config()
+            host, spec = serve_host_weights(cfg), SPEC
+        else:
+            _, cfg = family_config(family)
+            host, spec = family_host_weights(cfg), FAMILY_SPEC[family]
         init_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cm = CompressedModel.compress(host,
-                                      spec=parse_spec(FAMILY_SPEC[family]))
+        cm = CompressedModel.compress(host, spec=parse_spec(spec))
         compress_s = time.perf_counter() - t0
         del host
         path = os.path.join(dirpath, f"{family}.npz")
@@ -2139,10 +2200,11 @@ def start_containers(*families):
     return proc, dirpath, families
 
 
-def containers(proc, dirpath, families, keep=()):
+def containers(proc, dirpath, families, keep=None):
     """Wait for a :func:`start_containers` child; returns {family:
     (container, its timings and the seconds waited)}.  The files of the
-    families in ``keep`` move to :func:`mesh_container`'s place."""
+    families in ``keep`` ({family: arch}) move to :func:`mesh_container`'s
+    place."""
     from repro_torch.core.store import CompressedModel
     t0 = time.perf_counter()
     rc = proc.wait()
@@ -2163,8 +2225,8 @@ def containers(proc, dirpath, families, keep=()):
         made["waited_s"] = waited
         out[family] = (cm, made)
         os.remove(path + ".json")
-        if family in keep:
-            os.replace(path, mesh_container(FAMILY_ARCHS[family]))
+        if family in (keep or {}):
+            os.replace(path, mesh_container(keep[family]))
         else:
             os.remove(path)
     os.remove(log)
@@ -2212,11 +2274,16 @@ def route_flips(routes, want):
     return flips
 
 
+def moe_prompt(cfg):
+    """The moe phase's seeded lockstep prompt (its mesh world's too)."""
+    import numpy as np
+    return np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
+
+
 def moe_dense(cm, made, cfg, full, dev):
     """Step 1: :func:`dense_serve` on the moe container, and a ``profile``
     of its decode steps."""
-    import numpy as np
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
+    prompt = moe_prompt(cfg)
     eng, out, _, launches, fields = dense_serve(
         cfg, cm, family_host_weights(cfg), SPEC, prompt, dev)
     profile_decode(eng, prompt, dev, what=f"{cfg.name} decode steps")
@@ -2410,14 +2477,15 @@ def moe_resident(cm, cfg, prompt, dense_tokens, dev):
     return rw, launches
 
 
-def moe_phase(child, clock_mhz, dev):
+def moe_phase(container, clock_mhz, dev):
     """qwen2-moe-a2.7b at full width, ``MOE_DEPTH`` layers: the child's
-    container dense-resident, continuous, paged, then compressed-resident
-    fused and the fused kernels at the router's and ``shared_w_down``'s
-    shapes.  Returns each kernel's launches by residency."""
+    ``container`` (the container and its timings, :func:`containers`)
+    dense-resident, continuous, paged, then compressed-resident fused and
+    the fused kernels at the router's and ``shared_w_down``'s shapes.
+    Returns each kernel's launches by residency."""
     import torch
     full, cfg = family_config("moe")
-    cm, made = containers(*child, keep=("moe",))["moe"]
+    cm, made = container
     params, prompt, tokens, dense_launches = moe_dense(cm, made, cfg, full,
                                                        dev)
     moe_continuous(cfg, params, dev)
@@ -3435,15 +3503,26 @@ def mesh_phase(cm, params, dense_tokens, want_slots, dev):
     every rank's load launches the decode kernels as the plan says, holds
     less than one device's weight bytes (exactly its resolved shards), and
     its lockstep tokens and every continuous request are bitwise the
-    single engine's.  Returns rank 0's launches."""
+    single engine's.  The moe container's ``MESH_MOE`` world runs beside
+    it (its ranks are held to the moe phase's tokens there,
+    :func:`mesh_moe_phase`).  Returns (rank 0's launches, the moe world's
+    (ranks' results, wall))."""
+    import concurrent.futures as cf
     import numpy as np
     from repro_torch.configs import registry
     from repro_torch.serving import engine
     cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=DEPTH)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
     _, jobs = fleet_jobs(cfg)
-    got, wall = mesh_spawn(mesh_dense_rank, MESH,
-                           (cfg, mesh_container("qwen3-1.7b"), prompt, jobs))
+    _, moe_cfg = family_config("moe")
+    with cf.ThreadPoolExecutor(2) as pool:
+        moe_world = pool.submit(
+            mesh_spawn, mesh_moe_rank, MESH_MOE,
+            (moe_cfg, mesh_container(MOE_ARCH), moe_prompt(moe_cfg)))
+        got, wall = mesh_spawn(mesh_dense_rank, MESH,
+                               (cfg, mesh_container("qwen3-1.7b"), prompt,
+                                jobs))
+        moe_world = moe_world.result()
     from repro_torch.serving.kvcache import kv_cache_bytes
     single = engine.local_bytes(params)
     per_rank = expected_rank_bytes(cfg, params, dict(zip(("data", "model"),
@@ -3487,16 +3566,16 @@ def mesh_phase(cm, params, dense_tokens, want_slots, dev):
               decode_steps=r0["decode_steps"],
               prefill_chunks=r0["prefill_chunks"],
               requests_equal_single=len(want_slots))
-    return r0["launches"]
+    return r0["launches"], moe_world
 
 
-def mesh_moe_phase(cfg, prompt, tokens):
-    """The moe phase's container on ``MESH_MOE``: exact-TP lockstep bitwise
-    the moe phase's tokens, and EP's layer-0 forward within ``EP_TOL``.
-    Returns rank 0's launches."""
+def mesh_moe_phase(cfg, prompt, tokens, world):
+    """The moe phase's container on ``MESH_MOE`` (``world``: the ranks'
+    results and wall, :func:`mesh_phase` ran them on ``prompt``): exact-TP
+    lockstep bitwise the moe phase's tokens, and EP's layer-0 forward
+    within ``EP_TOL``.  Returns rank 0's launches."""
     from repro_torch.serving.kvcache import kv_cache_bytes
-    got, wall = mesh_spawn(mesh_moe_rank, MESH_MOE,
-                           (cfg, mesh_container(MOE_ARCH), prompt))
+    got, wall = world
     want = tokens.tolist()
     # the KV heads (16) over model: a rank holds 1 / M of the cache
     cache = kv_cache_bytes(cfg, BATCH, PROMPT + GEN) // MESH_MOE[1]
@@ -3659,30 +3738,39 @@ def production_train():
          rank_wall_s=[r["wall_s"] for r in got])
 
 
-def production_phase(dev):
-    """Phase 11: (a) in a pool of host processes while the card runs (b)
-    and (c).  Returns the kernels' launches on the path (all 0)."""
+def start_dryruns():
+    """Phase 11 (a), started ahead of its phase: every production cell's
+    dry-run in a pool of ``PROD_WORKERS`` host processes, which run beside
+    the card's phases.  Returns (pool, [(cell, future)])."""
     import concurrent.futures as cf
     import multiprocessing as mp
-    from repro_torch.kernels import build
-    t0 = time.perf_counter()
     pool = cf.ProcessPoolExecutor(PROD_WORKERS,
                                   mp_context=mp.get_context("spawn"))
-    try:
-        futs = [(c, pool.submit(dryrun_cell, c)) for c in production_cells()]
-        for k in build.launches:
-            build.launches[k] = 0
-        production_card(dev)
-        production_train()
-        launches = dict(build.launches)
-        cells = [(c, f.result(timeout=PROD_DRYRUN_TIMEOUT_S))
-                 for c, f in futs]
-    except BaseException:
-        for p in list((pool._processes or {}).values()):
+    return pool, [(c, pool.submit(dryrun_cell, c)) for c in production_cells()]
+
+
+def stop_dryruns(pool):
+    """Stop a :func:`start_dryruns` pool, its running cells too."""
+    for p in list((pool._processes or {}).values()):
+        if p.is_alive():
             p.kill()
-        raise
-    finally:
-        pool.shutdown(wait=True, cancel_futures=True)
+    pool.shutdown(wait=True, cancel_futures=True)
+
+
+def production_phase(dev, dryruns):
+    """Phase 11: (b) and (c) on the card, then (a)'s results from the
+    ``dryruns`` pool (:func:`start_dryruns`).  Returns the kernels'
+    launches on the path (all 0)."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    pool, futs = dryruns
+    for k in build.launches:
+        build.launches[k] = 0
+    production_card(dev)
+    production_train()
+    launches = dict(build.launches)
+    cells = [(c, f.result(timeout=PROD_DRYRUN_TIMEOUT_S)) for c, f in futs]
+    pool.shutdown(wait=True)
     for (arch, shape), d in cells:
         ma = d["memory_analysis"]
         emit("production", run="dryrun", arch=arch, shape=shape,
@@ -3940,7 +4028,8 @@ def recording_routes():
 
     def route(x, router, K):
         probs, gates, idx = real(x, router, K)
-        calls.append((probs.float().cpu().numpy(), idx.cpu().numpy()))
+        calls.append((probs.detach().float().cpu().numpy(),
+                      idx.cpu().numpy()))
         return probs, gates, idx
     moe.route = route
     try:
@@ -3972,7 +4061,7 @@ def replayed_routes(routes, rows):
         want_p, want_i = (rows[0](torch.as_tensor(a, device=x.device))
                           for a in routes[len(seen)])
         flips = (torch.sort(idx, -1)[0] != torch.sort(want_i, -1)[0]).any(-1)
-        seen.append((float((probs - want_p).abs().max()),
+        seen.append((float((probs.detach() - want_p).abs().max()),
                      int(flips.sum())))
         gates = probs.gather(-1, want_i)
         return probs, gates / torch.clamp(gates.sum(-1, keepdim=True),
@@ -4022,36 +4111,67 @@ def sharded_compare(got, want):
 def sharded_phase(dev):
     """Phase 12: each ``SHARDED_CASES`` case through the production cells'
     step functions on ranks sharing the card, held against the single
-    device; the cases of one mesh shape run in one world.  Any failed
-    case raises.  Returns the kernels' launches on the
-    path (all 0: the cells dequantize in-graph)."""
-    import numpy as np
+    device, then each ``SHARDED_TRAIN_CASES`` case through the train
+    cells' step, held against one device's steps (run by rank 0); the
+    cases of one mesh shape run in one world, the single device's runs
+    first, then the worlds by ``SHARDED_WAVES``.  Any failed case raises.
+    Returns the kernels' launches on the path (all 0: the cells
+    dequantize in-graph)."""
+    import concurrent.futures as cf
+    import torch
     t_phase = time.perf_counter()
     launches = {}
-    shapes = list(dict.fromkeys(shape for _, shape, _ in SHARDED_CASES))
+    shapes = list(dict.fromkeys(
+        [shape for _, shape, _ in SHARDED_CASES]
+        + [shape for _, shape, _ in SHARDED_TRAIN_CASES]))
+    if sorted(sum(SHARDED_WAVES, ())) != sorted(shapes):
+        raise AssertionError(f"SHARDED_WAVES {SHARDED_WAVES} do not hold "
+                             f"each mesh shape once: {shapes}")
+    plans = {}
     for shape in shapes:
         cases = [(a, m) for a, sh, m in SHARDED_CASES if sh == shape]
+        train = [(a, q) for a, sh, q in SHARDED_TRAIN_CASES if sh == shape]
         wants, jobs = [], []
         for arch, mode in cases:
             prompt, _ = sharded_inputs(sharded_config(arch))
             wants.append(sharded_single(arch, prompt, dev))
             jobs.append((arch, mode, prompt, wants[-1]["tokens"][:, :GEN],
                          wants[-1]["routes"]))
-        ranks, wall = mesh_spawn(sharded_ranks, shape, (jobs,))
+            torch.cuda.empty_cache()
+        plans[shape] = (cases, train, wants, jobs)
+    worlds = {}
+    for wave in SHARDED_WAVES:
+        with cf.ThreadPoolExecutor(len(wave)) as pool:
+            futs = {shape: pool.submit(mesh_spawn, sharded_ranks, shape,
+                                       (plans[shape][3], plans[shape][1]))
+                    for shape in wave}
+            for shape, fut in futs.items():
+                worlds[shape] = fut.result()
+    for shape in shapes:
+        cases, train, wants, _ = plans[shape]
+        ranks, wall = worlds[shape]
         for i, ((arch, mode), want) in enumerate(zip(cases, wants)):
             launches = _sharded_case(arch, shape, mode, want,
-                                     [r[i] for r in ranks], wall, launches)
+                                     [r[0][i] for r in ranks], wall,
+                                     launches)
+        for i, (arch, q8) in enumerate(train):
+            launches = _sharded_train_case(arch, shape, q8,
+                                           [r[1][i] for r in ranks], wall,
+                                           launches)
     if any(launches.values()):
         raise AssertionError(f"the sharded path launched kernels: "
                              f"{launches}")
-    emit("sharded", run="phase", seconds=time.perf_counter() - t_phase)
+    emit("sharded", run="phase", seconds=time.perf_counter() - t_phase,
+         waves=[[list(sh) for sh in wave] for wave in SHARDED_WAVES])
     return launches
 
 
-def sharded_ranks(mesh, jobs):
-    """:func:`sharded_rank` of each job in turn, in one world (a world of
-    each mesh shape: its ranks start once)."""
-    return [sharded_rank(mesh, *job) for job in jobs]
+def sharded_ranks(mesh, jobs, train=()):
+    """:func:`sharded_rank` of each job in turn, then
+    :func:`sharded_train_rank` of each ``(arch, q8_gather)`` of ``train``,
+    in one world (a world of each mesh shape: its ranks start once)."""
+    serve = [sharded_rank(mesh, *job) for job in jobs]
+    return serve, [sharded_train_rank(mesh, *job) for job in train]
 
 
 def _sharded_case(arch, shape, mode, want, got, wall, launches):
@@ -4097,6 +4217,239 @@ def _sharded_case(arch, shape, mode, want, got, wall, launches):
     return launches
 
 
+def sharded_train_config(arch):
+    """``arch`` at full width cut to ``SHARDED_TRAIN_DEPTH`` layers, a
+    routed config admitting every choice (:func:`sharded_config`)."""
+    cfg = sharded_config(arch)
+    return dataclasses.replace(cfg, n_layers=SHARDED_TRAIN_DEPTH[arch])
+
+
+def sharded_train_tokens(cfg):
+    """``PROD_TRAIN["steps"]`` batches of ``PROD_TRAIN``'s shape from
+    ``SHARDED_SEED``."""
+    import numpy as np
+    rng = np.random.default_rng(SHARDED_SEED)
+    return [rng.integers(0, cfg.vocab, (PROD_TRAIN["batch"],
+                                        PROD_TRAIN["seq_len"] + 1))
+            for _ in range(PROD_TRAIN["steps"])]
+
+
+def sharded_train_tc(q8):
+    from repro_torch.training import optimizer as opt, train_loop
+    return train_loop.TrainConfig(
+        opt=opt.AdamWConfig(schedule=opt.Schedule(
+            base_lr=1e-3, warmup_steps=1, total_steps=4)),
+        remat=True, q8_gather=q8)
+
+
+def _rel_parts(a, b):
+    """(|a - b|^2, |b|^2) in float64."""
+    import torch
+    d = (a.double() - b.double())
+    return float(torch.sum(d * d)), float(torch.sum(b.double() ** 2))
+
+
+def sharded_train_rank(mesh, arch, q8):
+    """One rank of a sharded train case.  Rank 0 first runs one device's
+    steps on the card from the seeded weights (:func:`sharded_weights`),
+    recording its router calls, which every rank is then fed; every rank
+    cuts the same weights into its ZeRO blocks and, with ``q8``, holds its
+    blocks' quantized symbols, scales and zeros to one device's (bitwise),
+    then runs the train cell's step (``specs.train_contexts``)
+    ``PROD_TRAIN["steps"]`` times, timed, its collectives recorded.  Rank
+    0 holds each leaf's update and first moment on its own blocks to one
+    device's (no block crosses the wire for the comparison).  Every rank
+    reports its losses and grad norms, its weight, moment and peak bytes,
+    its collectives and the FSDP all-gathers it issued."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.ctx import Sharded, local_block
+    from repro_torch.kernels import build
+    from repro_torch.launch import specs
+    from repro_torch.models.layers import QTG
+    from repro_torch.serving import engine
+    from repro_torch.training import optimizer as opt, train_loop
+    t_start = time.perf_counter()
+    sharded_rank_check(mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    cfg = sharded_train_config(arch)
+    tc = sharded_train_tc(q8)
+    batches = [{"tokens": torch.as_tensor(t, device=dev)}
+               for t in sharded_train_tokens(cfg)]
+    whole = dict(sharded_weights(cfg, dev))
+    out = dict(coord=mesh.key(), arch=arch, q8_gather=q8)
+    single, routes = None, []
+    if mesh.rank == 0:
+        step = train_loop.make_train_step(cfg, tc)
+        p, s = dict(whole), opt.init_state(tc.opt, whole)
+        losses, norms, times = [], [], []
+        with recording_routes() as routes:
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, s, m = step(p, s, b)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        single = dict(losses=losses, grad_norms=norms, step_s=times,
+                      params=p, moments=s.m)
+        del s
+        torch.cuda.empty_cache()
+    routes = collectives.gather_object(routes)[0]
+    hints, ep = specs.train_contexts(cfg, mesh)
+    step = train_loop.make_train_step(cfg, tc, mesh, hints=hints, ep=ep)
+    placed, state = train_loop.shard_train_state(cfg, tc, whole, mesh)
+    out["weight_bytes"] = engine.local_bytes(placed)
+    out["moment_bytes"] = opt.moment_bytes(state)
+
+    def block(t, p):
+        return local_block(t, p.spec, mesh) if isinstance(p, Sharded) \
+            else t
+
+    if q8:
+        want = train_loop.ste_quantize_params(whole, q8)
+        got = train_loop.ste_quantize_params(placed, q8, mesh)
+        n_data = mesh.shape["data"]
+        payload, same, leaves = set(), True, 0
+        for n, w in got.items():
+            if not isinstance(w, QTG):
+                continue
+            leaves += 1
+            for g, wt in zip(w[:3], want[n][:3]):
+                same = same and torch.equal(
+                    g.local if isinstance(g, Sharded) else g, block(wt, g))
+            # what a step may gather of it over data: a layer's symbols
+            # (of a stack) and a per-row scale / zero split over data
+            if n_data > 1 and isinstance(w.q, Sharded) \
+                    and "data" in w.q.spec:
+                q = w.q.local
+                layer = q[0] if w.q.spec[0] is None and q.dim() > 2 else q
+                payload.add(("uint8", layer.numel() * n_data))
+                for part in (w.scale, w.zero):
+                    if isinstance(part, Sharded):
+                        payload.add(("float32",
+                                     part.local.numel() * 4 * n_data))
+        out.update(q8_bitwise=bool(same), q8_leaves=leaves,
+                   q8_payload=sorted(payload))
+        del want, got
+    if mesh.rank != 0:
+        del whole
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = lambda t: local_block(t, ("data",), mesh)  # noqa: E731
+    for k in build.launches:
+        build.launches[k] = 0
+    collectives.reset_counts()
+    losses, norms, times = [], [], []
+    with collectives.recording() as records, \
+            replayed_routes(routes, [rows]) as seen:
+        for b in batches:
+            b = train_loop.shard_batch(b, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            placed, state, m = step(placed, state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    out.update(losses=losses, grad_norms=norms, step_s=times,
+               collectives=dict(collectives.counts),
+               launches=dict(build.launches), routes=seen,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    gathers = {}
+    for r in records:
+        if r["kind"] == "all-gather" and r["axis"] in ("pod", "data"):
+            k = (r["dtype"], r["bytes"])
+            gathers[k] = gathers.get(k, 0) + 1
+    out["data_gathers"] = sorted((d, b, n) for (d, b), n in gathers.items())
+    if mesh.rank == 0:
+        upd, mom = {}, {}
+        for n, p in placed.items():
+            mine = p.local if isinstance(p, Sharded) else p
+            upd[n] = _rel_parts(mine - block(whole[n], p),
+                                block(single["params"][n] - whole[n], p))
+            mom[n] = _rel_parts(state.m[n], block(single["moments"][n], p))
+        out["update_rel_l2"] = {n: (a / max(b, 1e-300)) ** 0.5
+                                for n, (a, b) in upd.items()}
+        out["update_rel_l2_all"] = (sum(a for a, _ in upd.values())
+                                    / sum(b for _, b in upd.values())) ** 0.5
+        out["moment_rel_l2"] = {n: (a / max(b, 1e-300)) ** 0.5
+                                for n, (a, b) in mom.items()}
+        out["single"] = {k: single[k]
+                         for k in ("losses", "grad_norms", "step_s")}
+        del single, whole
+    del placed, state
+    torch.cuda.empty_cache()
+    out["rows"] = np.int64(PROD_TRAIN["batch"])
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _sharded_train_case(arch, shape, q8, got, wall, launches):
+    """Hold one train case's ranks to one device (rank 0 compared them),
+    emit its ``sharded`` line and add its launches to ``launches``."""
+    r0 = got[0]
+    tol = SHARDED_TRAIN_TOL
+    for r in got:
+        for k, want, lim in (("losses", "losses", tol["loss"]),
+                             ("grad_norms", "grad_norms", tol["grad_norm"])):
+            for a, b in zip(r[k], r0["single"][want]):
+                if abs(a - b) > lim * abs(b):
+                    raise AssertionError(
+                        f"sharded train {arch} {shape} rank {r['coord']}: "
+                        f"{k} {r[k]}, one device {r0['single'][want]}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    worst_u = max(r0["update_rel_l2"].items(), key=lambda kv: kv[1])
+    worst_m = max(r0["moment_rel_l2"].items(), key=lambda kv: kv[1])
+    if worst_u[1] > tol["update"] or worst_m[1] > tol["moment"]:
+        raise AssertionError(f"sharded train {arch} {shape}: update "
+                             f"{worst_u}, moment {worst_m} over {tol}")
+    if q8:
+        for r in got:
+            if not (r["q8_bitwise"] and r["q8_leaves"]):
+                raise AssertionError(
+                    f"sharded train {arch} rank {r['coord']}: q8_gather "
+                    f"symbols differ from one device's")
+            want = {tuple(x) for x in r["q8_payload"]}
+            moved = {(d, b) for d, b, _ in r["data_gathers"]}
+            if not moved <= want or (want and not moved):
+                raise AssertionError(
+                    f"sharded train {arch} q8: the FSDP gathers moved "
+                    f"{sorted(moved - want)}, not the quantized payload "
+                    f"{sorted(want)}")
+    emit("sharded", run="train", arch=arch, mesh=list(shape),
+         q8_gather=q8, cut={"n_layers": SHARDED_TRAIN_DEPTH[arch]},
+         batch=PROD_TRAIN["batch"], seq_len=PROD_TRAIN["seq_len"],
+         steps=PROD_TRAIN["steps"], ranks=len(got), backend=MESH_BACKEND,
+         shared_card="every rank on cuda:0 over gloo (through host "
+                     "memory): one card's times shared by the ranks, not "
+                     "a multi-card figure",
+         losses=[r["losses"] for r in got], grad_norms=r0["grad_norms"],
+         single_losses=r0["single"]["losses"],
+         single_grad_norms=r0["single"]["grad_norms"],
+         update_rel_l2_max=list(worst_u), moment_rel_l2_max=list(worst_m),
+         update_rel_l2_all=r0["update_rel_l2_all"], tol=tol,
+         compared="updates and moments on rank 0's blocks; q8 symbols on "
+                  "every rank's",
+         step_ms=[[1e3 * t for t in r["step_s"]] for r in got],
+         single_step_ms=[1e3 * t for t in r0["single"]["step_s"]],
+         weight_bytes_per_rank=[r["weight_bytes"] for r in got],
+         moment_bytes_per_rank=[r["moment_bytes"] for r in got],
+         peak_bytes=[r["peak_bytes"] for r in got],
+         collectives=[r["collectives"] for r in got],
+         data_all_gathers=r0["data_gathers"],
+         q8_leaves=[r.get("q8_leaves") for r in got],
+         router_max_abs_dp=max([d for d, _ in r0["routes"]], default=None),
+         router_own_choice_differs=sum(f for _, f in r0["routes"]),
+         world_wall_s=wall, rank_wall_s=[r["wall_s"] for r in got],
+         launches=[r["launches"] for r in got])
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4117,20 +4470,27 @@ def main():
          cuda=torch.version.cuda, max_sm_clock_mhz=clock_mhz)
     print(smi_line, flush=True)
 
-    children = [start_containers("moe")]
+    children = [start_containers("serve"), start_containers("moe")]
+    pools = []
     try:
-        return run_phases(children, kind, count, smi_line, clock_mhz, dev)
+        return run_phases(children, pools, kind, count, smi_line, clock_mhz,
+                          dev)
     finally:
         for child, *_ in children:
             if child.poll() is None:
                 child.kill()
                 child.wait()
+        for pool in pools:
+            stop_dryruns(pool)
 
 
-def run_phases(children, kind, count, smi_line, clock_mhz, dev):
-    """Every phase in order; the container children run meanwhile (the
-    families' child starts once the serve phase has been measured, so that
-    one encoder, not two, shares the host with it)."""
+def run_phases(children, pools, kind, count, smi_line, clock_mhz, dev):
+    """Every phase in order; the container children and the production
+    dry-runs run meanwhile on the host.  The serve and moe children start
+    first (the reference checks run while the serve container is
+    encoded); the families' child and the dry-runs start once the serve
+    phase has been measured, so that one encoder, not more, shares the
+    host with it."""
     import torch
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -4140,11 +4500,16 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
          ptxas=[ln.strip() for ln in report.splitlines()
                 if "Compiling" in ln or "registers" in ln or "spill" in ln])
 
+    # the reference checks run while the serve child encodes
+    reference_check(dev)
+    reduced_reference_check(dev)
     t0 = time.perf_counter()
     cm, launches, eng, prompt, dense_logits, dense_tokens = \
-        serve_main_path(dev)
+        serve_main_path(children[0], dev)
     serve_s = time.perf_counter() - t0
     children.append(start_containers("ssm", "encdec"))
+    dryruns = start_dryruns()
+    pools.append(dryruns[0])
     profile_decode(eng, prompt, dev)
     t0 = time.perf_counter()
     continuous_launches = continuous_phase(cm, eng.params, dev)
@@ -4155,9 +4520,12 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     t0 = time.perf_counter()
     fleet_launches, want_slots = fleet_phase(cm, eng.params, dev)
     fleet_s = time.perf_counter() - t0
+    # the moe container, for its mesh world (beside qwen3's) and its phase
+    moe_container = containers(*children[1], keep={"moe": MOE_ARCH})["moe"]
     t0 = time.perf_counter()
-    mesh_launches = {"qwen3": mesh_phase(cm, eng.params, dense_tokens,
-                                         want_slots, dev)}
+    qwen3_launches, moe_world = mesh_phase(cm, eng.params, dense_tokens,
+                                           want_slots, dev)
+    mesh_launches = {"qwen3": qwen3_launches}
     mesh_s = time.perf_counter() - t0
     dq_row = dequant_matmul_phase(cm, eng.params, clock_mhz, dev)
     del eng
@@ -4165,22 +4533,21 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     rw, resident_launches = resident_phase(cm, prompt, dense_logits,
                                            dense_tokens, dev)
     resident_s = time.perf_counter() - t0
-    reference_check(dev)
-    reduced_reference_check(dev)
     rows = kernel_phase(cm, launches, clock_mhz, dev)
     rows += fused_kernel_rows(rw, resident_launches, clock_mhz, dev)
     rows.append(dq_row)
     del rw, cm
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    moe_launches, moe_served = moe_phase(children[0], clock_mhz, dev)
+    moe_launches, moe_served = moe_phase(moe_container, clock_mhz, dev)
+    del moe_container
     moe_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh_launches["moe"] = mesh_moe_phase(*moe_served)
+    mesh_launches["moe"] = mesh_moe_phase(*moe_served, moe_world)
     mesh_s += time.perf_counter() - t0
     t0 = time.perf_counter()
-    family_launches = families_phase(children[1], dev)
+    family_launches = families_phase(children[2], dev)
     families_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4188,7 +4555,7 @@ def run_phases(children, kind, count, smi_line, clock_mhz, dev):
     train_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    production_launches = production_phase(dev)
+    production_launches = production_phase(dev, dryruns)
     production_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4273,7 +4640,11 @@ def production_only():
     torch.backends.cudnn.allow_tf32 = False
     print(smi("name,power.limit"), flush=True)
     t0 = time.perf_counter()
-    launches = production_phase(torch.device("cuda"))
+    dryruns = start_dryruns()
+    try:
+        launches = production_phase(torch.device("cuda"), dryruns)
+    finally:
+        stop_dryruns(dryruns[0])
     emit("done", production_phase_s=time.perf_counter() - t0,
          launches_production=launches, script_s=time.perf_counter() - START)
     return 0

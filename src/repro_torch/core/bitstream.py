@@ -49,19 +49,33 @@ def pack_bit_chunks(vals: np.ndarray, nbits: np.ndarray) -> Tuple[np.ndarray, in
     Returns (packed uint8 stream with guard padding, total bits).  This is the
     one bit-packer every encoder shares: Huffman/raw code words and tANS
     renormalization chunks differ only in how (vals, nbits) are produced.
+
+    Work is per chunk, not per bit: each chunk is shifted into the 64-bit
+    big-endian word where it starts, the chunks starting in one word are
+    OR-ed together (they are adjacent), and the one chunk that crosses into
+    the next word ORs its remainder there.
     """
     vals = np.asarray(vals, dtype=np.uint64).reshape(-1)
     nbits = np.asarray(nbits, dtype=np.int64).reshape(-1)
     if vals.size == 0 or int(nbits.sum()) == 0:
         return np.zeros(GUARD_BYTES, dtype=np.uint8), 0
-    offs = np.concatenate([[0], np.cumsum(nbits)])
-    total = int(offs[-1])
-    # bit i belongs to chunk reps[i], at position bitpos[i] within it (MSB first)
-    reps = np.repeat(np.arange(vals.size), nbits)
-    bitpos = np.arange(total, dtype=np.int64) - offs[reps]
-    bits = (vals[reps] >> (nbits[reps] - 1 - bitpos).astype(np.uint64)) & 1
-    packed = np.packbits(bits.astype(np.uint8))
-    packed = np.concatenate([packed, np.zeros(GUARD_BYTES, dtype=np.uint8)])
+    ends = np.cumsum(nbits)
+    total = int(ends[-1])
+    offs = ends - nbits
+    word = offs >> 6
+    # the bits left in a chunk's first word after it: < 0 where it crosses
+    room = 64 - (offs & 63) - nbits
+    v = vals & ((np.uint64(1) << nbits.astype(np.uint64)) - np.uint64(1))
+    head = (v >> np.maximum(-room, 0).astype(np.uint64)) \
+        << np.maximum(room, 0).astype(np.uint64)
+    words = np.zeros(((total + 63) >> 6) + 1, dtype=np.uint64)
+    starts = np.flatnonzero(np.diff(word, prepend=-1))
+    words[word[starts]] = np.bitwise_or.reduceat(head, starts)
+    cross = np.flatnonzero(room < 0)
+    words[word[cross] + 1] |= v[cross] << (64 + room[cross]).astype(np.uint64)
+    n_bytes = (total + 7) >> 3
+    packed = np.zeros(n_bytes + GUARD_BYTES, dtype=np.uint8)
+    packed[:n_bytes] = words.astype(">u8").view(np.uint8)[:n_bytes]
     return packed, total
 
 

@@ -27,17 +27,26 @@ Decoding is one more lock-step loop family (``kernel = "tans"``): per lane,
 gather (symbol, nbits, base) by carried state, read ``nbits`` fresh bits,
 fold into the next state — structurally the Huffman peek-LUT loop with one
 extra carried register, which is why all three backends (numpy / torch /
-CUDA) host it next to their prefix loops.  Encoding is state-serial per
-segment (inherent to ANS) and runs on the host at container-build time only.
+CUDA) host it next to their prefix loops.  Encoding is state-serial along
+a segment (inherent to ANS), with a tensor's segments advanced in lock-step
+(:meth:`RansCodeTable.encode_rows`), and runs on the host at container-build
+time only.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from ..bitstream import GUARD_BYTES, TANS_STATE_HEADER_BITS, pack_bit_chunks
 from .base import CodeTable
+
+# lock-step encode: how many segments advance together, the fewest for
+# which that beats the scalar loop, and how many steps' symbol constants
+# are gathered at once
+LOCKSTEP_LANES = 256
+LOCKSTEP_MIN_LANES = 32
+LOCKSTEP_BLOCK = 1024
 
 # 4096 states for 8-bit symbols (the Huffman LUT's footprint class), 1024 for
 # 4-bit — normalization error is already far below Huffman's integer-bit loss
@@ -180,6 +189,52 @@ class RansCodeTable(CodeTable):
         nbs[0] = TANS_STATE_HEADER_BITS
         stream, total = pack_bit_chunks(vals, nbs)
         return stream, total
+
+    def encode_rows(self, rows: np.ndarray) -> List[Tuple[np.ndarray, int]]:
+        """:meth:`encode` of each row of ``rows`` (R, m) uint8, a segment
+        each.  Rows advance in lock-step, ``LOCKSTEP_LANES`` at a time: one
+        numpy step moves every lane's state by a symbol (the state feedback
+        is serial along a segment, never across segments).  Bitwise the
+        streams :meth:`encode` gives."""
+        rows = np.asarray(rows, dtype=np.uint8)
+        if rows.shape[0] < LOCKSTEP_MIN_LANES or rows.shape[1] == 0:
+            return [self.encode(r) for r in rows]
+        out: List[Tuple[np.ndarray, int]] = []
+        for lo in range(0, rows.shape[0], LOCKSTEP_LANES):
+            out += self._encode_lanes(rows[lo: lo + LOCKSTEP_LANES])
+        return out
+
+    def _encode_lanes(self, lanes: np.ndarray) -> List[Tuple[np.ndarray, int]]:
+        """Reverse-order tANS encode of each row of ``lanes`` (B, m) uint8,
+        all rows in lock-step."""
+        B, m = lanes.shape
+        L = 1 << self.table_log
+        base = self._cumul[: self.norm.size] - self.norm
+        next_state = self._enc_state.astype(np.int64) + L
+        low_mask = (1 << np.arange(TANS_STATE_HEADER_BITS + 1,
+                                   dtype=np.int64)) - 1
+        # row t: each lane's symbol m - 1 - t (the encode walks back)
+        rev = lanes[:, ::-1].T
+        # a chunk is at most table_log (<= 16) bits wide
+        vals = np.empty((m + 1, B), dtype=np.int32)
+        nbs = np.empty((m + 1, B), dtype=np.int8)
+        x = np.full(B, L, dtype=np.int64)
+        for t0 in range(0, m, LOCKSTEP_BLOCK):
+            # the block's symbols' constants, gathered ahead of its steps
+            block = rev[t0: t0 + LOCKSTEP_BLOCK].astype(np.intp)
+            maxbits = self._maxbits[block]
+            msp = self._min_state_plus[block]
+            sbase = base[block]
+            for t in range(block.shape[0]):
+                nb = maxbits[t] - (x < msp[t])
+                j = m - t0 - t
+                vals[j] = x & low_mask.take(nb)
+                nbs[j] = nb
+                x = next_state.take(sbase[t] + (x >> nb))
+        vals[0] = x - L                       # initial decoder states
+        nbs[0] = TANS_STATE_HEADER_BITS
+        return [pack_bit_chunks(v, n) for v, n in
+                zip(np.ascontiguousarray(vals.T), np.ascontiguousarray(nbs.T))]
 
     # ----------------------------------------------------------------- decode
     def decode_arrays(self) -> Dict[str, np.ndarray]:

@@ -46,18 +46,23 @@ def segment_and_encode(
     ``table`` is anything with the shared ``encode(flat_symbols) ->
     (guard-padded stream, payload bits)`` contract — a
     :class:`repro_torch.core.codecs.base.CodeTable` or a bare
-    :class:`repro_torch.core.entropy.HuffmanTable`.
+    :class:`repro_torch.core.entropy.HuffmanTable`.  A table with an
+    ``encode_rows(rows)`` (the tANS one) encodes the full segments in one
+    call.
     """
     flat = q.reshape(-1)
     n = flat.size
-    streams: List[np.ndarray] = []
-    counts, bits = [], []
-    for start in range(0, max(n, 1), segment_symbols):
-        chunk = flat[start: start + segment_symbols]
-        stream, nbits = table.encode(chunk)
-        streams.append(stream)
-        counts.append(len(chunk))
-        bits.append(nbits)
+    n_rows = n // segment_symbols
+    rows = flat[: n_rows * segment_symbols].reshape(n_rows, segment_symbols)
+    encode_rows = getattr(table, "encode_rows", None)
+    coded = list(encode_rows(rows)) if encode_rows is not None \
+        else [table.encode(r) for r in rows]
+    counts = [segment_symbols] * n_rows
+    if n % segment_symbols or n == 0:
+        coded.append(table.encode(flat[n_rows * segment_symbols:]))
+        counts.append(n - n_rows * segment_symbols)
+    streams: List[np.ndarray] = [stream for stream, _ in coded]
+    bits = [nbits for _, nbits in coded]
     meta = SegmentedTensor(
         name=name,
         shape=tuple(q.shape),

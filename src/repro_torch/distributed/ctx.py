@@ -15,7 +15,7 @@ and layers of ``models.layers`` consult them.  Two profiles:
   depends on.  The gather is differentiable (training on a mesh): its
   backward sums the full gradient over ``grad_axes`` — the data axes,
   whose ranks computed on different batch rows — and keeps this rank's
-  block.
+  block (a reduce-scatter along a dim those axes split).
 * **sharded compute** (the production cells' hints, ``exact_tp`` off):
   each rank computes only its block.  The reference annotates activations
   for its compiler (``constrain_heads``, ``constrain_scores``,
@@ -28,6 +28,12 @@ and layers of ``models.layers`` consult them.  Two profiles:
   (``seq_sp``) or its D over the data axes (``feature_axes``, the
   weight-stationary decode).  Weights are gathered only along their FSDP
   blocks, and none under ``feature_axes`` (``models.layers.gather_weight``).
+  Training computes so too (``launch/specs.py``'s train cells of the
+  dense and MoE families): every collective of the sharded forward is
+  differentiable (``distributed/collectives.py`` says which conjugate
+  each takes and why), the FSDP gather's backward reduce-scatters the
+  gradient over the data axes, and ``grad_axes`` names the axes the rank
+  losses are summed over.
 
 The port's rows arrive split by the caller (``ServeSteps.rows_over``), so
 ``batch_axes`` states how they are split rather than asking for a split;
@@ -56,9 +62,11 @@ class ShardingHints:
     head_axes: Tuple[str, ...] = ()           # exact TP: attention heads
     #   split over these axes; each rank attends over its block of heads
     #   (its KV cache holds only those) and the outputs are gathered
-    grad_axes: Tuple[str, ...] = ()           # training: a gathered
-    #   weight's gradient is summed over these axes before the rank keeps
-    #   its block
+    grad_axes: Tuple[str, ...] = ()           # training: the axes the
+    #   rank losses are summed over (the data axes; the loss is replicated
+    #   over the others).  A gradient is summed over them: a gathered
+    #   weight's before the rank keeps its block, an all-reduce's in its
+    #   backward, a whole leaf's after the backward
     cache_seq_axes: Tuple[str, ...] = ()      # sharded compute: the axes
     #   the cache's T rests on (its placement; ``kv_seq_axes`` is what
     #   attention decides, () in the reference's prefill cells)
@@ -234,7 +242,10 @@ def shard(t: torch.Tensor, spec: Sequence, mesh):
 class _GatherAtUse(torch.autograd.Function):
     """All-gather a block along each sharded dim of ``spec`` (forward); sum
     the full gradient over ``grad_axes`` and keep this rank's block
-    (backward)."""
+    (backward): a reduce-scatter along each dim whose entry names only
+    those axes, an all-reduce over the ones no such dim names, then the
+    block of the dims left (their ranks repeat the compute: the gradient
+    is whole on each)."""
 
     @staticmethod
     def forward(ctx, local, spec, mesh, grad_axes):
@@ -249,8 +260,17 @@ class _GatherAtUse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from . import collectives
-        g = collectives.all_reduce_sum(ctx.mesh, g, ctx.grad_axes)
-        return local_block(g, ctx.spec, ctx.mesh).clone(), None, None, None
+        spec, done = list(ctx.spec), set()
+        for d, e in enumerate(ctx.spec):
+            axes = () if e is None else (e,) if isinstance(e, str) \
+                else tuple(e)
+            if axes and all(a in ctx.grad_axes for a in axes):
+                g = collectives.reduce_scatter(ctx.mesh, g, d, axes)
+                spec[d] = None
+                done.update(axes)
+        g = collectives.all_reduce_sum(
+            ctx.mesh, g, tuple(a for a in ctx.grad_axes if a not in done))
+        return local_block(g, spec, ctx.mesh).clone(), None, None, None
 
 
 def constrain_replicated(x: Any) -> Any:

@@ -279,11 +279,16 @@ def run_on_device(arch: str, shape_name: str, *, device, batch: int,
 def print_cell(d: Dict[str, Any]) -> None:
     ma = d["memory_analysis"]
     mode = d["meta"].get("serve_mode")
+    compute = d["meta"].get("compute") or (
+        "sharded" if d["meta"].get("sharded_compute") else None)
+    q8g = d["meta"].get("q8_gather")
     print(f"== {d['arch']} x {d['shape']} on {d['mesh']} ({d['kind']}, "
           f"weights={d['meta'].get('weights')}"
           + (f", {mode}" if mode else "")
-          + (", sharded compute" if d["meta"].get("sharded_compute")
-             else "") + ") ==")
+          + (f", {compute} compute" if compute else "")
+          + (f", q8_gather={q8g}" if q8g else "")
+          + (", grad_compress" if d["meta"].get("grad_compress") else "")
+          + ") ==")
     print(f"  per rank: args={ma['argument_size'] / 2**30:.2f}GiB "
           f"peak={ma['peak'] / 2**30:.2f}GiB fits={d['fits']} "
           f"(H100 {mesh_lib.HBM_PER_CHIP / 2**30:.2f}GiB)")

@@ -28,8 +28,13 @@ equal the reference's on the production meshes):
   decode (rows whole, D over the data axes, no weight gathered).
   :meth:`Cell.place` re-blocks an SSM's ``in_zx`` so that each rank's
   block of its ``[z | x]`` columns is its heads' (``mamba2.zx_blocks``);
-* every train cell keeps exact TP: weights all-gathered at use, each rank
-  repeating its rows' full-width compute along model.
+* the dense and MoE train cells compute sharded too, under the
+  reference's train-cell hints (rows over data, ``seq_sp`` per family,
+  the MoE family's EP context), every collective carrying its backward;
+  the ssm, hybrid and encdec train cells keep exact TP — weights
+  all-gathered at use, each rank repeating its rows' full-width compute
+  along model — and ``meta["compute"]`` says which.  ``q8_gather=`` and
+  ``grad_compress=`` are the reference's options.
 
 Weight formats for serving cells: ``bf16``, ``int8`` (QT triples, uint8
 symbols dequantized at use) and ``int4`` (QT4, nibbles packed along the
@@ -228,21 +233,39 @@ def param_structs(cfg: ArchConfig, mesh, rules: shd.Rules,
 
 def _install_contexts(cfg: ArchConfig, mesh, *, batch_sharded: bool,
                       kv_seq_axes: Tuple[str, ...] = (),
-                      feature_axes: Tuple[str, ...] = ()
+                      feature_axes: Tuple[str, ...] = (),
+                      train: bool = False
                       ) -> Tuple[ShardingHints, Optional[EPContext]]:
     """The reference's sharded-compute hints and, for the MoE family, its
-    EP context, for a serving cell.  The reference installs them
-    process-wide; here the cell's ``ServeSteps`` installs them around
-    each step it runs.  Sequence-parallel carries for every family but
-    the hybrid, as in the reference."""
+    EP context, for a serving cell (its ``ServeSteps`` installs them
+    around each step it runs) or, with ``train``, a train cell (the train
+    step installs them; ``grad_axes`` the data axes, over which the rank
+    losses are summed).  The reference installs them process-wide.
+    Sequence-parallel carries for every family but the hybrid, as in the
+    reference."""
     data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
     ep = EPContext(mesh=mesh, model_axis="model", data_axes=data_axes,
                    batch_sharded=batch_sharded) if cfg.moe else None
     hints = ShardingHints(
         mesh=mesh, batch_axes=data_axes if batch_sharded else (),
         model_axis="model", kv_seq_axes=tuple(kv_seq_axes),
-        feature_axes=tuple(feature_axes), seq_sp=cfg.family != "hybrid")
+        feature_axes=tuple(feature_axes), seq_sp=cfg.family != "hybrid",
+        grad_axes=data_axes if train else ())
     return hints, ep
+
+
+# the families whose train cells compute sharded (the others keep exact TP)
+SHARDED_TRAIN_FAMILIES = ("dense", "moe")
+
+
+def train_contexts(cfg: ArchConfig, mesh
+                   ) -> Tuple[Optional[ShardingHints], Optional[EPContext]]:
+    """The hints and EP context a train cell's step computes under: the
+    reference's (:func:`_install_contexts`, rows over data) for
+    ``SHARDED_TRAIN_FAMILIES``, none (exact TP) for the others."""
+    if cfg.family not in SHARDED_TRAIN_FAMILIES:
+        return None, None
+    return _install_contexts(cfg, mesh, batch_sharded=True, train=True)
 
 
 def _batch_struct(cfg: ArchConfig, B: int, S: int, *, train: bool) -> Dict:
@@ -284,16 +307,22 @@ def _names(meta: Dict[str, Any], mesh) -> Dict[str, Any]:
 # ---------------------------------------------------------------- cell builds
 
 def build_train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
-                     microbatches: Optional[int] = None) -> Cell:
+                     microbatches: Optional[int] = None,
+                     grad_compress: bool = False,
+                     q8_gather: int = 0) -> Cell:
     """The train step of this rank: params and fp32 (or, from
     ``Q8_OPT_THRESHOLD`` parameters, uint8) moments in their ZeRO blocks,
     the batch's rows over data, remat on, attention in query blocks past
-    ``LONG_SEQ``."""
+    ``LONG_SEQ``; sharded compute for ``SHARDED_TRAIN_FAMILIES``, exact TP
+    for the others.  ``q8_gather`` (8 or 4) gathers EntroLLM-quantized
+    weights, ``grad_compress`` compresses the summed gradient, as the
+    reference's options do."""
     q8 = cfg.param_count() >= Q8_OPT_THRESHOLD
     mb = microbatches or pick_microbatches(cfg, shape, mesh)
     tc = train_loop.TrainConfig(
         opt=opt.AdamWConfig(quantized_state=q8),
         grad_accum_dtype="bf16" if q8 else "f32",
+        q8_gather=q8_gather, grad_compress=grad_compress,
         microbatches=mb, remat=True,
         q_block=Q_BLOCK if shape.seq_len > LONG_SEQ else 0)
     specs = train_loop.train_shardings(cfg, mesh)
@@ -307,13 +336,18 @@ def build_train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     rules = shd.arch_rules(cfg, mesh, shd.train_rules(mesh))
     batch = _local_rows(_batch_struct(cfg, shape.global_batch,
                                       shape.seq_len, train=True), mesh, rules)
-    fn = train_loop.make_train_step(cfg, tc, mesh)
+    hints, ep = train_contexts(cfg, mesh)
+    sharded = hints is not None
+    fn = train_loop.make_train_step(cfg, tc, mesh, hints=hints, ep=ep)
     return Cell(cfg=cfg, shape=shape, mesh=mesh, fn=fn,
                 args=(params, ostate, batch),
                 meta=_names({"kind": "train", "microbatches": mb,
                              "q8_opt": q8, "weights": "bf16",
                              "q_block": tc.q_block,
-                             "param_rules": "opt_state"}, mesh))
+                             "param_rules": "opt_state",
+                             "compute": "sharded" if sharded else "exact TP",
+                             "q8_gather": q8_gather,
+                             "grad_compress": grad_compress}, mesh))
 
 
 def _cache_struct(cfg: ArchConfig, steps, B: int, S: int):

@@ -24,12 +24,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.ctx import sharded_compute
 from .layers import (Schema, Spec, attention_blocks, cache_rows,
-                     cache_seq_block, carry_features, carry_spec,
+                     cache_seq_block, carry_features, carry_seq, carry_spec,
                      checkpointed, constrain_carry, gather_blocks,
                      gather_cache_rows, gather_heads, gqa_attention,
                      head_block, init_params, kv_dequantize, kv_quantize,
                      last_position, layer_slice, matmul, rms_norm, rope,
-                     scatter_blocks, softmax_xent, stacked_layers, swiglu,
+                     scatter_blocks, sharded_xent, softmax_xent,
+                     stacked_layers, swiglu,
                      take_rows, tied_logits, update_kv_cache,
                      whole_activation)
 
@@ -106,13 +107,16 @@ def _qkv(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, positions,
     gathered, with the heads each projection's weight holds here)."""
     hd = cfg.hd
     fx = carry_features(carry)
-    h = whole_activation(rms_norm(x, lp["attn_norm"], x_axes=fx), carry)
+    h = whole_activation(rms_norm(x, lp["attn_norm"], x_axes=fx,
+                                  split=carry_seq(carry)), carry)
     q = matmul(h, lp["wq"], x_axes=fx).unflatten(-1, (-1, hd))
     k = matmul(h, lp["wk"], x_axes=fx).unflatten(-1, (-1, hd))
     v = matmul(h, lp["wv"], x_axes=fx).unflatten(-1, (-1, hd))
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"])
-        k = rms_norm(k, lp["k_norm"])
+        # inside the block's split compute (a rank's heads)
+        split = sharded_compute() is not None
+        q = rms_norm(q, lp["q_norm"], split=split)
+        k = rms_norm(k, lp["k_norm"], split=split)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
@@ -178,7 +182,8 @@ def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0,
                          q_block=q_block, keep=keep, carry=carry)
     x = x + attn_out
     fx = carry_features(carry)
-    h = whole_activation(rms_norm(x, lp["mlp_norm"], x_axes=fx), carry)
+    h = whole_activation(rms_norm(x, lp["mlp_norm"], x_axes=fx,
+                                  split=carry_seq(carry)), carry)
     x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], x_axes=fx,
                    carry=carry)
     return x, kv
@@ -209,7 +214,8 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
         x = constrain_carry(x, S, cfg.d_model)
         if collect_cache:
             caches.append(kv)
-    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry))
+    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry),
+                 split=carry_seq(carry))
     return x, (caches if collect_cache else None)
 
 
@@ -239,11 +245,27 @@ def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the first
     S - 1 tokens predict the last S - 1.  The JAX package's ``unroll`` is a
     scan knob with no eager counterpart; ``q_block`` chunks attention's
-    queries."""
+    queries.  Under sharded-compute hints ``batch`` is this rank's rows and
+    the loss the mean over every token of the global batch
+    (:func:`xent`)."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     x, _ = forward(cfg, params, inp, remat=remat, q_block=q_block)
-    return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
+    return xent(cfg, params, x, labels)
+
+
+def xent(cfg: ArchConfig, params, x: torch.Tensor,
+         labels: torch.Tensor) -> torch.Tensor:
+    """The cross-entropy of the final carry ``x`` against ``labels``: on
+    one device (or under exact TP) of the whole logits, under
+    sharded-compute hints of the carry's block without gathering the
+    logits (:func:`layers.sharded_xent`)."""
+    if sharded_compute() is None:
+        return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
+    carry = carry_spec(x.shape[0], labels.shape[1], cfg.d_model)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return sharded_xent(x, head, labels, cfg.vocab, carry,
+                        tied=cfg.tie_embeddings)
 
 
 # ------------------------------------------------------------------------- serving

@@ -27,6 +27,24 @@ its block of the cache's T with an exact combine; :func:`rms_norm` and
 (:func:`carry_spec`) the model code passes with it.  With no hints, and
 under exact TP, every one of them computes what it computed before, op
 for op.
+
+Training computes the same way (the dense and MoE train cells), and each
+site's collective names its backward (``distributed/collectives.py``: the
+rank losses are summed over the data axes, the loss is replicated over
+``model``).  Two regions of a block differ in what a rank's gradient
+holds.  The layer carry (whole, or its S block over ``model``) holds
+whole gradients.  :func:`whole_activation` hands the carry into the
+block's split compute — column-parallel products, a rank's heads, its
+experts — whose tensors, though some hold the same value on every rank,
+get from each rank only its share of their gradient; the all-gather that
+enters (or :func:`~repro_torch.distributed.collectives.enter_split`)
+sums the shares in its backward, and the row-parallel sum that leaves
+(reduce-scatter or all-reduce) hands whole gradients back.  So a
+parameter whole over ``model`` is summed over it (:func:`split_use`)
+where it is used inside that compute, or on a carry split along S, and
+not where it is used on a whole carry (a norm's scale).  The router's
+gathered logits are used alike by every rank: its gates enter the
+experts through ``enter_split`` (``moe._routed``).
 """
 from __future__ import annotations
 
@@ -37,6 +55,7 @@ import numpy as np
 import torch
 
 from ..distributed import collectives
+from ..distributed.collectives import enter_split
 from ..distributed.ctx import (Sharded, block_index, constrain_activation,
                                constrain_heads, constrain_replicated,
                                constrain_scores, get_hints, sharded_compute)
@@ -112,11 +131,23 @@ class QTG(NamedTuple):
     """Quantized weight with a gradient path to its bf16 master (training's
     compressed weight gather, ``TrainConfig.q8_gather``): the forward
     computes from the uint8 symbols only, and the backward is a
-    straight-through estimator into the master."""
+    straight-through estimator into the master.  On a mesh each part may
+    be a :class:`~repro_torch.distributed.ctx.Sharded` block."""
     q: torch.Tensor        # uint8 symbols (packed nibbles when bits == 4)
     scale: torch.Tensor
     zero: torch.Tensor
     master: torch.Tensor   # bf16 master weight (the gradient's target)
+
+
+class FsdpMaster(NamedTuple):
+    """A :class:`QTG` master as :func:`gather_weight` hands it on under
+    sharded compute: its symbols were gathered over the FSDP axes, the
+    master was not.  ``dims`` names each gathered dim (counted from the
+    end) and its axes: the straight-through gradient is reduce-scattered
+    along them onto ``block``."""
+    block: Any             # the master's block (a Sharded over model)
+    dims: Tuple[Tuple[int, Tuple[str, ...]], ...]
+    mesh: Any
 
 
 def _unpack4(q: torch.Tensor) -> torch.Tensor:
@@ -150,17 +181,45 @@ class _SteDeq(torch.autograd.Function):
     """``bf16(sym) * bf16(scale) + bf16(zero)`` forward, with ``sym``
     unpacked from nibbles when ``q``'s last dim is half the master's; the
     backward hands the whole gradient, in bf16, to the master (the JAX
-    package's ``_ste_deq`` custom VJP) and none to the symbols."""
+    package's ``_ste_deq`` custom VJP) and none to the symbols.  With
+    ``dims`` (an :class:`FsdpMaster`'s) the symbols are the master's block
+    gathered along those dims, and the gradient is reduce-scattered back
+    along them."""
 
     @staticmethod
-    def forward(ctx, master, q, scale, zero):
-        sym = _unpack4(q) if q.shape[-1] != master.shape[-1] else q
+    def forward(ctx, master, q, scale, zero, dims=(), mesh=None):
+        ctx.dims, ctx.mesh = dims, mesh
+        last = master.shape[-1]
+        for d, axes in dims:
+            if d == -1:
+                last *= block_index(mesh, axes)[0]
+        sym = _unpack4(q) if q.shape[-1] != last else q
         bf = torch.bfloat16
         return sym.to(bf) * scale.to(bf) + zero.to(bf)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(torch.bfloat16), None, None, None
+        g = g.to(torch.bfloat16)
+        for d, axes in ctx.dims:
+            g = collectives.reduce_scatter(ctx.mesh, g, g.dim() + d, axes)
+        return g, None, None, None, None, None
+
+
+def _ste(w: "QTG", idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The straight-through dequantization of a :class:`QTG` held here
+    (its master a tensor or an :class:`FsdpMaster`); of the rows ``idx``
+    when given (a table's lookup: a per-row scale and zero taken at the
+    same rows).  A lookup in a table whose symbols were gathered
+    dequantizes the table, so that the gradient reaches the master's
+    block as the table's (the data ranks look up different rows)."""
+    m = w.master
+    block, dims, mesh = (m.block, m.dims, m.mesh) if isinstance(
+        m, FsdpMaster) else (m, (), None)
+    if idx is None or dims:
+        out = _SteDeq.apply(block, w.q, w.scale, w.zero, dims, mesh)
+        return out if idx is None else out[idx]
+    rows = lambda t: t if t.shape[0] == 1 else t[idx]  # noqa: E731
+    return _SteDeq.apply(block[idx], w.q[idx], rows(w.scale), rows(w.zero))
 
 
 def to_device(w: Any, device: torch.device) -> Any:
@@ -229,7 +288,13 @@ def gather_weight(w: Any) -> Any:
     stays a :class:`Sharded` block for :func:`matmul` to compute on.  The
     identity with no hints, so every single-device path is unchanged.  A
     fused payload handle has no sharded form: compressed residency is
-    single-device."""
+    single-device.
+
+    In training a gathered FSDP block's gradient is reduce-scattered back
+    over the same axes.  A :class:`QTG` gathers its uint8 symbols (packed
+    nibbles at 4 bits), scale and zero, never its bf16 master, which
+    stays a block: the straight-through gradient reaches it by that
+    reduce-scatter (:class:`FsdpMaster`)."""
     h = get_hints()
     if h is None:
         return w
@@ -239,10 +304,10 @@ def gather_weight(w: Any) -> Any:
             "docs/SERVING.md §\"Which mode when\"); drop mesh= or use "
             "resident='dense'")
     if not h.exact_tp:
-        if isinstance(w, QTG):
-            raise NotImplementedError("sharded compute serves; training "
-                                      "keeps exact TP")
         keep = {h.model_axis} | set(h.feature_axes)
+        if isinstance(w, QTG):
+            return QTG(*(_gather_blocks(p, h.mesh, keep) for p in w[:3]),
+                       _fsdp_master(w.master, h.mesh, keep))
         if isinstance(w, (QT, QT4)):
             return type(w)(*(_gather_blocks(p, h.mesh, keep) for p in w))
         return _gather_blocks(w, h.mesh, keep)
@@ -268,18 +333,66 @@ def _gather_blocks(p: Any, mesh, keep) -> Any:
         assert not gone or len(gone) == len(axes), \
             f"a dim sharded over kept and gathered axes {p.spec}"
         if gone:
-            out = collectives.all_gather(mesh, out, d, e)
+            out = collectives.all_gather(mesh, out, d, e,
+                                         grad="reduce_scatter")
             spec.append(None)
         else:
             spec.append(e)
     return Sharded(out, spec) if any(e is not None for e in spec) else out
 
 
+def _fsdp_master(m: Any, mesh, keep) -> FsdpMaster:
+    """A :class:`QTG` master's block under sharded compute, the dims that
+    :func:`_gather_blocks` gathers its symbols along named
+    (:class:`FsdpMaster`); nothing moves."""
+    if not isinstance(m, Sharded):
+        return FsdpMaster(m, (), mesh)
+    dims, spec = [], []
+    for d, e in enumerate(m.spec):
+        axes = _entry(e)
+        if axes and all(a not in keep for a in axes):
+            dims.append((d - len(m.spec), axes))
+            spec.append(None)
+        else:
+            spec.append(e)
+    block = Sharded(m.local, spec) if any(e is not None for e in spec) \
+        else m.local
+    return FsdpMaster(block, tuple(dims), mesh)
+
+
+def split_use(w: Any) -> Any:
+    """``w`` (a tensor, a :class:`Sharded` block or a quantized tuple) as it
+    enters compute that differs rank by rank along the model axis, under
+    sharded-compute training: each part whole over that axis goes through
+    :func:`~repro_torch.distributed.collectives.enter_split`, so its
+    gradient is summed over it.  The identity otherwise."""
+    h = sharded_compute()
+    if h is None or not h.model_axis or h.mesh.shape[h.model_axis] == 1:
+        return w
+    m = h.model_axis
+
+    def one(p):
+        if isinstance(p, Sharded):
+            if any(m in _entry(e) for e in p.spec):
+                return p
+            return Sharded(enter_split(h.mesh, p.local, (m,)), p.spec)
+        return enter_split(h.mesh, p, (m,))
+    if isinstance(w, (QT, QT4, QTG)):
+        return type(w)(*(one(p) for p in w))
+    return one(w)
+
+
 def _local_weight(w: Any, mesh) -> Tuple[Any, Tuple]:
     """This rank's block of a (partly gathered) weight as plain tensors — a
-    tensor or a QT / QT4 triple — and the spec its symbols are cut by (one
-    entry a dim).  A replicated scale / zero that spans a sharded dim of
-    the symbols (a per-row scale) is cut to the same block."""
+    tensor or a QT / QT4 / QTG tuple — and the spec its symbols are cut by
+    (one entry a dim).  A replicated scale / zero that spans a sharded dim
+    of the symbols (a per-row scale) is cut to the same block; a QTG's
+    :class:`FsdpMaster` keeps its block as a tensor."""
+    if isinstance(w, QTG):
+        qt, spec = _local_weight(QT(*w[:3]), mesh)
+        m = w.master
+        block = m.block.local if isinstance(m.block, Sharded) else m.block
+        return QTG(*qt, FsdpMaster(block, m.dims, m.mesh)), spec
     parts = tuple(w) if isinstance(w, (QT, QT4)) else (w,)
     main = parts[0]
     spec = main.spec if isinstance(main, Sharded) else (None,) * main.dim()
@@ -312,12 +425,11 @@ def deq(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
     """The weight dequantized in ``dtype`` (bf16 by default); under
     sharded-compute hints this rank's block of it (after
     :func:`gather_weight`)."""
-    w = gather_weight(w)
     h = sharded_compute()
     if h is not None:
-        w, _ = _local_weight(w, h.mesh)
-    if isinstance(w, QTG):
-        return _SteDeq.apply(w.master, w.q, w.scale, w.zero).to(dtype)
+        w, _ = _local_weight(gather_weight(w), h.mesh)
+    else:
+        w = gather_weight(w)
     return _deq_plain(w, dtype)
 
 
@@ -360,13 +472,15 @@ def _matmul(x: torch.Tensor, w: Any, *, gather: bool = False,
     if h is None:
         return x @ deq(w, x.dtype), ()
     mesh = h.mesh
-    wl, spec = _local_weight(gather_weight(w), mesh)
+    wl, spec = _local_weight(gather_weight(split_use(w)), mesh)
     wd = _deq_plain(wl, x.dtype)
     k_axes, x_axes = _split(mesh, spec[-2]), _split(mesh, x_axes)
     if x_axes and x_axes != k_axes:
         # x is a block of its features that this weight does not take:
-        # whole features first
-        x = collectives.all_gather(mesh, x, x.dim() - 1, x_axes)
+        # whole features first (every rank of those axes repeats the
+        # product: the gathered x's gradient is whole on each)
+        x = collectives.all_gather(mesh, x, x.dim() - 1, x_axes,
+                                   grad="cut")
         x_axes = ()
     if not k_axes:                  # no rank holds another block of K
         y = x @ wd
@@ -377,7 +491,10 @@ def _matmul(x: torch.Tensor, w: Any, *, gather: bool = False,
         y = _reduce_partial((x @ wd).float(), k_axes, h, carry).to(x.dtype)
     n_axes = _split(mesh, spec[-1])
     if gather and spec[-1] is not None:
-        y = collectives.all_gather(mesh, y, y.dim() - 1, spec[-1])
+        # the whole output is used alike by every rank (the router's
+        # probabilities): its gradient is whole on each
+        y = collectives.all_gather(mesh, y, y.dim() - 1, spec[-1],
+                                   grad="cut")
         n_axes = ()
     return y, n_axes
 
@@ -390,15 +507,21 @@ def tied_logits(x: torch.Tensor, table: Any, *,
     the logits gathered (``x_axes`` as in :func:`matmul`)."""
     if sharded_compute() is None:
         return matmul(x, deq(table).T)
-    if isinstance(table, QT4):
+    return matmul(x, _transposed(table), gather=True, x_axes=x_axes)
+
+
+def _transposed(table: Any) -> Any:
+    """A ``(V, D)`` table (a tensor or a QT triple, its parts
+    :class:`Sharded` blocks or whole) as the ``(D, V)`` weight of a
+    product; a per-row scale and zero become per-column ones."""
+    if isinstance(table, (QT4, QTG)):
         raise NotImplementedError("sharded tied logits of a nibble-packed "
-                                  "table")
+                                  "or straight-through table")
     t = lambda p: (Sharded(p.local.t(), p.spec[::-1])  # noqa: E731
                    if isinstance(p, Sharded) else
                    p.t() if p.dim() == 2 else p)
-    w = type(table)(*(t(p) for p in table)) if isinstance(table, QT) \
+    return QT(*(t(p) for p in table)) if isinstance(table, QT) \
         else t(table)
-    return matmul(x, w, gather=True, x_axes=x_axes)
 
 
 def _split(mesh, entry) -> Tuple[str, ...]:
@@ -416,9 +539,21 @@ def _reduce_partial(y: torch.Tensor, axes: Tuple[str, ...], h,
     if carry is not None and carry[1] is not None:
         if _entry(carry[1]) == axes:
             return collectives.reduce_scatter(h.mesh, y, 1, carry[1])
-        return _cut(collectives.all_reduce_sum(h.mesh, y, axes), 1,
-                    carry[1], h.mesh)
-    return collectives.all_reduce_sum(h.mesh, y, axes)
+        return _cut(collectives.all_reduce_sum(
+            h.mesh, y, axes, grad_axes=summed_axes(axes)), 1, carry[1],
+            h.mesh)
+    return collectives.all_reduce_sum(h.mesh, y, axes,
+                                      grad_axes=summed_axes(axes))
+
+
+def summed_axes(axes) -> Tuple[str, ...]:
+    """The axes of ``axes`` over which the backward of an all-reduce whose
+    total every rank then uses alike sums the gradient: those the rank
+    losses are summed over (the installed hints' ``grad_axes``); over the
+    others the loss is replicated and the backward is the identity."""
+    h = get_hints()
+    return tuple(a for a in _entry(axes) if h is not None
+                 and a in h.grad_axes)
 
 
 def _global_rows(n: int, h) -> int:
@@ -427,8 +562,10 @@ def _global_rows(n: int, h) -> int:
 
 
 def _deq_plain(w: Any, dtype) -> torch.Tensor:
-    """A tensor or QT / QT4 triple held whole here, dequantized in
+    """A tensor or QT / QT4 / QTG tuple held whole here, dequantized in
     ``dtype`` (no hints consulted)."""
+    if isinstance(w, QTG):
+        return _ste(w).to(dtype)
     if isinstance(w, QT):
         return w.q.to(dtype) * w.scale.to(dtype) + w.zero.to(dtype)
     if isinstance(w, QT4):
@@ -466,7 +603,7 @@ def _take_sharded_rows(w: Any, idx: torch.Tensor, mesh,
     n_loc = next(p for p in parts if isinstance(p, Sharded)).local.shape[0]
     table = type(w)(*local) if isinstance(w, (QT, QT4)) else local[0]
     rows = _lookup(table, (idx - rank * n_loc).clamp(0, n_loc - 1))
-    every = collectives.all_gather(mesh, rows[None], 0, entry)
+    every = collectives.all_gather(mesh, rows[None], 0, entry, grad="cut")
     owner = (idx // n_loc).clamp(max=size - 1)
     pick = owner.reshape((1,) + owner.shape + (1,)).expand(
         (1,) + rows.shape)
@@ -503,7 +640,7 @@ def take_rows(w: Any, idx: torch.Tensor,
             if carry is not None:
                 out = _cut(out, 1, carry[1], h.mesh)
         else:
-            parts = tuple(table) if isinstance(table, (QT, QT4)) \
+            parts = tuple(table) if isinstance(table, (QT, QT4, QTG)) \
                 else (table,)
             n_loc = parts[0].shape[0]
             local = idx - block_index(h.mesh, rows_axes)[1] * n_loc
@@ -525,9 +662,7 @@ def _lookup(w: Any, idx: torch.Tensor) -> torch.Tensor:
     """The rows ``idx`` of a table held whole (a tensor or a QT / QT4 /
     QTG), dequantized."""
     if isinstance(w, QTG):
-        scale = w.scale if w.scale.shape[0] == 1 else w.scale[idx]
-        zero = w.zero if w.zero.shape[0] == 1 else w.zero[idx]
-        return _SteDeq.apply(w.master[idx], w.q[idx], scale, zero)
+        return _ste(w, idx)
     if isinstance(w, (QT, QT4)):
         rows = w.q[idx]
         if isinstance(w, QT4):
@@ -544,15 +679,20 @@ def _lookup(w: Any, idx: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------------ primitives
 
 def rms_norm(x: torch.Tensor, scale: Any, eps: float = 1e-6, *,
-             x_axes: Any = None) -> torch.Tensor:
+             x_axes: Any = None, split: Any = None) -> torch.Tensor:
     """RMS norm over the last dim, statistics in float32.  Under
     sharded-compute hints ``x_axes`` names the mesh axes ``x``'s features
     are split over (a layer carry's in the weight-stationary decode, an
     SSM's inner channels over the model axis): the squares are summed over
     them and ``scale`` is taken at this rank's block (cut here when it
-    rests whole, as it rests when split over the same axes)."""
+    rests whole, as it rests when split over the same axes).  ``split``
+    says that the norm runs on compute that differs rank by rank along
+    the model axis (a carry split along S there, a rank's heads): the
+    scale's gradient is then summed over it (:func:`split_use`)."""
     h = sharded_compute()
     axes = () if h is None else _split(h.mesh, x_axes)
+    if h is not None and split:
+        scale = split_use(scale)
     if axes:
         sl, spec = local_weight(scale)
         s_axes = _split(h.mesh, spec[-1])
@@ -561,8 +701,11 @@ def rms_norm(x: torch.Tensor, scale: Any, eps: float = 1e-6, *,
         if not s_axes:
             sl = _cut(sl, -1, axes, h.mesh)
         xf = x.float()
+        # each rank normalizes its own features by the total: its
+        # gradient is summed back over them
         ss = collectives.all_reduce_sum(
-            h.mesh, torch.sum(xf * xf, dim=-1, keepdim=True), axes)
+            h.mesh, torch.sum(xf * xf, dim=-1, keepdim=True), axes,
+            grad_axes=axes)
         return (xf * torch.rsqrt(ss / n + eps)).to(x.dtype) \
             * sl.to(x.dtype)
     scale = gather_weight(scale) if h is None else local_weight(scale)[0]
@@ -718,14 +861,19 @@ def _combine(s: torch.Tensor, v: torch.Tensor, mesh,
     second product, as unsplit; the partial outputs are accumulated and
     summed over the ranks in float32, then rounded to ``v``'s dtype once.
     A block that every row masks contributes exps of 0."""
-    m = collectives.all_reduce(mesh, s.amax(dim=-1, keepdim=True), axes,
-                               "max")
+    # the max carries no gradient (the softmax does not move with a shift)
+    m = collectives.all_reduce(
+        mesh, s.detach().amax(dim=-1, keepdim=True), axes, "max")
     e = torch.exp(s - m)
+    # every rank divides its own block by the total: summed back over them
     total = collectives.all_reduce_sum(mesh, e.sum(dim=-1, keepdim=True),
-                                       axes)
+                                       axes, grad_axes=axes)
     p = (e / total).to(v.dtype)
     o = torch.einsum("bnst,btnh->bsnh", p.float(), v.float())
-    return collectives.all_reduce_sum(mesh, o, axes).to(v.dtype)
+    # the output stays in the block's split compute (the row-parallel
+    # ``wo`` takes a rank's share of its gradient): summed back too
+    return collectives.all_reduce_sum(mesh, o, axes,
+                                      grad_axes=axes).to(v.dtype)
 
 
 def _kv_run(H: int, KV: int, h0: int, Hl: int) -> Optional[Tuple[int, int]]:
@@ -793,11 +941,18 @@ def attention_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # else the KV heads the block reads already (the projection's block)
         assert Hl % k.shape[2] == 0, (Hl, tuple(k.shape))
     else:
+        if seq is None and torch.is_grad_enabled() and q.requires_grad \
+                and m and mesh.shape[m] > 1:
+            raise NotImplementedError(
+                "sharded-compute training of attention whose heads do not "
+                "split over the model axis")
+        # every head to each rank of a T split, which attends over its own
+        # block of T: the shares of the gradient summed back
         if q.shape[2] != H:
-            q = collectives.all_gather(mesh, q, 2, m)
+            q = collectives.all_gather(mesh, q, 2, m, grad="reduce_scatter")
         if k.shape[2] != KV:
-            k = collectives.all_gather(mesh, k, 2, m)
-            v = collectives.all_gather(mesh, v, 2, m)
+            k = collectives.all_gather(mesh, k, 2, m, grad="reduce_scatter")
+            v = collectives.all_gather(mesh, v, 2, m, grad="reduce_scatter")
     if seq is not None and not split_t:
         # a whole T attended split (a T-split decision over a whole k)
         size, idx = block_index(mesh, seq)
@@ -832,7 +987,8 @@ def gather_heads(attn: torch.Tensor) -> torch.Tensor:
     h = get_hints()
     if h is None or not h.head_axes:
         return attn
-    return collectives.all_gather(h.mesh, attn, 2, h.head_axes)
+    # exact TP: every rank repeats what follows on the whole output
+    return collectives.all_gather(h.mesh, attn, 2, h.head_axes, grad="cut")
 
 
 def _per_slot(a: Any) -> bool:
@@ -942,13 +1098,18 @@ def carry_features(spec: Optional[tuple]) -> Any:
     return None if spec is None else spec[-1]
 
 
+def carry_seq(spec: Optional[tuple]) -> Any:
+    """The mesh axes a carry of layout ``spec`` splits its S positions over
+    (None when whole): a norm on it takes ``split=`` them."""
+    return None if spec is None else spec[1]
+
+
 def _cut(x: torch.Tensor, dim: int, entry, mesh) -> torch.Tensor:
-    """This rank's block of ``x`` (whole along ``dim``) over the spec entry
-    ``entry``; ``x`` itself when ``entry`` is None."""
-    size, idx = block_index(mesh, entry)
-    n = x.shape[dim] // size
-    assert n * size == x.shape[dim], (tuple(x.shape), dim, entry)
-    return x if size == 1 else x.narrow(dim, idx * n, n)
+    """This rank's block of ``x`` (whole along ``dim``, alike on every rank
+    of the entry's axes) over the spec entry ``entry``; ``x`` itself when
+    ``entry`` is None (:func:`~repro_torch.distributed.collectives.cut`:
+    its backward all-gathers)."""
+    return collectives.cut(mesh, x, dim, _entry(entry))
 
 
 def activation_block(x: torch.Tensor, spec: Optional[tuple]) -> torch.Tensor:
@@ -981,14 +1142,23 @@ def whole_activation(x: torch.Tensor, spec: Optional[tuple], *,
     """A layer carry of layout ``spec`` with its S positions whole
     (all-gathered over the model axis when sequence-parallel) and, with
     ``features``, its D whole (all-gathered over the feature axes); rows
-    stay this rank's."""
-    if spec is None:
+    stay this rank's.  It hands the carry to compute that differs rank by
+    rank (the block's column-parallel products, its experts): in training
+    the gather's backward reduce-scatters the ranks' shares of the
+    gradient, and a carry already whole over the model axis enters
+    through :func:`~repro_torch.distributed.collectives.enter_split`."""
+    h = sharded_compute()
+    if h is None:
         return x
-    mesh = sharded_compute().mesh
-    if spec[1] is not None:
-        x = collectives.all_gather(mesh, x, 1, spec[1])
-    if features and spec[-1] is not None:
-        x = collectives.all_gather(mesh, x, x.dim() - 1, spec[-1])
+    mesh = h.mesh
+    if spec is not None and spec[1] is not None:
+        x = collectives.all_gather(mesh, x, 1, spec[1],
+                                   grad="reduce_scatter")
+    elif h.model_axis:
+        x = enter_split(mesh, x, (h.model_axis,))
+    if features and spec is not None and spec[-1] is not None:
+        x = collectives.all_gather(mesh, x, x.dim() - 1, spec[-1],
+                                   grad="reduce_scatter")
     return x
 
 
@@ -1020,7 +1190,8 @@ def gather_cache_rows(t: torch.Tensor) -> torch.Tensor:
     h = sharded_compute()
     if h is None or not h.cache_batch_axes:
         return t
-    return collectives.all_gather(h.mesh, t, 0, h.cache_batch_axes)
+    return collectives.all_gather(h.mesh, t, 0, h.cache_batch_axes,
+                                  grad="cut")
 
 
 def cache_seq_block(S: int, max_len: int) -> Tuple[int, int, int, int]:
@@ -1121,6 +1292,52 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
 
 
 # ---------------------------------------------------------------------- loss helpers
+
+def sharded_xent(x: torch.Tensor, head: Any, labels: torch.Tensor,
+                 vocab: int, carry: Optional[tuple], *,
+                 tied: bool = False) -> torch.Tensor:
+    """:func:`softmax_xent` of ``x @ head`` under sharded-compute hints: the
+    mean over every token of the global batch, on every rank.
+
+    ``x`` is this rank's block of the final carry (layout ``carry``) and
+    ``labels`` its rows' labels, every position.  The carry's S is
+    gathered and ``head`` (``(D, V)``; a tied ``(V, D)`` table with
+    ``tied``) is column-parallel over the vocabulary, so a rank holds the
+    logits of its block of the vocabulary for its rows: the log-sum-exp
+    and the label's logit are summed over the model axis (the max taken
+    first, exact, with no gradient), every rank then holds each token's
+    loss alike, and the token sum and count are summed over the data axes
+    — the logits are never gathered.  In the backward the model-axis sums
+    are the identity (the loss is replicated there) and the data-axis sum
+    sums the ranks' gradients (rank losses are summed there)."""
+    h = sharded_compute()
+    mesh = h.mesh
+    xs = whole_activation(x, carry)
+    if tied:
+        logits, v_axes = _matmul(xs, _transposed(head))
+    else:
+        logits, v_axes = _matmul(xs, head)
+    lf = logits.float()
+    Vl = lf.shape[-1]
+    v0 = block_index(mesh, v_axes or None)[1] * Vl
+    m = collectives.all_reduce(mesh, lf.detach().amax(-1, keepdim=True),
+                               v_axes, "max")
+    se = collectives.all_reduce_sum(mesh, torch.exp(lf - m).sum(-1),
+                                    v_axes, grad_axes=())
+    lse = m[..., 0] + torch.log(se)
+    own = (labels >= v0) & (labels < v0 + Vl)
+    ll = torch.gather(lf, -1, (labels - v0).clamp(0, Vl - 1).long()[
+        ..., None])[..., 0]
+    ll = collectives.all_reduce_sum(
+        mesh, torch.where(own, ll, torch.zeros_like(ll)), v_axes,
+        grad_axes=())
+    mask = (labels >= 0) & (labels < vocab)
+    data = h.batch_axes
+    num = collectives.all_reduce_sum(mesh, torch.sum((lse - ll) * mask),
+                                     data, grad_axes=data)
+    cnt = collectives.all_reduce_sum(mesh, torch.sum(mask).float(), data)
+    return num / torch.clamp(cnt, min=1)
+
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab: int) -> torch.Tensor:

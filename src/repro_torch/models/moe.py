@@ -49,11 +49,10 @@ from repro_torch.distributed.ctx import (block_index, get_hints,
                                          sharded_compute)
 from . import dense
 from .layers import (Schema, Spec, activation_block, carry_features,
-                     carry_spec, checkpointed, constrain_carry, deq,
-                     init_params, last_position, local_weight, matmul,
-                     rms_norm, silu,
-                     softmax, softmax_xent, stacked_layers, swiglu, top_k,
-                     whole_activation)
+                     carry_seq, carry_spec, checkpointed, constrain_carry,
+                     deq, init_params, last_position, local_weight, matmul,
+                     rms_norm, silu, softmax, stacked_layers, summed_axes,
+                     swiglu, top_k, whole_activation)
 
 # ----------------------------------------------------------------- EP mesh context
 
@@ -186,8 +185,9 @@ def _ep_body(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
     out = _dispatch_compute(x.reshape(B * S, D), gates.reshape(B * S, -1),
                             idx.reshape(B * S, -1), w_gate, w_up, w_down,
                             e0, E_loc, C)
-    return collectives.all_reduce_sum(mesh, out.reshape(B, S, D),
-                                      (model_axis,) + tuple(psum_axes))
+    axes = (model_axis,) + tuple(psum_axes)
+    return collectives.all_reduce_sum(mesh, out.reshape(B, S, D), axes,
+                                      grad_axes=summed_axes(axes))
 
 
 def _whole_batch(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
@@ -195,7 +195,7 @@ def _whole_batch(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
     """:func:`moe_mlp` of a batch whose rows are split over ``h``'s batch
     axes: gather the rows (exact), run the whole batch, keep this rank's
     block of the output."""
-    full = collectives.all_gather(h.mesh, x, 0, h.batch_axes)
+    full = collectives.all_gather(h.mesh, x, 0, h.batch_axes, grad="cut")
     set_hints(dataclasses.replace(h, batch_axes=()))
     try:
         y, aux = moe_mlp(full, wts, mcfg, E)
@@ -271,9 +271,11 @@ def _routed(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
         mesh = get_hints().mesh
         n = block_index(mesh, stat_axes)[0]
         # equal blocks of rows: the whole batch's mean is the sum of theirs
-        # over n
+        # over n (the rank losses are summed over these axes: so is the
+        # gradient)
         me, counts = collectives.all_reduce_sum(
-            mesh, torch.stack([me / n, counts]), stat_axes)
+            mesh, torch.stack([me / n, counts]), stat_axes,
+            grad_axes=stat_axes)
     ce = counts / (B * S * K * n)
     aux = E * torch.sum(me * ce)
 
@@ -292,6 +294,9 @@ def _routed(x: torch.Tensor, wts: Dict[str, Any], mcfg: MoEConfig,
         msize = mesh.shape[ctx.model_axis]
         assert E % msize == 0, (E, msize)
         f_axes = tuple(ctx.data_axes) if not ctx.batch_sharded else ()
+        # every model rank routes alike, then runs its own experts: the
+        # gates' gradient is summed over the model axis as they enter
+        gates = collectives.enter_split(mesh, gates, (ctx.model_axis,))
         y = _ep_body(x, gates, idx,
                      *(_hidden_block(wts[k], f_dim, f_axes, mesh, x.dtype)
                        for k, f_dim in (("w_gate", 2), ("w_up", 2),
@@ -313,9 +318,7 @@ def _hidden_block(w: Any, f_dim: int, f_axes: Tuple[str, ...], mesh,
     wl, spec = local_weight(w)
     wd = deq(wl, dtype)
     if spec[f_dim] is None:
-        size, i = block_index(mesh, f_axes)
-        n = wd.shape[f_dim] // size
-        wd = wd.narrow(f_dim, i * n, n)
+        wd = collectives.cut(mesh, wd, f_dim, f_axes)
     return wd
 
 
@@ -384,7 +387,8 @@ def _block(cfg: ArchConfig, lp, x, *, positions, cache=None, pos=0,
                                carry=carry)
     x = x + attn_out
     h = whole_activation(rms_norm(x, lp["mlp_norm"],
-                                  x_axes=carry_features(carry)),
+                                  x_axes=carry_features(carry),
+                                  split=carry_seq(carry)),
                          carry, features=True)
     y, aux = moe_mlp(h, _moe_wts(lp), cfg.moe, _padded_experts(cfg), carry)
     return x + y, kv, aux
@@ -414,19 +418,20 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
         aux_sum = aux_sum + aux
         if collect_cache:
             caches.append(kv)
-    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry))
+    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry),
+                 split=carry_seq(carry))
     return x, (caches if collect_cache else None), aux_sum / cfg.n_layers
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
             q_block: int = 0, aux_coef: float = 0.01) -> torch.Tensor:
     """Next-token cross-entropy plus ``aux_coef`` times the load-balance
-    aux."""
+    aux (under sharded-compute hints both the global batch's:
+    :func:`dense.xent`)."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     x, _, aux = forward(cfg, params, inp, remat=remat, q_block=q_block)
-    return softmax_xent(dense.logits_fn(cfg, params, x), labels,
-                        cfg.vocab) + aux_coef * aux
+    return dense.xent(cfg, params, x, labels) + aux_coef * aux
 
 
 init_cache = dense.init_cache

@@ -12,14 +12,35 @@ On a mesh (``make_train_step(..., mesh=)``) each rank holds its blocks of
 the parameters and moments, placed as :func:`shard_train_state` places them
 (the ZeRO rules: ``optimizer.state_shardings`` over
 ``sharding.opt_state_rules``, params where their moments are), and this
-rank's rows of the batch (:func:`shard_batch`).  The step runs under
-exact-TP hints: each weight is all-gathered at use, and its gradient comes
-back to this rank's block summed over the data axes
-(``distributed.ctx._GatherAtUse``); whole leaves' gradients are summed
-over data after the backward.  Each rank's loss is its rows' mean, so the
-step scales it by 1 / |data| before the backward and reports the sum over
-data.  Every rank along the model axis computes the same rows at the
-reference's shapes (exact TP repeats the compute |model| times).
+rank's rows of the batch (:func:`shard_batch`).  The rank losses are
+summed over the data axes: the step scales each by 1 / |data| before the
+backward and reports their sum over data.  Two modes:
+
+* **exact TP** (the default): each weight is all-gathered whole at use,
+  and its gradient comes back to this rank's block summed over the data
+  axes (``distributed.ctx._GatherAtUse``).  Each rank's loss is its rows'
+  mean, and every rank along the model axis repeats its rows' compute at
+  the reference's shapes (|model| times the work);
+* **sharded compute** (``hints=``, the reference's train-cell hints of
+  ``launch/specs.py``; ``ep=`` the MoE family's EP context): each rank
+  computes its block — FSDP blocks gathered at use and reduce-scattered
+  back, column- and row-parallel products, a rank's heads and experts,
+  sequence-parallel carries — every collective carrying its backward
+  (``distributed/collectives.py``).  The loss is the mean over the global
+  batch on every rank.
+
+Either way a gradient is summed over exactly the axes its uses were split
+over: a gathered block's by the gather's backward; a parameter whole over
+``model`` that split compute used, as it enters that compute
+(``layers.split_use``); and a leaf whole over a data axis, after the
+backward, over that axis.
+
+``q8_gather`` and ``grad_compress`` work on a mesh too: each rank
+quantizes its blocks with per-channel ranges all-reduced (min / max, exact)
+over the axes that split them, so the symbols are one device's bit for
+bit, and gathers the symbols; the summed gradient's blocks are compressed
+as the single-device function compresses the whole tensor
+(``grad_compress.compress_decompress_blocks``).
 """
 from __future__ import annotations
 
@@ -57,23 +78,47 @@ def loss_for(cfg: ArchConfig) -> Callable:
 
 
 @torch.no_grad()
-def ste_quantize_params(params: Dict[str, Any], bits: int) -> Dict[str, Any]:
+def ste_quantize_params(params: Dict[str, Any], bits: int,
+                        mesh=None) -> Dict[str, Any]:
     """Per-channel (axis 0) mixed symmetric / asymmetric quantization of
     every large matrix to uint8 symbols (nibble-packed at 4 bits), as a
     :class:`QTG` the models read through ``deq``: the forward computes from
     the symbols alone, and the straight-through backward sends the whole
     gradient to the master ``w`` (quantization-aware training).  Which
-    tensors are quantized is ``core.spec.quantizable_shape``'s rule."""
+    tensors are quantized is ``core.spec.quantizable_shape``'s rule.
+
+    On a ``mesh`` a :class:`Sharded` leaf is quantized on its block: the
+    channel ranges are all-reduced (min / max, exact) over the axes that
+    split the reduced dims, so the symbols, scales and zeros are the
+    blocks of one device's, bit for bit; a per-channel scale and zero
+    rest split as the channels do.  Nibbles pack within a block: its last
+    dim must be even."""
+    from repro_torch.distributed.ctx import block_index
     qmax = float((1 << bits) - 1)
     out: Dict[str, Any] = {}
     for name, w in params.items():
-        if not quantizable_shape(name, tuple(w.shape)):
+        spec = w.spec if isinstance(w, Sharded) else None
+        local = _local(w)
+        shape = tuple(local.shape) if spec is None else tuple(
+            n * block_index(mesh, e)[0] for n, e in zip(local.shape, spec))
+        if not quantizable_shape(name, shape):
             out[name] = w
             continue
-        wf = w.to(f32)
+        wf = local.to(f32)
         red = tuple(range(1, wf.dim()))
         lo = torch.amin(wf, dim=red, keepdim=True)
         hi = torch.amax(wf, dim=red, keepdim=True)
+        if spec is not None:
+            from repro_torch.distributed import collectives
+            from repro_torch.distributed.sharding import entry_axes
+            axes = tuple(a for e in spec[1:] if e is not None
+                         for a in entry_axes(e))
+            lo = collectives.all_reduce(mesh, lo, axes, "min")
+            hi = collectives.all_reduce(mesh, hi, axes, "max")
+            if bits == 4 and local.shape[-1] % 2:
+                raise ValueError(
+                    f"q8_gather=4 packs nibble pairs within a block: "
+                    f"{name}'s block is {local.shape[-1]} wide")
         single = lo * hi >= 0.0
         absmax = torch.where(torch.abs(hi) >= torch.abs(lo), hi, lo)
         scale = torch.where(single,
@@ -84,7 +129,13 @@ def ste_quantize_params(params: Dict[str, Any], bits: int) -> Dict[str, Any]:
                         ).to(torch.uint8)
         if bits == 4:
             q = q[..., 0::2] | (q[..., 1::2] << 4)
-        out[name] = QTG(q, scale.to(f32), zero.to(f32), w)
+        scale, zero = scale.to(f32), zero.to(f32)
+        if spec is not None:
+            sspec = (spec[0],) + (None,) * (len(spec) - 1)
+            q = Sharded(q, spec)
+            if spec[0] is not None:
+                scale, zero = Sharded(scale, sspec), Sharded(zero, sspec)
+        out[name] = QTG(q, scale, zero, w)
     return out
 
 
@@ -108,18 +159,18 @@ def _grad_leaf(p: Any) -> Any:
 
 def make_grad_fn(cfg: ArchConfig, tc: TrainConfig,
                  loss_fn: Optional[Callable] = None,
-                 loss_scale: float = 1.0) -> Callable:
+                 loss_scale: float = 1.0, mesh=None) -> Callable:
     """Returns ``grads(params, batch) -> (loss, {name: gradient})``: the
     loss and gradients of one step before the update, microbatched as
     ``tc`` says (``loss_fn`` defaults to the family's).  The gradients are
     those of ``loss_scale`` times the loss; a :class:`Sharded` leaf's is
-    its block's."""
+    its block's (``mesh`` the rank's view)."""
     loss_fn = loss_fn or loss_for(cfg)
 
     def grads_of(params, mb):
         leaves = {n: _grad_leaf(p) for n, p in params.items()}
-        p = ste_quantize_params(leaves, tc.q8_gather) if tc.q8_gather \
-            else leaves
+        p = ste_quantize_params(leaves, tc.q8_gather, mesh) \
+            if tc.q8_gather else leaves
         loss = loss_fn(cfg, p, mb, remat=tc.remat, q_block=tc.q_block)
         names = list(leaves)
         gs = torch.autograd.grad(
@@ -165,15 +216,17 @@ def data_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
 
 
-def make_train_step(cfg: ArchConfig, tc: TrainConfig,
-                    mesh=None) -> Callable:
+def make_train_step(cfg: ArchConfig, tc: TrainConfig, mesh=None, *,
+                    hints=None, ep=None) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` holds tensors on the parameters' device, and
     ``metrics`` 0-d device tensors (``loss``, ``grad_norm``, ``lr``).  On
     a ``mesh`` (this rank's view) the trees hold this rank's blocks and
-    ``batch`` its rows (see the module docstring)."""
+    ``batch`` its rows: exact TP, or sharded compute under ``hints`` (and
+    the EP context ``ep``; see the module docstring)."""
     if mesh is not None:
-        return _mesh_train_step(cfg, tc, mesh)
+        return _mesh_train_step(cfg, tc, mesh, hints, ep)
+    assert hints is None and ep is None, "hints and ep need a mesh"
     microbatch_grads = make_grad_fn(cfg, tc)
 
     def step(params, opt_state, batch):
@@ -189,37 +242,20 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
     return step
 
 
-def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh) -> Callable:
-    from repro_torch.distributed import collectives
-    from repro_torch.distributed.ctx import (ShardingHints, get_hints,
-                                             set_hints)
-    if tc.q8_gather or tc.grad_compress:
-        raise NotImplementedError(
-            "q8_gather and grad_compress are single-device in the port; "
-            "the train step on a mesh takes neither")
-    axes = data_axes(mesh)
-    n_data = 1
-    for a in axes:
-        n_data *= mesh.shape[a]
-    microbatch_grads = make_grad_fn(cfg, tc, loss_scale=1.0 / n_data)
-    hints = ShardingHints(mesh=mesh, batch_axes=(), model_axis=None,
-                          seq_sp=False, exact_tp=True, grad_axes=axes)
+def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh, hints=None,
+                     ep=None) -> Callable:
+    grads_fn = make_mesh_grad_fn(cfg, tc, mesh, hints, ep)
 
     def step(params, opt_state, batch):
-        prev = get_hints()
-        set_hints(hints)
-        try:
-            loss, grads = microbatch_grads(params, batch)
-        finally:
-            set_hints(prev)
-        with torch.no_grad():
-            for n, p in params.items():
-                if not isinstance(p, Sharded):     # whole on every rank
-                    grads[n] = collectives.all_reduce_sum(mesh, grads[n],
-                                                          axes)
-            loss = collectives.all_reduce_sum(mesh, loss, axes) / n_data
+        loss, grads = grads_fn(params, batch)
         specs = {n: p.spec if isinstance(p, Sharded) else None
                  for n, p in params.items()}
+        if tc.grad_compress:
+            from repro_torch.distributed.grad_compress import \
+                compress_decompress_blocks
+            grads = compress_decompress_blocks(
+                grads, {n: _whole_shape(p, mesh) for n, p in params.items()},
+                specs, mesh)
         new, opt_state, metrics = opt.apply_updates(
             tc.opt, {n: _local(p) for n, p in params.items()}, grads,
             opt_state, mesh=mesh, specs=specs)
@@ -228,6 +264,81 @@ def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh) -> Callable:
         return params, opt_state, dict(metrics, loss=loss)
 
     return step
+
+
+def make_mesh_grad_fn(cfg: ArchConfig, tc: TrainConfig, mesh, hints=None,
+                      ep=None) -> Callable:
+    """``grads(params, batch) -> (loss, {name: gradient})`` of the train step
+    on ``mesh`` before its update (exact TP, or sharded compute under
+    ``hints`` and ``ep``): the global batch's loss and this rank's block of
+    each gradient of it, summed where the step sums it (see the module
+    docstring)."""
+    import dataclasses
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.ctx import (ShardingHints, get_hints,
+                                             set_hints)
+    from repro_torch.distributed.sharding import entry_axes
+    from repro_torch.models.moe import get_ep_context, set_ep_context
+    axes = data_axes(mesh)
+    n_data = 1
+    for a in axes:
+        n_data *= mesh.shape[a]
+    microbatch_grads = make_grad_fn(cfg, tc, loss_scale=1.0 / n_data,
+                                    mesh=mesh)
+    if hints is None:
+        assert ep is None, "an EP context computes sharded: pass its hints"
+        hints = ShardingHints(mesh=mesh, batch_axes=(), model_axis=None,
+                              seq_sp=False, exact_tp=True, grad_axes=axes)
+    else:
+        if hints.exact_tp or hints.feature_axes or hints.kv_seq_axes \
+                or tuple(hints.batch_axes) != axes:
+            raise NotImplementedError(
+                f"the sharded train step computes with the batch over "
+                f"{axes} and no feature or cache-sequence split: {hints}")
+        if cfg.moe is not None and ep is None:
+            raise NotImplementedError("sharded-compute training of the MoE "
+                                      "family needs its EP context")
+        hints = dataclasses.replace(hints, grad_axes=axes)
+    exact = hints.exact_tp
+
+    def summed_over(p) -> Tuple[str, ...]:
+        """The data axes a leaf's gradient still sums over after the
+        backward: every one under exact TP for a whole leaf (a gathered
+        block's came summed); under sharded compute those its spec does
+        not split (its FSDP gather summed the others)."""
+        if not isinstance(p, Sharded):
+            return axes
+        if exact:
+            return ()
+        split = {a for e in p.spec if e is not None for a in entry_axes(e)}
+        return tuple(a for a in axes if a not in split)
+
+    def grads_fn(params, batch):
+        prev, prev_ep = get_hints(), get_ep_context()
+        set_hints(hints)
+        set_ep_context(ep)
+        try:
+            loss, grads = microbatch_grads(params, batch)
+        finally:
+            set_hints(prev)
+            set_ep_context(prev_ep)
+        with torch.no_grad():
+            for n, p in params.items():
+                grads[n] = collectives.all_reduce_sum(mesh, grads[n],
+                                                      summed_over(p))
+            loss = collectives.all_reduce_sum(mesh, loss, axes) / n_data
+        return loss, grads
+
+    return grads_fn
+
+
+def _whole_shape(p: Any, mesh) -> Tuple[int, ...]:
+    """The whole tensor's shape of a leaf (a :class:`Sharded` block's)."""
+    if not isinstance(p, Sharded):
+        return tuple(p.shape)
+    from repro_torch.distributed.ctx import block_index
+    return tuple(n * block_index(mesh, e)[0]
+                 for n, e in zip(p.local.shape, p.spec))
 
 
 def train_shardings(cfg: ArchConfig, mesh) -> Dict[str, Any]:

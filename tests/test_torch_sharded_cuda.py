@@ -24,7 +24,13 @@ ranks share ``cuda:0`` over ``gloo``.  Against one device on the same card:
   routed choice (``capacity_factor`` = E / top_k): the
   sharded dispatch sizes the capacity by each data rank's rows and one
   device by the whole batch's, which drop alike only while nothing is
-  dropped.
+  dropped;
+* reduced qwen3-1.7b (2 layers) through the sharded train cell's step on
+  1 x 2 (``tests/torch_sharded_train_cases.py``), against one device's
+  on the card: every gradient of one batch within ``GRAD_RTOL`` relative
+  L2, then 2 steps' losses and grad norms within ``TRAIN_RTOL``, first
+  moments within ``GRAD_RTOL`` and updates within ``UPDATE_RTOL``
+  (``tests/test_torch_sharded_train.py``'s limits and reasons).
 """
 import dataclasses
 import math
@@ -38,10 +44,14 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.models import api, layers
 
 import torch_sharded_cases as cases
+import torch_sharded_train_cases as train_cases
 
 TIMEOUT_S = 300
 ATOL = 2e-2
 NEAR_TIE_STEPS = 2
+GRAD_RTOL = 0.05
+TRAIN_RTOL = 2e-3
+UPDATE_RTOL = 0.25
 
 pytestmark = pytest.mark.cuda
 
@@ -149,3 +159,39 @@ def test_sharded_cells_on_the_card(card, arch, model):
         for step, (g, w, keep) in enumerate(zip(r["logits"], single, rows)):
             np.testing.assert_allclose(g[keep], w[keep], atol=ATOL, rtol=0,
                                        err_msg=f"step {step}")
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def test_sharded_train_step_on_the_card(card):
+    cfg = _reduced("qwen3-1.7b")
+    params = api.build(cfg).init(cfg, 0, card)
+    rng = np.random.default_rng(2)
+    batches = [{"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (4, 17)).astype(np.int32)).to(card)}
+        for _ in range(2)]
+    loss, grads, _ = train_cases.single_grads(cfg, params, batches[0])
+    want = train_cases.single_steps(cfg, params, batches)
+    host = {n: p.cpu() for n, p in params.items()}
+    hb = [{k: v.cpu() for k, v in b.items()} for b in batches]
+    got = tmesh.spawn(train_cases.run_jobs, 1, 2, backend="gloo",
+                      device="cuda", timeout_s=TIMEOUT_S,
+                      args=([("grads", dict(cfg=cfg, params=host,
+                                            batch=hb[0])),
+                             ("steps", dict(cfg=cfg, params=host,
+                                            batches=hb))],))
+    init = {n: p.float().numpy() for n, p in host.items()}
+    for g, s in got:
+        np.testing.assert_allclose(g["loss"], loss, rtol=TRAIN_RTOL)
+        for n in grads:
+            assert _rel(g["grads"][n], grads[n]) <= GRAD_RTOL, n
+        np.testing.assert_allclose(s["losses"], want["losses"],
+                                   rtol=TRAIN_RTOL)
+        np.testing.assert_allclose(s["grad_norms"], want["grad_norms"],
+                                   rtol=TRAIN_RTOL)
+        for n, p in want["params"].items():
+            assert _rel(s["params"][n] - init[n], p - init[n]) \
+                <= UPDATE_RTOL, n
+            assert _rel(s["moments"][n], want["moments"][n]) <= GRAD_RTOL, n
