@@ -275,6 +275,15 @@ Phases, each printing one JSON line:
    and cache bytes a rank beside one device's.  No kernel runs on this
    path (launches must read 0).
 
+13. static — the port's static-analysis gate, ``python -m
+   repro_torch.analysis --json`` (twin, dtype, host-boundary,
+   kernel-wrapper, lock and catalog rules against
+   ``src/repro_torch/analysis/baseline.json``), run by a child process on
+   the host with no card visible, started beside the encode children; read
+   last.  One ``static`` line: each rule's finding count, the baselined
+   count, stale baseline entries, the analysis's own seconds and the
+   child's wall time (start to its output's last write).  Any new finding fails the script.  No kernel runs.
+
 Then the ``kernels`` summary line (measured fields and ``bound_ms`` only;
 ``launches_continuous``: each kernel's launches on the continuous phase's
 compressed-resident run; ``launches_paged``: on the paged phase, 0;
@@ -2231,6 +2240,48 @@ def containers(proc, dirpath, families, keep=None):
             os.remove(path)
     os.remove(log)
     return out
+
+
+def start_static():
+    """Start ``python -m repro_torch.analysis --json`` as a child on the
+    host (no card visible, one thread); returns (process, directory, its
+    start on the wall clock).  Its output goes to ``DIR/out.json``, its
+    errors to ``DIR/err.log``."""
+    dirpath = os.path.join(ROOT, "build", "chip_smoke", "static")
+    os.makedirs(dirpath, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with open(os.path.join(dirpath, "out.json"), "w") as out, \
+            open(os.path.join(dirpath, "err.log"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.analysis", "--json"],
+            stdout=out, stderr=err, cwd=ROOT, env=env)
+    return proc, dirpath, time.time()
+
+
+def static_phase(child):
+    """Wait for :func:`start_static`'s child and print the ``static``
+    line (``wall_s``: from its start to its last write); a new finding
+    (the gate exits 1) or a failed run raises."""
+    proc, dirpath, t0 = child
+    rc = proc.wait()
+    out = os.path.join(dirpath, "out.json")
+    wall = os.path.getmtime(out) - t0
+    with open(out) as f:
+        text = f.read()
+    with open(os.path.join(dirpath, "err.log")) as f:
+        err = f.read()
+    if rc not in (0, 1) or not text.strip():
+        raise AssertionError(f"static analysis exited {rc}: {err[-2000:]}")
+    got = json.loads(text)
+    new = got["findings"]
+    emit("static", checkers=got["checkers"], baselined=got["accepted"],
+         new=len(new), stale=len(got["stale_baseline"]),
+         seconds=got["seconds"], wall_s=wall)
+    if rc != 0 or new:
+        raise AssertionError("static analysis: new findings: " + "; ".join(
+            f"{f['file']}:{f['line']} {f['rule']} {f['message']}"
+            for f in new))
 
 
 @contextlib.contextmanager
@@ -4471,12 +4522,13 @@ def main():
     print(smi_line, flush=True)
 
     children = [start_containers("serve"), start_containers("moe")]
+    static = start_static()
     pools = []
     try:
         return run_phases(children, pools, kind, count, smi_line, clock_mhz,
-                          dev)
+                          dev, static)
     finally:
-        for child, *_ in children:
+        for child, *_ in children + [static]:
             if child.poll() is None:
                 child.kill()
                 child.wait()
@@ -4484,9 +4536,10 @@ def main():
             stop_dryruns(pool)
 
 
-def run_phases(children, pools, kind, count, smi_line, clock_mhz, dev):
-    """Every phase in order; the container children and the production
-    dry-runs run meanwhile on the host.  The serve and moe children start
+def run_phases(children, pools, kind, count, smi_line, clock_mhz, dev,
+               static):
+    """Every phase in order; the container children, the static analysis
+    and the production dry-runs run meanwhile on the host.  The serve and moe children start
     first (the reference checks run while the serve container is
     encoded); the families' child and the dry-runs start once the serve
     phase has been measured, so that one encoder, not more, shares the
@@ -4574,6 +4627,7 @@ def run_phases(children, pools, kind, count, smi_line, clock_mhz, dev):
         row["launches_train"] = train_launches.get(row["name"], 0)
         row["launches_production"] = production_launches.get(row["name"], 0)
         row["launches_sharded"] = sharded_launches.get(row["name"], 0)
+    static_phase(static)
     emit("done", serve_phase_s=serve_s, continuous_phase_s=continuous_s,
          paged_phase_s=paged_s, fleet_phase_s=fleet_s, mesh_phase_s=mesh_s,
          resident_phase_s=resident_s,

@@ -5,7 +5,8 @@ the span and metric names each serving mode is REQUIRED to emit.
 pair against the JAX package's catalog and fails if any registered point
 produced zero events; the port serves the same modes under the same names,
 so it keeps a copy of the catalog, entry for entry (held equal to the JAX
-package's by ``tests/test_torch_obs_points.py``).
+package's by ``tests/test_torch_obs_points.py``), plus the informational
+points of ``PORT_ONLY_POINTS``, which only the port emits.
 
 ``INFORMATIONAL_POINTS`` lists best-effort instrumentation: emitted by some
 code path but required by no serving mode.
@@ -176,6 +177,7 @@ INFORMATIONAL_POINTS: Dict[str, List[str]] = {
         "resident.fused_fallback",  # zero when every tensor fuses
         "resident.prefetch_hit",    # hit/wait split of consume_wait
         "resident.prefetch_wait",
+        "resident.consume_wait_s",  # port only: consume_wait's seconds summed
         "serve.prefill_s",          # lockstep wall-clock breakdown
         "serve.decode_s",
         "serve.ttft_s",
@@ -183,4 +185,11 @@ INFORMATIONAL_POINTS: Dict[str, List[str]] = {
         "slots.compactions",        # only when fragmentation triggers
         "slots.releases",
     ],
+}
+
+# Points the port emits and the JAX package does not, each one also listed
+# above; the rest of the catalog is the JAX package's, entry for entry.
+PORT_ONLY_POINTS: Dict[str, List[str]] = {
+    "spans": [],
+    "metrics": ["resident.consume_wait_s"],
 }

@@ -347,7 +347,8 @@ class CompressedResidentWeights:
         if self._exec is not None:
             self._exec.shutdown(wait=True)
             self._exec = None
-        self._pending.clear()
+        with self._lock:
+            self._pending.clear()
 
     # ---------------------------------------------------------------- accounting
     def resident_bytes(self) -> Dict[str, int]:

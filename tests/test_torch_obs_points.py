@@ -1,8 +1,9 @@
 """The port's observability contract against the JAX package's.
 
 * ``repro_torch.obs.points`` holds the JAX package's catalog entry for
-  entry, and ``repro_torch.obs.analysis`` gives the JAX package's overlap
-  report on one synthetic trace.
+  entry, plus the informational points only the port emits
+  (``PORT_ONLY_POINTS``), and ``repro_torch.obs.analysis`` gives the JAX
+  package's overlap report on one synthetic trace.
 * The port's launcher, serving each ported mode on the reduced config,
   writes a trace and a metrics snapshot that the repository's
   ``scripts/check_trace.py --expect MODE`` accepts (schema and every
@@ -29,7 +30,17 @@ SPEC = "*:bits=8,codec=huffman; defaults:segment_symbols=1024"
 
 def test_catalog_equals_reference():
     assert tpoints.EXPECTED_POINTS == jpoints.EXPECTED_POINTS
-    assert tpoints.INFORMATIONAL_POINTS == jpoints.INFORMATIONAL_POINTS
+    port_only = tpoints.PORT_ONLY_POINTS
+    assert {k: [n for n in v if n not in port_only.get(k, [])]
+            for k, v in tpoints.INFORMATIONAL_POINTS.items()} \
+        == jpoints.INFORMATIONAL_POINTS
+    reference = {n for table in (jpoints.INFORMATIONAL_POINTS,
+                                 *jpoints.EXPECTED_POINTS.values())
+                 for names in table.values() for n in names}
+    for kind, names in port_only.items():
+        for name in names:
+            assert name in tpoints.INFORMATIONAL_POINTS[kind], name
+            assert name not in reference, name
     assert list(tpoints.EXPECTED_POINTS) == list(jpoints.EXPECTED_POINTS)
     assert tobs.__all__ == ["analysis", "metrics", "points", "trace"]
     assert tobs.points is tpoints and tobs.analysis is tanalysis
