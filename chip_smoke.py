@@ -272,7 +272,12 @@ Phases, each printing one JSON line:
    up to a near-tie (``sharded_compare``; a routed config is fed one
    device's router choices too, ``replayed_routes``).  One
    ``sharded`` line a case: its cut, wall time, collective counts, weight
-   and cache bytes a rank beside one device's.  No kernel runs on this
+   and cache bytes a rank beside one device's.  Then ``SHARDED_TRAIN_CASES``
+   (qwen3-1.7b, qwen2-moe-a2.7b, seamless-m4t-medium with its source
+   frames): 2 steps of the train cells' step under their sharded-compute
+   hints (``specs.train_contexts``), held to one device's steps on the
+   card within ``SHARDED_TRAIN_TOL``, ``q8_gather``'s symbols bitwise;
+   one ``sharded`` ``run: train`` line a case.  No kernel runs on this
    path (launches must read 0).
 
 13. static — the port's static-analysis gate, ``python -m
@@ -309,6 +314,9 @@ import time
 START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEPTH = 2
+# the encdec's encoder and decoder layers where it runs cut (its phase, the
+# sharded cases; see SRC_FRAMES)
+ENCDEC_DEPTH = 2
 SPEC = ("*norm*:fp32; layers/wo:bits=8,codec=huffman; "
         "layers/*:bits=4,codec=rans; *:bits=8,codec=huffman")
 SERVE_ARCH = "qwen3-1.7b"
@@ -449,12 +457,16 @@ SHARDED_MIN_COMPARED = BATCH * (GEN + 1)
 # q8_gather=8 on 2 x 2 too, where its FSDP gathers (over data) exist;
 # qwen2-moe-a2.7b cut to 1 layer (every routed choice admitted, as in
 # sharded_config; the ranks are fed one device's router choices, as the
-# serving cases are)
+# serving cases are); seamless-m4t-medium cut to ENCDEC_DEPTH encoder and
+# decoder layers on 2 x 2 with q8_gather=8, its batches carrying
+# PROD_TRAIN's batch and sequence of source frames (sharded_train_batches)
 SHARDED_TRAIN_CASES = (("qwen3-1.7b", (1, 2), 0),
                        ("qwen3-1.7b", (1, 2), 8),
                        ("qwen3-1.7b", (2, 2), 8),
-                       ("qwen2-moe-a2.7b", (1, 2), 0))
-SHARDED_TRAIN_DEPTH = {"qwen3-1.7b": DEPTH, "qwen2-moe-a2.7b": 1}
+                       ("qwen2-moe-a2.7b", (1, 2), 0),
+                       ("seamless-m4t-medium", (2, 2), 8))
+SHARDED_TRAIN_DEPTH = {"qwen3-1.7b": DEPTH, "qwen2-moe-a2.7b": 1,
+                       "seamless-m4t-medium": ENCDEC_DEPTH}
 # the worlds of the sharded phase, by mesh shape, in waves: the worlds of a
 # wave run together, sharing the card and the host (a rank's process
 # takes seconds to start).  1 x 2 alone: jamba's period holds 25.7 GB a
@@ -544,7 +556,6 @@ REDUCED_SEGMENTS = "; defaults:segment_symbols=4096"
 # hybrid does not fit the card at full width (one period of
 # jamba-1.5-large holds ~45 G weights) and runs reduced, in the reference
 # phase only
-ENCDEC_DEPTH = 2
 SRC_FRAMES = 32
 # a prompt of three SSD chunks of 256, the last one partial
 LONG_PROMPT = 600
@@ -4269,20 +4280,41 @@ def _sharded_case(arch, shape, mode, want, got, wall, launches):
 
 
 def sharded_train_config(arch):
-    """``arch`` at full width cut to ``SHARDED_TRAIN_DEPTH`` layers, a
-    routed config admitting every choice (:func:`sharded_config`)."""
+    """``arch`` at full width cut to ``SHARDED_TRAIN_DEPTH`` layers (the
+    encdec's encoder and decoder each), a routed config admitting every
+    choice (:func:`sharded_config`)."""
     cfg = sharded_config(arch)
-    return dataclasses.replace(cfg, n_layers=SHARDED_TRAIN_DEPTH[arch])
+    depth = SHARDED_TRAIN_DEPTH[arch]
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=depth, enc_layers=depth)
+    return dataclasses.replace(cfg, n_layers=depth)
 
 
-def sharded_train_tokens(cfg):
+def sharded_train_cut(arch):
+    """What the sharded train case of ``arch`` cut from the published
+    config."""
+    cfg = sharded_train_config(arch)
+    cut = {"n_layers": cfg.n_layers}
+    if cfg.family == "encdec":
+        cut["enc_layers"] = cfg.enc_layers
+    return cut
+
+
+def sharded_train_batches(cfg):
     """``PROD_TRAIN["steps"]`` batches of ``PROD_TRAIN``'s shape from
-    ``SHARDED_SEED``."""
+    ``SHARDED_SEED`` (numpy): each step's tokens and, for the encdec, its
+    float32 source frames (normal, drawn from the same generator after
+    every step's tokens; the step takes them in bf16)."""
     import numpy as np
     rng = np.random.default_rng(SHARDED_SEED)
-    return [rng.integers(0, cfg.vocab, (PROD_TRAIN["batch"],
-                                        PROD_TRAIN["seq_len"] + 1))
-            for _ in range(PROD_TRAIN["steps"])]
+    B, S = PROD_TRAIN["batch"], PROD_TRAIN["seq_len"]
+    batches = [{"tokens": rng.integers(0, cfg.vocab, (B, S + 1))}
+               for _ in range(PROD_TRAIN["steps"])]
+    if cfg.family == "encdec":
+        for b in batches:
+            b["src_embeds"] = rng.normal(0, 1, (B, S, cfg.d_model)).astype(
+                np.float32)
+    return batches
 
 
 def sharded_train_tc(q8):
@@ -4327,8 +4359,9 @@ def sharded_train_rank(mesh, arch, q8):
     dev = mesh.device
     cfg = sharded_train_config(arch)
     tc = sharded_train_tc(q8)
-    batches = [{"tokens": torch.as_tensor(t, device=dev)}
-               for t in sharded_train_tokens(cfg)]
+    batches = [{k: torch.as_tensor(v, device=dev).to(torch.bfloat16)
+                if k == "src_embeds" else torch.as_tensor(v, device=dev)
+                for k, v in b.items()} for b in sharded_train_batches(cfg)]
     whole = dict(sharded_weights(cfg, dev))
     out = dict(coord=mesh.key(), arch=arch, q8_gather=q8)
     single, routes = None, []
@@ -4473,7 +4506,7 @@ def _sharded_train_case(arch, shape, q8, got, wall, launches):
                     f"{sorted(moved - want)}, not the quantized payload "
                     f"{sorted(want)}")
     emit("sharded", run="train", arch=arch, mesh=list(shape),
-         q8_gather=q8, cut={"n_layers": SHARDED_TRAIN_DEPTH[arch]},
+         q8_gather=q8, cut=sharded_train_cut(arch),
          batch=PROD_TRAIN["batch"], seq_len=PROD_TRAIN["seq_len"],
          steps=PROD_TRAIN["steps"], ranks=len(got), backend=MESH_BACKEND,
          shared_card="every rank on cuda:0 over gloo (through host "

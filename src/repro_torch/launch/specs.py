@@ -255,7 +255,7 @@ def _install_contexts(cfg: ArchConfig, mesh, *, batch_sharded: bool,
 
 
 # the families whose train cells compute sharded (the others keep exact TP)
-SHARDED_TRAIN_FAMILIES = ("dense", "moe")
+SHARDED_TRAIN_FAMILIES = train_loop.SHARDED_TRAIN_FAMILIES
 
 
 def train_contexts(cfg: ArchConfig, mesh

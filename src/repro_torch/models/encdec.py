@@ -8,8 +8,9 @@ source positions; each decoder layer attends causally over the target,
 then across to the encoder output, whose K / V are computed once at
 prefill and carried unchanged through decode.  Under sharded-compute
 hints the attention blocks and MLPs compute as the dense family's (heads
-over the model axis, the carries split along S); the cross K / V are a
-rank's KV heads.
+over the model axis, the carries split along S, a norm's scale entering
+that split compute through ``split=``); the cross K / V are a rank's KV
+heads, and the train loss is the global batch's (:func:`dense.xent`).
 """
 from __future__ import annotations
 
@@ -20,11 +21,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from . import dense
 from .layers import (Schema, Spec, activation_block, attention_blocks,
-                     cache_rows, cache_seq_block, carry_features, carry_spec,
-                     checkpointed, constrain_carry, gather_cache_rows,
-                     gqa_attention, init_params, last_position, layer_slice,
-                     matmul, rms_norm, rope, softmax_xent, stacked_layers,
-                     swiglu, take_rows, update_kv_cache, whole_activation)
+                     cache_rows, cache_seq_block, carry_features, carry_seq,
+                     carry_spec, checkpointed, constrain_carry,
+                     gather_cache_rows, gqa_attention, init_params,
+                     last_position, layer_slice, matmul, rms_norm, rope,
+                     stacked_layers, swiglu, take_rows, update_kv_cache,
+                     whole_activation)
 
 f32 = torch.float32
 
@@ -102,7 +104,8 @@ def _self_attn(cfg: ArchConfig, lp, x: torch.Tensor, *, positions,
     B, S = x.shape[0], positions.shape[-1]
     hd = cfg.hd
     fx = carry_features(carry)
-    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx), carry)
+    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx,
+                                  split=carry_seq(carry)), carry)
     q = matmul(h, lp["wq"], x_axes=fx).unflatten(-1, (-1, hd))
     k = matmul(h, lp["wk"], x_axes=fx).unflatten(-1, (-1, hd))
     v = matmul(h, lp["wv"], x_axes=fx).unflatten(-1, (-1, hd))
@@ -136,7 +139,8 @@ def _cross_attn(cfg: ArchConfig, lp, x: torch.Tensor, enc_kv,
     cache) its block of the cache as placed (rows, T)."""
     hd = cfg.hd
     fx = carry_features(carry)
-    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx), carry)
+    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx,
+                                  split=carry_seq(carry)), carry)
     B, S = h.shape[:2]
     q = matmul(h, lp["wq"], x_axes=fx).unflatten(-1, (-1, hd))
     if cached:
@@ -161,7 +165,8 @@ def _cross_kv(cfg: ArchConfig, lp, enc_out: torch.Tensor):
 
 def _mlp(lp, x: torch.Tensor, carry: Optional[tuple] = None) -> torch.Tensor:
     fx = carry_features(carry)
-    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx), carry)
+    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx,
+                                  split=carry_seq(carry)), carry)
     return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], x_axes=fx,
                       carry=carry)
 
@@ -191,7 +196,8 @@ def encode(cfg: ArchConfig, params, src_embeds: torch.Tensor, *,
             stacked_layers(params, "enc/mlp", cfg.enc_layers)):
         x = constrain_carry(body(lp_sa, lp_ml, x), S, D)
     fx = carry_features(carry)
-    return whole_activation(rms_norm(x, params["enc_final_norm"], x_axes=fx),
+    return whole_activation(rms_norm(x, params["enc_final_norm"], x_axes=fx,
+                                     split=carry_seq(carry)),
                             carry, features=True)
 
 
@@ -220,7 +226,8 @@ def decode_train(cfg: ArchConfig, params, tokens: torch.Tensor,
                    stacked_layers(params, "dec/cross", L),
                    stacked_layers(params, "dec/mlp", L)):
         x = constrain_carry(body(*lps, x), S, D)
-    return rms_norm(x, params["dec_final_norm"], x_axes=carry_features(carry))
+    return rms_norm(x, params["dec_final_norm"], x_axes=carry_features(carry),
+                    split=carry_seq(carry))
 
 
 def logits_fn(cfg: ArchConfig, params, x: torch.Tensor, *,
@@ -233,13 +240,16 @@ def logits_fn(cfg: ArchConfig, params, x: torch.Tensor, *,
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
             q_block: int = 0) -> torch.Tensor:
     """batch: {"src_embeds": (B, S_src, D), "tokens": (B, S_tgt)}; the
-    next-token cross-entropy of the target."""
+    next-token cross-entropy of the target.  Under sharded-compute hints
+    ``batch`` is this rank's rows and the loss the mean over every token of
+    the global batch (:func:`dense.xent`: the logits are never
+    gathered)."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     enc_out = encode(cfg, params, batch["src_embeds"], remat=remat,
                      q_block=q_block)
     x = decode_train(cfg, params, inp, enc_out, remat=remat, q_block=q_block)
-    return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
+    return dense.xent(cfg, params, x, labels)
 
 
 def cache_specs(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:

@@ -73,6 +73,13 @@ class TrainConfig:
     #                                through gradients to the master
 
 
+# the families whose loss and gradients compute sharded under the train
+# cell's hints (``launch/specs.py`` gives the others exact TP): the ssm's
+# forward differs from one device's under those hints, and the hybrid
+# holds its blocks, so their gradients would come out wrong
+SHARDED_TRAIN_FAMILIES = ("dense", "moe", "encdec")
+
+
 def loss_for(cfg: ArchConfig) -> Callable:
     return api.build(cfg).loss_fn
 
@@ -295,6 +302,11 @@ def make_mesh_grad_fn(cfg: ArchConfig, tc: TrainConfig, mesh, hints=None,
             raise NotImplementedError(
                 f"the sharded train step computes with the batch over "
                 f"{axes} and no feature or cache-sequence split: {hints}")
+        if cfg.family not in SHARDED_TRAIN_FAMILIES:
+            raise NotImplementedError(
+                f"sharded-compute training of the {cfg.family} family: "
+                f"only {SHARDED_TRAIN_FAMILIES} compute sharded, the others "
+                f"train under exact TP (hints=None)")
         if cfg.moe is not None and ep is None:
             raise NotImplementedError("sharded-compute training of the MoE "
                                       "family needs its EP context")

@@ -5,9 +5,10 @@ port, so the card's tests (``test_torch_sharded_cuda.py``) share them
 with the CPU ones (``test_torch_sharded_train.py``).
 
 Every job builds the train cell's step as ``launch/specs.py`` builds it
-for the dense and MoE families (the reference's train-cell hints, the
-MoE family's EP context), from the whole weights, which each rank cuts
-into its ZeRO blocks.
+for the dense, MoE and encoder-decoder families (the reference's
+train-cell hints, the MoE family's EP context), from the whole weights,
+which each rank cuts into its ZeRO blocks, and this rank's rows of each
+batch leaf (the tokens and, for the encoder-decoder, ``src_embeds``).
 """
 import contextlib
 import dataclasses
@@ -103,13 +104,17 @@ def planted(fault):
     * ``whole_norm_summed``: a norm's scale on a whole carry summed over
       the model axis (``rms_norm(split=)`` always on);
     * ``rs_keeps_own``: an all-gather's reduce-scatter backward that keeps
-      its own partial (no sum over the ranks)."""
+      its own partial (no sum over the ranks);
+    * ``encdec_norm_unsplit``: the encoder-decoder's norms on carries split
+      along S without ``split=`` (each scale's gradient left this rank's
+      share, not summed over the model axis)."""
     from repro_torch.distributed import collectives
-    from repro_torch.models import dense, layers, moe
+    from repro_torch.models import dense, encdec, layers, moe
     saved = [(dense, "whole_activation", dense.whole_activation),
              (moe, "whole_activation", moe.whole_activation),
              (dense, "rms_norm", dense.rms_norm),
              (moe, "rms_norm", moe.rms_norm),
+             (encdec, "rms_norm", encdec.rms_norm),
              (collectives._AllGather, "backward",
               collectives._AllGather.__dict__["backward"])]
     if fault == "column_input_unsummed":
@@ -129,6 +134,10 @@ def planted(fault):
             ctx.grad = "cut"
             return real(ctx, g)
         collectives._AllGather.backward = staticmethod(backward)
+    elif fault == "encdec_norm_unsplit":
+        def unsplit(x, scale, eps=1e-6, *, x_axes=None, split=None):
+            return layers.rms_norm(x, scale, eps, x_axes=x_axes)
+        encdec.rms_norm = unsplit
     elif fault is not None:
         raise ValueError(fault)
     try:
