@@ -274,11 +274,12 @@ Phases, each printing one JSON line:
    ``sharded`` line a case: its cut, wall time, collective counts, weight
    and cache bytes a rank beside one device's.  Then ``SHARDED_TRAIN_CASES``
    (qwen3-1.7b, qwen2-moe-a2.7b, seamless-m4t-medium with its source
-   frames): 2 steps of the train cells' step under their sharded-compute
-   hints (``specs.train_contexts``), held to one device's steps on the
-   card within ``SHARDED_TRAIN_TOL``, ``q8_gather``'s symbols bitwise;
-   one ``sharded`` ``run: train`` line a case.  No kernel runs on this
-   path (launches must read 0).
+   frames, mamba2-370m with its ``in_zx`` re-blocked for its heads): 2
+   steps of the train cells' step under their sharded-compute hints
+   (``specs.train_contexts``), held to one device's steps on the card
+   within ``SHARDED_TRAIN_TOL``, ``q8_gather``'s symbols bitwise; one
+   ``sharded`` ``run: train`` line a case.  No kernel runs on this path
+   (launches must read 0).
 
 13. static — the port's static-analysis gate, ``python -m
    repro_torch.analysis --json`` (twin, dtype, host-boundary,
@@ -459,14 +460,20 @@ SHARDED_MIN_COMPARED = BATCH * (GEN + 1)
 # sharded_config; the ranks are fed one device's router choices, as the
 # serving cases are); seamless-m4t-medium cut to ENCDEC_DEPTH encoder and
 # decoder layers on 2 x 2 with q8_gather=8, its batches carrying
-# PROD_TRAIN's batch and sequence of source frames (sharded_train_batches)
+# PROD_TRAIN's batch and sequence of source frames (sharded_train_batches);
+# mamba2-370m cut to DEPTH layers on 2 x 2 with q8_gather=8, its 32 SSD
+# heads over model, in_zx re-blocked for them (train_loop.zx_split: one
+# device's in_zx, its moment and its symbols are re-blocked the same way
+# before rank 0's blocks are held to them)
 SHARDED_TRAIN_CASES = (("qwen3-1.7b", (1, 2), 0),
                        ("qwen3-1.7b", (1, 2), 8),
                        ("qwen3-1.7b", (2, 2), 8),
                        ("qwen2-moe-a2.7b", (1, 2), 0),
-                       ("seamless-m4t-medium", (2, 2), 8))
+                       ("seamless-m4t-medium", (2, 2), 8),
+                       ("mamba2-370m", (2, 2), 8))
 SHARDED_TRAIN_DEPTH = {"qwen3-1.7b": DEPTH, "qwen2-moe-a2.7b": 1,
-                       "seamless-m4t-medium": ENCDEC_DEPTH}
+                       "seamless-m4t-medium": ENCDEC_DEPTH,
+                       "mamba2-370m": DEPTH}
 # the worlds of the sharded phase, by mesh shape, in waves: the worlds of a
 # wave run together, sharing the card and the host (a rank's process
 # takes seconds to start).  1 x 2 alone: jamba's period holds 25.7 GB a
@@ -4341,7 +4348,9 @@ def sharded_train_rank(mesh, arch, q8):
     then runs the train cell's step (``specs.train_contexts``)
     ``PROD_TRAIN["steps"]`` times, timed, its collectives recorded.  Rank
     0 holds each leaf's update and first moment on its own blocks to one
-    device's (no block crosses the wire for the comparison).  Every rank
+    device's (no block crosses the wire for the comparison; one device's
+    tensor is cut as the train state is, an SSM's ``in_zx`` re-blocked
+    first, ``train_loop.zx_split``).  Every rank
     reports its losses and grad norms, its weight, moment and peak bytes,
     its collectives and the FSDP all-gathers it issued."""
     import numpy as np
@@ -4351,6 +4360,7 @@ def sharded_train_rank(mesh, arch, q8):
     from repro_torch.kernels import build
     from repro_torch.launch import specs
     from repro_torch.models.layers import QTG
+    from repro_torch.models.mamba2 import zx_blocks
     from repro_torch.serving import engine
     from repro_torch.training import optimizer as opt, train_loop
     t_start = time.perf_counter()
@@ -4389,9 +4399,13 @@ def sharded_train_rank(mesh, arch, q8):
     out["weight_bytes"] = engine.local_bytes(placed)
     out["moment_bytes"] = opt.moment_bytes(state)
 
-    def block(t, p):
-        return local_block(t, p.spec, mesh) if isinstance(p, Sharded) \
-            else t
+    def block(t, p, name=""):
+        """This rank's block of one device's ``t`` as ``p`` rests (the
+        leaf ``name``'s columns re-blocked as the train state's)."""
+        if not isinstance(p, Sharded):
+            return t
+        t = zx_blocks(t, train_loop.zx_split(cfg, name, p.spec, mesh))
+        return local_block(t, p.spec, mesh)
 
     if q8:
         want = train_loop.ste_quantize_params(whole, q8)
@@ -4402,9 +4416,10 @@ def sharded_train_rank(mesh, arch, q8):
             if not isinstance(w, QTG):
                 continue
             leaves += 1
-            for g, wt in zip(w[:3], want[n][:3]):
+            for g, wt, name in zip(w[:3], want[n][:3], (n, "", "")):
                 same = same and torch.equal(
-                    g.local if isinstance(g, Sharded) else g, block(wt, g))
+                    g.local if isinstance(g, Sharded) else g,
+                    block(wt, g, name))
             # what a step may gather of it over data: a layer's symbols
             # (of a stack) and a per-row scale / zero split over data
             if n_data > 1 and isinstance(w.q, Sharded) \
@@ -4453,9 +4468,10 @@ def sharded_train_rank(mesh, arch, q8):
         upd, mom = {}, {}
         for n, p in placed.items():
             mine = p.local if isinstance(p, Sharded) else p
-            upd[n] = _rel_parts(mine - block(whole[n], p),
-                                block(single["params"][n] - whole[n], p))
-            mom[n] = _rel_parts(state.m[n], block(single["moments"][n], p))
+            upd[n] = _rel_parts(mine - block(whole[n], p, n),
+                                block(single["params"][n] - whole[n], p, n))
+            mom[n] = _rel_parts(state.m[n],
+                                block(single["moments"][n], p, n))
         out["update_rel_l2"] = {n: (a / max(b, 1e-300)) ** 0.5
                                 for n, (a, b) in upd.items()}
         out["update_rel_l2_all"] = (sum(a for a, _ in upd.values())

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The dense and MoE ``train_4k`` cells in the CPU dry-run: each config's
-train step on the 16 x 16 production mesh (``launch.specs.build_train_cell``
-as ``launch.dryrun.run_cell`` builds it), once a ``--q8-gather`` value,
+"""The ``train_4k`` cells in the CPU dry-run (the dense and MoE configs by
+default, any other named with ``--arch``): each config's train step on
+the 16 x 16 production mesh (``launch.specs.build_train_cell`` as
+``launch.dryrun.run_cell`` builds it), once a ``--q8-gather`` value,
 priced on H100 terms.  The cells run in a pool of ``--workers`` host
 processes; a dry-run counts on the CPU and times nothing.
 

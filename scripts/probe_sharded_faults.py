@@ -92,9 +92,9 @@ def plant(fault):
         from repro_torch.models import mamba2
         real_norm = mamba2.rms_norm
 
-        def rms_norm(x, scale, eps=1e-6, *, x_axes=None):
+        def rms_norm(x, scale, eps=1e-6, *, x_axes=None, split=None):
             if x_axes is None:
-                return real_norm(x, scale, eps)
+                return real_norm(x, scale, eps, split=split)
             return real_norm(x, layers.local_weight(scale)[0], eps)
         mamba2.rms_norm = rms_norm
     elif fault == "zx_swapped":

@@ -1314,7 +1314,12 @@ def sharded_xent(x: torch.Tensor, head: Any, labels: torch.Tensor,
     mesh = h.mesh
     xs = whole_activation(x, carry)
     if tied:
-        logits, v_axes = _matmul(xs, _transposed(head))
+        # this rank's rows of the table dequantized, then x @ rows.T (a
+        # QT4 packs its nibbles along D and a QTG's master is the table:
+        # neither has a transposed form)
+        wl, spec = _local_weight(gather_weight(split_use(head)), mesh)
+        logits = xs @ _deq_plain(wl, xs.dtype).T
+        v_axes = _split(mesh, spec[0])
     else:
         logits, v_axes = _matmul(xs, head)
     lf = logits.float()

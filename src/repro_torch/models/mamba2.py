@@ -23,7 +23,9 @@ compression spec must carve them out ahead of any catch-all rule
 
 Under sharded-compute hints each rank of the model axis computes a block
 of the SSD heads (:func:`_mamba_block`); the layer carry rests as the JAX
-package's ``constrain_activation`` decides, as in ``dense``.
+package's ``constrain_activation`` decides, as in ``dense``, a norm's scale
+on a carry split along S enters through ``split=``, and the train loss is
+the global batch's (:func:`dense.xent`).
 """
 from __future__ import annotations
 
@@ -34,13 +36,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.distributed.ctx import block_index, sharded_compute
+from . import dense
 from .layers import (Schema, Spec, _matmul, cache_rows, carry_features,
-                     carry_spec, checkpointed, constrain_carry,
+                     carry_seq, carry_spec, checkpointed, constrain_carry,
                      gather_cache_rows, gather_weight, init_params,
                      last_position, layer_slice, local_weight, matmul,
-                     rms_norm, silu, softmax_xent, softplus,
-                     stacked_layers, take_rows, tied_logits,
-                     whole_activation)
+                     rms_norm, silu, softplus, split_use, stacked_layers,
+                     take_rows, tied_logits, whole_activation)
 
 f32 = torch.float32
 
@@ -247,10 +249,12 @@ def _direct(w: Any) -> torch.Tensor:
     """A parameter the block reads as a tensor: whole (gathered at use on
     an exact-TP mesh), or this rank's block under sharded compute (the
     depthwise conv's and the heads' parameters rest split with the inner
-    channels)."""
+    channels).  One whole over the model axis (``conv_bc``, shared by
+    every head) enters the rank's heads through :func:`layers.split_use`:
+    in training its gradient is summed over that axis."""
     if sharded_compute() is None:
         return gather_weight(w)
-    return local_weight(w)[0]
+    return local_weight(split_use(w))[0]
 
 
 def _head_offset(A_log: Any) -> int:
@@ -275,6 +279,15 @@ def zx_blocks(w: torch.Tensor, n_blocks: int) -> torch.Tensor:
     return w.unflatten(-1, (2, n_blocks, n)).transpose(-3, -2).flatten(-3)
 
 
+def zx_unblocks(w: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """The inverse of :func:`zx_blocks`: ``in_zx`` in one device's column
+    order ``[z | x]`` from its ``n_blocks`` blocks ``[z_r | x_r]``."""
+    if n_blocks == 1:
+        return w
+    n = w.shape[-1] // (2 * n_blocks)
+    return w.unflatten(-1, (n_blocks, 2, n)).transpose(-3, -2).flatten(-3)
+
+
 def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
                  conv_state=None, ssm_state=None, chunk: Optional[int] = None,
                  carry: Optional[tuple] = None):
@@ -288,8 +301,10 @@ def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
     the SSD heads — its ``[z_r | x_r]`` columns of ``in_zx`` (re-blocked at
     placement, :func:`zx_blocks`), its channels of the depthwise ``conv_x``,
     its heads' columns of ``dt`` (``in_bcdt`` and ``conv_bc`` stay whole:
-    B and C are shared by every head) — and its block of the states.  The
-    gated norm sums its squares over the ranks of the inner channels;
+    B and C are shared by every head, so their gradients sum over the
+    model axis) — and its block of the states.  The pre-block norm takes
+    ``split=`` the carry's S axes; the gated norm sums its squares over
+    the ranks of the inner channels;
     ``out_proj`` is row-parallel, handing back the carry's layout.  In the
     weight-stationary decode the states hold a block of the rows
     (:func:`layers.cache_rows`)."""
@@ -301,7 +316,8 @@ def _mamba_block(cfg: ArchConfig, lp: Dict[str, Any], x: torch.Tensor, *,
     h0 = _head_offset(lp["A_log"])
     lp = dict(lp, **{k: _direct(lp[k]) for k in _DIRECT})
     Hl = lp["A_log"].shape[-1]
-    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx), carry)
+    h = whole_activation(rms_norm(x, lp["norm"], x_axes=fx,
+                                  split=carry_seq(carry)), carry)
     zx, zx_axes = _matmul(h, lp["in_zx"], x_axes=fx)
     Din = zx.shape[-1] // 2
     assert Din == Hl * P, (tuple(zx.shape), Hl, P)
@@ -357,7 +373,8 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
         x = constrain_carry(x + out, S, cfg.d_model)
         if collect_cache:
             caches.append(st)
-    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry))
+    x = rms_norm(x, params["final_norm"], x_axes=carry_features(carry),
+                 split=carry_seq(carry))
     return x, (caches if collect_cache else None)
 
 
@@ -373,11 +390,13 @@ def logits_fn(cfg: ArchConfig, params, x: torch.Tensor, *,
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
             q_block: int = 0, chunk: Optional[int] = None) -> torch.Tensor:
     """Next-token cross-entropy (``q_block`` is accepted, as in the JAX
-    package, and unused: the family has no attention)."""
+    package, and unused: the family has no attention).  Under
+    sharded-compute hints ``batch`` is this rank's rows and the loss the
+    mean over every token of the global batch (:func:`dense.xent`)."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     x, _ = forward(cfg, params, inp, remat=remat, chunk=chunk)
-    return softmax_xent(logits_fn(cfg, params, x), labels, cfg.vocab)
+    return dense.xent(cfg, params, x, labels)
 
 
 # ------------------------------------------------------------------------- serving

@@ -29,6 +29,11 @@ backward and reports their sum over data.  Two modes:
   (``distributed/collectives.py``).  The loss is the mean over the global
   batch on every rank.
 
+A family that trains sharded rests an SSM's ``in_zx`` re-blocked, each
+model rank's columns its heads' ``[z_r | x_r]`` (:func:`zx_split`): the
+params, moments, gradients and ``q8_gather`` symbols hold that order, and
+:func:`gather_params` and the gradient compression read one device's.
+
 Either way a gradient is summed over exactly the axes its uses were split
 over: a gathered block's by the gather's backward; a parameter whole over
 ``model`` that split compute used, as it enters that compute
@@ -55,6 +60,7 @@ from repro_torch.core.spec import quantizable_shape
 from repro_torch.distributed.ctx import Sharded
 from repro_torch.models import api
 from repro_torch.models.layers import QTG
+from repro_torch.models.mamba2 import zx_blocks, zx_unblocks
 from . import optimizer as opt
 
 f32 = torch.float32
@@ -74,10 +80,10 @@ class TrainConfig:
 
 
 # the families whose loss and gradients compute sharded under the train
-# cell's hints (``launch/specs.py`` gives the others exact TP): the ssm's
-# forward differs from one device's under those hints, and the hybrid
-# holds its blocks, so their gradients would come out wrong
-SHARDED_TRAIN_FAMILIES = ("dense", "moe", "encdec")
+# cell's hints (``launch/specs.py`` gives the others exact TP).  The
+# hybrid is not one yet: its gradients under those hints are wrong (its
+# blocks' backward has not been held to one device's)
+SHARDED_TRAIN_FAMILIES = ("dense", "moe", "encdec", "ssm")
 
 
 def loss_for(cfg: ArchConfig) -> Callable:
@@ -258,11 +264,7 @@ def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh, hints=None,
         specs = {n: p.spec if isinstance(p, Sharded) else None
                  for n, p in params.items()}
         if tc.grad_compress:
-            from repro_torch.distributed.grad_compress import \
-                compress_decompress_blocks
-            grads = compress_decompress_blocks(
-                grads, {n: _whole_shape(p, mesh) for n, p in params.items()},
-                specs, mesh)
+            grads = compress_blocks(cfg, grads, params, mesh)
         new, opt_state, metrics = opt.apply_updates(
             tc.opt, {n: _local(p) for n, p in params.items()}, grads,
             opt_state, mesh=mesh, specs=specs)
@@ -271,6 +273,30 @@ def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh, hints=None,
         return params, opt_state, dict(metrics, loss=loss)
 
     return step
+
+
+def compress_blocks(cfg: ArchConfig, grads: Dict[str, torch.Tensor],
+                    params: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:
+    """``grad_compress.compress_decompress_blocks`` of a tree of gradient
+    blocks placed as ``params``: each the block of one device's
+    compression.  A leaf re-blocked by :func:`zx_split` compresses as the
+    ``(..., 2, Din)`` view of one device's tensor, whose plain cut by
+    ``(..., None, e)`` is the rank's ``[z_r | x_r]`` block in the same
+    flat order."""
+    from repro_torch.distributed.grad_compress import \
+        compress_decompress_blocks
+    views, shapes, specs = {}, {}, {}
+    for n, p in params.items():
+        g, shape = grads[n], _whole_shape(p, mesh)
+        spec = p.spec if isinstance(p, Sharded) else None
+        k = zx_split(cfg, n, spec, mesh)
+        if k > 1:
+            g = g.unflatten(-1, (2, g.shape[-1] // 2))
+            shape = shape[:-1] + (2, shape[-1] // 2)
+            spec = tuple(spec[:-1]) + (None, spec[-1])
+        views[n], shapes[n], specs[n] = g, shape, spec
+    out = compress_decompress_blocks(views, shapes, specs, mesh)
+    return {n: g.reshape(grads[n].shape) for n, g in out.items()}
 
 
 def make_mesh_grad_fn(cfg: ArchConfig, tc: TrainConfig, mesh, hints=None,
@@ -294,6 +320,12 @@ def make_mesh_grad_fn(cfg: ArchConfig, tc: TrainConfig, mesh, hints=None,
                                     mesh=mesh)
     if hints is None:
         assert ep is None, "an EP context computes sharded: pass its hints"
+        if any(zx_split(cfg, n, s, mesh) > 1
+               for n, s in train_shardings(cfg, mesh).items()):
+            raise NotImplementedError(
+                f"exact-TP training of the {cfg.family} family on a mesh: "
+                f"its train layout rests in_zx re-blocked for sharded "
+                f"compute (zx_split); pass the train cell's hints")
         hints = ShardingHints(mesh=mesh, batch_axes=(), model_axis=None,
                               seq_sp=False, exact_tp=True, grad_axes=axes)
     else:
@@ -362,15 +394,33 @@ def train_shardings(cfg: ArchConfig, mesh) -> Dict[str, Any]:
         cfg, mesh, shd.arch_rules(cfg, mesh, shd.opt_state_rules(mesh)))
 
 
+def zx_split(cfg: ArchConfig, name: str, spec, mesh) -> int:
+    """How many ``[z_r | x_r]`` blocks (``mamba2.zx_blocks``) the last dim
+    of the train leaf ``name`` rests in, under ``spec``: an SSM's
+    ``in_zx`` in a family of ``SHARDED_TRAIN_FAMILIES`` is re-blocked for
+    the blocks its spec cuts that dim into, so that a model rank's columns
+    are its heads' z and x (as ``launch.specs.Cell.place`` places the
+    serving cells'); 1 for every other leaf.  Placing a train tree, and
+    reading one device's tensors back from it, go through here."""
+    if cfg.family not in SHARDED_TRAIN_FAMILIES or spec is None \
+            or not name.endswith("/in_zx"):
+        return 1
+    from repro_torch.distributed.ctx import block_index
+    entries = tuple(spec) + (None,) * (3 - len(tuple(spec)))  # (L, D, 2 Din)
+    return block_index(mesh, entries[-1])[0]
+
+
 def shard_train_state(cfg: ArchConfig, tc: TrainConfig,
                       params: Dict[str, torch.Tensor], mesh):
     """(this rank's params, its optimizer state) from the whole ``params``:
     each leaf cut by :func:`train_shardings` (a :class:`Sharded` block, or
-    the tensor itself where nothing splits it), zero moments shaped like
-    the blocks."""
+    the tensor itself where nothing splits it; an SSM's ``in_zx``
+    re-blocked first, :func:`zx_split`), zero moments shaped like the
+    blocks."""
     from repro_torch.distributed.ctx import shard
     specs = train_shardings(cfg, mesh)
-    placed = {n: shard(p, specs[n], mesh) for n, p in params.items()}
+    placed = {n: shard(zx_blocks(p, zx_split(cfg, n, specs[n], mesh)),
+                       specs[n], mesh) for n, p in params.items()}
     state = opt.init_state(tc.opt, {n: _local(p) for n, p in placed.items()},
                            shapes={n: tuple(p.shape)
                                    for n, p in params.items()})
@@ -387,9 +437,15 @@ def shard_batch(batch: Dict[str, torch.Tensor], mesh
     return {k: local_block(v, (entry,), mesh) for k, v in batch.items()}
 
 
-def gather_params(params: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:
+def gather_params(params: Dict[str, Any], mesh,
+                  cfg: Optional[ArchConfig] = None
+                  ) -> Dict[str, torch.Tensor]:
     """The whole tensors of a placed tree (an all-gather along each split
-    dim of each :class:`Sharded` leaf); every rank must call it."""
+    dim of each :class:`Sharded` leaf); every rank must call it.  With the
+    ``cfg`` of a train tree (params, moments, gradients, a leaf's
+    ``q8_gather`` symbols, each under its parameter's name), in one
+    device's order: a leaf :func:`zx_split` re-blocked is put back
+    (``mamba2.zx_unblocks``)."""
     from repro_torch.distributed import collectives
     out = {}
     for n, p in params.items():
@@ -398,6 +454,8 @@ def gather_params(params: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:
             for d, e in enumerate(p.spec):
                 if e is not None:
                     t = collectives.all_gather(mesh, t, d, e)
+            if cfg is not None:
+                t = zx_unblocks(t, zx_split(cfg, n, p.spec, mesh))
             p = t
         out[n] = p
     return out

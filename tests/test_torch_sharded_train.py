@@ -1,16 +1,17 @@
-"""Sharded-compute training (the dense, MoE and encoder-decoder train
+"""Sharded-compute training (the dense, MoE, encoder-decoder and ssm train
 cells' layout: FSDP blocks gathered at use and reduce-scattered back,
 column- and row-parallel products, a rank's heads and experts,
-sequence-parallel carries) on the CPU, against one device and the JAX
-package's train cell.
+sequence-parallel carries, an SSM's ``in_zx`` re-blocked for its heads)
+on the CPU, against one device and the JAX package's train cell.
 
 One spawned 2 x 2 ``gloo`` world (``repro_torch.launch.mesh.spawn``, one
-process a rank) runs every job; reduced qwen3-1.7b, qwen2-moe-a2.7b and
-seamless-m4t-medium, cut to 2 layers (the encoder-decoder's 2 encoder
-and 2 decoder layers, the MoE's expert hidden dim to 64), take the
-weights the reference made (an npz), and batches of 4 x 16 tokens (the
-encoder-decoder's with 4 x 16 source frames, normal from the same
-generator, in bf16 as the train cells take them).  The MoE config
+process a rank) runs every job; reduced qwen3-1.7b, qwen2-moe-a2.7b,
+seamless-m4t-medium and mamba2-370m, cut to 2 layers (the
+encoder-decoder's 2 encoder and 2 decoder layers, the MoE's expert
+hidden dim to 64), take the weights the reference made (an npz), and
+batches of 4 x 16 tokens (the encoder-decoder's with 4 x 16 source
+frames, normal from the same generator, in bf16 as the train cells take
+them).  The MoE config
 admits every routed choice (``capacity_factor`` = E / top_k): a sharded
 cell sizes the capacity by each data rank's rows, one device by the whole
 batch's.  Its ranks are fed one device's router choices (a flip of a
@@ -28,6 +29,10 @@ choice of their own that differs must be a near-tie.
   keeps its own partial (measured 0.77-1.0); and a fourth on the
   encoder-decoder, its norms on carries split along S without
   ``split=``, must read it on every norm scale (measured 0.24-0.75);
+  three on the ssm: ``in_zx`` placed by the plain cut of ``[z | x]``
+  (each model rank's x columns some of z's), ``conv_bc`` entering the
+  rank's heads without its model-axis sum (read on ``conv_bc_*``), the
+  pre-block and final norms without ``split=`` (read on them);
 * **steps**: the loss and grad norm of 2 steps within ``RTOL``; each
   parameter's first moment (linear in the gradients) within
   ``GRAD_RTOL`` and its f32-moment update within ``UPDATE_RTOL`` of one
@@ -49,15 +54,21 @@ choice of their own that differs must be a near-tie.
   loss and grad norm within ``RTOL``, first moments within ``GRAD_RTOL``
   (but the MoE's ``ROUTED`` leaves'), updates within ``UPDATE_RTOL``
   (measured 0.156, the MoE's experts);
-* **q8_gather** at 8 and 4 bits (qwen3 and seamless): symbols, scales and
-  zeros of the ranks' blocks, gathered, bitwise one device's; the FSDP
-  all-gathers over data move uint8 (packed nibbles at 4 bits) and exactly
-  1/2 (1/4) of the bf16 gather's bytes, plus the f32 per-row scales;
+* **q8_gather** at 8 and 4 bits (qwen3, seamless and mamba2): symbols,
+  scales and zeros of the ranks' blocks, gathered, bitwise one device's;
+  the FSDP all-gathers over data move uint8 (packed nibbles at 4 bits)
+  and exactly 1/2 (1/4) of the bf16 gather's bytes, plus the f32 per-row
+  scales where a quantized leaf's rows split over data (none of
+  mamba2's: its tied table's rows rest over model);
+* **placement**: ``shard_train_state`` then ``gather_params`` gives every
+  leaf of reduced mamba2 back bitwise, ``in_zx`` (re-blocked at rest)
+  included;
 * **grad_compress**: the block arithmetic on leaves split on dim 0, on a
   later dim and on both, with 256-element blocks that straddle ranks and a
   zero-padded last block, bitwise the single-device function's blocks,
-  and no all-gather;
-* **the families left** (ssm, hybrid), whose gradients under the train
+  and no all-gather; and ``train_loop.compress_blocks`` of mamba2's
+  gradient tree (its ``in_zx`` re-blocked) bitwise one device's;
+* **the family left** (the hybrid), whose gradients under the train
   cell's hints are wrong: the step refuses those hints.
 """
 import dataclasses
@@ -97,15 +108,21 @@ NEAR_TIE = 0.02
 B, S, STEPS = 4, 16, 2
 WORLD_TIMEOUT_S = 300
 ARCHS = {"qwen3": "qwen3-1.7b", "moe": "qwen2-moe-a2.7b",
-         "seamless": "seamless-m4t-medium"}
+         "seamless": "seamless-m4t-medium", "mamba2": "mamba2-370m"}
 FAULTS = {"rs_keeps_own": ("qwen3", None),       # fault -> config, seq_sp
           "column_input_unsummed": ("qwen3", False),
           "whole_norm_summed": ("qwen3", False),
-          "encdec_norm_unsplit": ("seamless", None)}
+          "encdec_norm_unsplit": ("seamless", None),
+          "ssm_zx_plain": ("mamba2", None),
+          "ssm_conv_bc_unsummed": ("mamba2", None),
+          "ssm_norm_unsplit": ("mamba2", None)}
 # the faults read on some leaves only (all of them otherwise)
-FAULT_LEAVES = {"encdec_norm_unsplit": "norm"}
+FAULT_LEAVES = {"encdec_norm_unsplit": "norm",
+                "ssm_conv_bc_unsummed": ("conv_bc_w", "conv_bc_b"),
+                "ssm_norm_unsplit": ("layers/norm", "final_norm")}
 # the configs whose q8_gather is held: the symbols, and the bytes gathered
-Q8_KEYS = ("qwen3", "seamless")
+# (whether f32 per-row scales are gathered over data beside the symbols)
+Q8_KEYS = {"qwen3": True, "seamless": True, "mamba2": False}
 COMPRESS = [((64, 96), ("data", None)), ((64, 96), (None, "model")),
             ((10, 50), ("data", "model")), ((3, 10, 50),
                                             (None, "data", "model")),
@@ -185,7 +202,7 @@ def _grads(s, **kw):
 @pytest.fixture(scope="module")
 def world(setup):
     """Every job's results, rank by rank, from one 2 x 2 world."""
-    q, m, e = setup["qwen3"], setup["moe"], setup["seamless"]
+    q, m, e, s2 = (setup[k] for k in ARCHS)
     kv1, p1, _ = q["kv1"]
     rng = np.random.default_rng(5)
     leaves = [(rng.normal(0, 1, shape).astype(np.float32), spec)
@@ -205,6 +222,11 @@ def world(setup):
         "grads/seamless/q8": _grads(e, q8_gather=8, record=True),
         "grads/seamless/q8_4": _grads(e, q8_gather=4, record=True),
         "grads/seamless/bf16": _grads(e, record=True),
+        "grads/mamba2": _grads(s2),
+        "grads/mamba2/seq_sp_off": _grads(s2, seq_sp=False),
+        "grads/mamba2/q8": _grads(s2, q8_gather=8, record=True),
+        "grads/mamba2/q8_4": _grads(s2, q8_gather=4, record=True),
+        "grads/mamba2/bf16": _grads(s2, record=True),
         **{f"fault/{f}": _grads(setup[k], seq_sp=sp, fault=f)
            for f, (k, sp) in FAULTS.items()},
         **{f"steps/{k}": ("steps", dict(
@@ -223,7 +245,13 @@ def world(setup):
                           bits_list=(8, 4))),
         "q8/seamless": ("q8", dict(cfg=e["tcfg"], params=e["params"],
                                    bits_list=(8, 4))),
+        "q8/mamba2": ("q8", dict(cfg=s2["tcfg"], params=s2["params"],
+                                 bits_list=(8, 4))),
         "compress": ("compress", dict(leaves=leaves)),
+        "roundtrip/mamba2": ("roundtrip", dict(cfg=s2["tcfg"],
+                                               params=s2["params"])),
+        "compress_tree/mamba2": ("compress_tree", dict(
+            cfg=s2["tcfg"], grads=s2["grads"])),
     }
     ranks = tmesh.spawn(cases.run_jobs, 2, 2, backend="gloo", device="cpu",
                         timeout_s=WORLD_TIMEOUT_S,
@@ -250,7 +278,7 @@ def _assert_near_ties(rank):
 
 GRAD_CASES = ["qwen3", "moe", "qwen3/seq_sp_off", "moe/seq_sp_off",
               "qwen3/q8", "qwen3/kv1", "seamless", "seamless/seq_sp_off",
-              "seamless/q8"]
+              "seamless/q8", "mamba2", "mamba2/seq_sp_off", "mamba2/q8"]
 
 
 @pytest.mark.parametrize("case", GRAD_CASES)
@@ -374,6 +402,12 @@ def test_encdec_q8_gather_blocks_are_one_devices_bitwise(setup, world):
     _assert_q8_blocks(setup["seamless"]["params"], world["q8/seamless"])
 
 
+def test_ssm_q8_gather_blocks_are_one_devices_bitwise(setup, world):
+    """The symbols of the re-blocked ``in_zx`` too, nibbles packed within
+    each rank's ``[z_r | x_r]`` block at 4 bits."""
+    _assert_q8_blocks(setup["mamba2"]["params"], world["q8/mamba2"])
+
+
 def _assert_q8_blocks(params, ranks):
     from repro_torch.training import train_loop
     for i, bits in enumerate((8, 4)):
@@ -405,6 +439,10 @@ def test_encdec_q8_gather_moves_symbols_not_bf16(world):
     _assert_q8_gathers(world, "seamless")
 
 
+def test_ssm_q8_gather_moves_symbols_not_bf16(world):
+    _assert_q8_gathers(world, "mamba2")
+
+
 def _assert_q8_gathers(world, key):
     for bf, q8, q4 in zip(world[f"grads/{key}/bf16"],
                           world[f"grads/{key}/q8"],
@@ -412,12 +450,15 @@ def _assert_q8_gathers(world, key):
         whole = _data_gathers(bf["records"])
         g8, g4 = _data_gathers(q8["records"]), _data_gathers(q4["records"])
         assert set(whole) == {"bfloat16"}, whole
-        assert set(g8) == set(g4) == {"uint8", "float32"}, (g8, g4)
+        kinds = {"uint8", "float32"} if Q8_KEYS[key] else {"uint8"}
+        assert set(g8) == set(g4) == kinds, (g8, g4)
         assert 2 * g8["uint8"] == whole["bfloat16"]
         assert 4 * g4["uint8"] == whole["bfloat16"]
         # the scales gathered are f32 per-row ones (lm_head's rows split
         # over data): a row of four bytes each
-        assert g8["float32"] == g4["float32"] <= whole["bfloat16"] // 64
+        if Q8_KEYS[key]:
+            assert g8["float32"] == g4["float32"] \
+                <= whole["bfloat16"] // 64
 
 
 def test_grad_compress_blocks_are_one_devices_bitwise(world):
@@ -430,6 +471,33 @@ def test_grad_compress_blocks_are_one_devices_bitwise(world):
             assert np.array_equal(got, want), (full.shape, spec)
 
 
+def test_ssm_train_state_gathers_back_bitwise(setup, world):
+    """``shard_train_state`` then ``gather_params`` is the identity on every
+    leaf, ``in_zx`` (re-blocked at rest, put back) included."""
+    params = setup["mamba2"]["params"]
+    for rank in world["roundtrip/mamba2"]:
+        assert sorted(rank) == sorted(params)
+        for n, p in params.items():
+            want = (p.view(torch.int16) if p.dtype == torch.bfloat16
+                    else p).numpy()
+            assert rank[n].dtype == want.dtype and \
+                np.array_equal(rank[n], want), n
+
+
+def test_ssm_grad_compress_tree_is_one_devices_bitwise(setup, world):
+    """``train_loop.compress_blocks`` of mamba2's gradient blocks, the
+    re-blocked ``in_zx``'s among them, gathered: bitwise the single-device
+    ``compress_decompress`` of the whole gradients, with no all-gather."""
+    grads = setup["mamba2"]["grads"]
+    want = grad_compress.compress_decompress(
+        {n: torch.from_numpy(g) for n, g in grads.items()})
+    for got, gathers in world["compress_tree/mamba2"]:
+        assert gathers == 0
+        assert sorted(got) == sorted(want)
+        for n, w in want.items():
+            assert np.array_equal(got[n], w.numpy()), n
+
+
 def test_straddling_blocks_are_found(world):
     """The cases hold blocks that straddle ranks: the all-reduce path is
     exercised, not only the aligned one."""
@@ -440,12 +508,11 @@ def test_straddling_blocks_are_found(world):
     assert math.prod((2, 4, 130)) % 256 != 0       # a padded last block
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
 def test_sharded_train_hints_refused_outside_families(arch):
-    """The ssm and hybrid families under the train cell's hints would
-    train on wrong gradients (the hybrid's relative L2 1.3-1.7 off one
-    device's, silently): the step refuses them, and their cells keep exact
-    TP."""
+    """The hybrid family under the train cell's hints would train on wrong
+    gradients (relative L2 1.3-1.7 off one device's, silently): the step
+    refuses them, and its cell keeps exact TP."""
     from repro_torch.launch import mesh as lmesh, specs
     from repro_torch.training import train_loop
     cfg = treg.reduced(treg.get(arch))
@@ -462,3 +529,20 @@ def test_sharded_train_hints_refused_outside_families(arch):
                       train_loop.make_train_step):
             with pytest.raises(NotImplementedError, match=cfg.family):
                 build(cfg, tc, mesh, hints=hints, ep=ep)
+
+
+def test_ssm_exact_tp_refused_on_mesh():
+    """The ssm's train layout rests ``in_zx`` re-blocked for sharded
+    compute, which exact TP's whole-weight gathers would read in the wrong
+    column order: the mesh step refuses exact TP for it."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.training import train_loop
+    cfg = dataclasses.replace(treg.reduced(treg.get("mamba2-370m")),
+                              n_layers=2)
+    with lmesh.fake_world(4):
+        mesh = lmesh.make_mesh((2, 2), ("data", "model"))
+        assert train_loop.zx_split(
+            cfg, "layers/in_zx",
+            train_loop.train_shardings(cfg, mesh)["layers/in_zx"], mesh) == 2
+        with pytest.raises(NotImplementedError, match="in_zx"):
+            train_loop.make_mesh_grad_fn(cfg, cases.train_config(), mesh)

@@ -170,9 +170,9 @@ def planted(fault):
     from repro_torch.models import layers, mamba2
     saved = {"rms_norm": mamba2.rms_norm, "zx_blocks": mamba2.zx_blocks}
     if fault == "ssm_norm_local":
-        def rms_norm(x, scale, eps=1e-6, *, x_axes=None):
+        def rms_norm(x, scale, eps=1e-6, *, x_axes=None, split=None):
             if x_axes is None:
-                return saved["rms_norm"](x, scale, eps)
+                return saved["rms_norm"](x, scale, eps, split=split)
             return saved["rms_norm"](x, layers.local_weight(scale)[0], eps)
         mamba2.rms_norm = rms_norm
     elif fault == "zx_unblocked":

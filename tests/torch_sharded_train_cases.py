@@ -107,14 +107,26 @@ def planted(fault):
       its own partial (no sum over the ranks);
     * ``encdec_norm_unsplit``: the encoder-decoder's norms on carries split
       along S without ``split=`` (each scale's gradient left this rank's
-      share, not summed over the model axis)."""
+      share, not summed over the model axis);
+    * ``ssm_zx_plain``: the SSM's ``in_zx`` placed (and read back) by the
+      plain cut of ``[z | x]``, not re-blocked (``train_loop.zx_split``
+      1): the first model ranks' x columns are z's;
+    * ``ssm_conv_bc_unsummed``: the SSM's ``conv_bc``, whole over the model
+      axis, enters each rank's heads without ``split_use`` (its gradient
+      this rank's heads' share only);
+    * ``ssm_norm_unsplit``: the SSM's pre-block and final norms on carries
+      split along S without ``split=``."""
     from repro_torch.distributed import collectives
-    from repro_torch.models import dense, encdec, layers, moe
+    from repro_torch.models import dense, encdec, layers, mamba2, moe
+    from repro_torch.training import train_loop
     saved = [(dense, "whole_activation", dense.whole_activation),
              (moe, "whole_activation", moe.whole_activation),
              (dense, "rms_norm", dense.rms_norm),
              (moe, "rms_norm", moe.rms_norm),
              (encdec, "rms_norm", encdec.rms_norm),
+             (mamba2, "rms_norm", mamba2.rms_norm),
+             (mamba2, "split_use", mamba2.split_use),
+             (train_loop, "zx_split", train_loop.zx_split),
              (collectives._AllGather, "backward",
               collectives._AllGather.__dict__["backward"])]
     if fault == "column_input_unsummed":
@@ -134,10 +146,15 @@ def planted(fault):
             ctx.grad = "cut"
             return real(ctx, g)
         collectives._AllGather.backward = staticmethod(backward)
-    elif fault == "encdec_norm_unsplit":
+    elif fault in ("encdec_norm_unsplit", "ssm_norm_unsplit"):
         def unsplit(x, scale, eps=1e-6, *, x_axes=None, split=None):
             return layers.rms_norm(x, scale, eps, x_axes=x_axes)
-        encdec.rms_norm = unsplit
+        mod = encdec if fault == "encdec_norm_unsplit" else mamba2
+        mod.rms_norm = unsplit
+    elif fault == "ssm_zx_plain":
+        train_loop.zx_split = lambda cfg, name, spec, mesh: 1
+    elif fault == "ssm_conv_bc_unsummed":
+        mamba2.split_use = lambda w: w
     elif fault is not None:
         raise ValueError(fault)
     try:
@@ -147,10 +164,11 @@ def planted(fault):
             setattr(mod, name, v)
 
 
-def _whole(tree, mesh):
+def _whole(tree, mesh, cfg):
+    """One device's tensors of a train tree of ``cfg`` (float32 numpy)."""
     from repro_torch.training import train_loop
     return {n: p.float().cpu().numpy() for n, p in
-            train_loop.gather_params(tree, mesh).items()}
+            train_loop.gather_params(tree, mesh, cfg).items()}
 
 
 def _spec_tree(placed, grads):
@@ -171,16 +189,18 @@ def grads_job(mesh, cfg, params, batch, *, seq_sp=None, q8_gather=0,
     tc = train_config(q8_gather)
     hints, ep = cell_contexts(cfg, mesh, seq_sp)
     fn = train_loop.make_mesh_grad_fn(cfg, tc, mesh, hints, ep)
-    placed, _ = train_loop.shard_train_state(
-        cfg, tc, {n: p.to(mesh.device) for n, p in params.items()}, mesh)
     b = train_loop.shard_batch({k: v.to(mesh.device)
                                 for k, v in batch.items()}, mesh)
     rows = lambda t: local_block(t, ("data",), mesh)  # noqa: E731
-    with planted(fault), replayed_routes(routes, rows) as seen, \
-            collectives.recording() as recs:
-        loss, grads = fn(placed, b)
-    out = dict(loss=float(loss), grads=_whole(_spec_tree(placed, grads),
-                                              mesh), routes=seen)
+    with planted(fault):
+        placed, _ = train_loop.shard_train_state(
+            cfg, tc, {n: p.to(mesh.device) for n, p in params.items()},
+            mesh)
+        with replayed_routes(routes, rows) as seen, \
+                collectives.recording() as recs:
+            loss, grads = fn(placed, b)
+        out = dict(loss=float(loss), routes=seen,
+                   grads=_whole(_spec_tree(placed, grads), mesh, cfg))
     if record:
         out["records"] = list(recs)
     return out
@@ -220,14 +240,15 @@ def steps_job(mesh, cfg, params, batches, *, q8_gather=0,
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
     return dict(losses=losses, grad_norms=norms,
-                params=_whole(placed, mesh),
-                moments=_whole(_spec_tree(placed, state.m), mesh),
+                params=_whole(placed, mesh, cfg),
+                moments=_whole(_spec_tree(placed, state.m), mesh, cfg),
                 routes=seen)
 
 
 def q8_job(mesh, cfg, params, bits_list):
     """``ste_quantize_params`` of this rank's blocks at each bit width, its
-    symbols, scales and zeros gathered whole (numpy, native dtypes)."""
+    symbols, scales and zeros gathered whole (numpy, native dtypes; the
+    symbols in one device's order)."""
     from repro_torch.distributed.ctx import Sharded
     from repro_torch.models.layers import QTG
     from repro_torch.training import train_loop
@@ -244,7 +265,7 @@ def q8_job(mesh, cfg, params, bits_list):
             parts = {}
             for k in ("q", "scale", "zero"):
                 p = getattr(w, k)
-                whole = train_loop.gather_params({k: p}, mesh)[k] \
+                whole = train_loop.gather_params({n: p}, mesh, cfg)[n] \
                     if isinstance(p, Sharded) else p
                 parts[k] = whole.cpu().numpy()
             got[n] = parts
@@ -273,11 +294,44 @@ def compress_job(mesh, leaves):
     return out
 
 
+def roundtrip_job(mesh, cfg, params):
+    """``train_loop.gather_params`` of ``shard_train_state``'s blocks of the
+    whole ``params`` (numpy, native dtypes: bf16 as its int16 bits)."""
+    from repro_torch.training import train_loop
+    placed, _ = train_loop.shard_train_state(
+        cfg, train_config(), {n: p.to(mesh.device) for n, p in params.items()},
+        mesh)
+    return {n: (p.view(torch.int16) if p.dtype == torch.bfloat16 else p)
+            .cpu().numpy()
+            for n, p in train_loop.gather_params(placed, mesh, cfg).items()}
+
+
+def compress_tree_job(mesh, cfg, grads):
+    """``train_loop.compress_blocks`` of the blocks of one device's whole
+    gradients ``grads`` (numpy float32), placed as the train state is,
+    gathered whole, with the count of all-gathers the compression issued
+    (none)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.ctx import Sharded
+    from repro_torch.training import train_loop
+    placed, _ = train_loop.shard_train_state(
+        cfg, train_config(), {n: torch.as_tensor(g, device=mesh.device)
+                              for n, g in grads.items()}, mesh)
+    collectives.reset_counts()
+    got = train_loop.compress_blocks(
+        cfg, {n: p.local if isinstance(p, Sharded) else p
+              for n, p in placed.items()}, placed, mesh)
+    gathers = collectives.counts["all_gather"]
+    return _whole(_spec_tree(placed, got), mesh, cfg), gathers
+
+
 def run_jobs(mesh, jobs):
     """Each job ``(name, kwargs)`` of this module in turn, in one world:
-    ``grads``, ``steps``, ``q8``, ``compress`` (the ``*_job`` functions)."""
+    ``grads``, ``steps``, ``q8``, ``compress``, ``roundtrip``,
+    ``compress_tree`` (the ``*_job`` functions)."""
     fns = {"grads": grads_job, "steps": steps_job, "q8": q8_job,
-           "compress": compress_job}
+           "compress": compress_job, "roundtrip": roundtrip_job,
+           "compress_tree": compress_tree_job}
     return [fns[name](mesh, **kw) for name, kw in jobs]
 
 
