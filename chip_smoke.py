@@ -274,7 +274,9 @@ Phases, each printing one JSON line:
    ``sharded`` line a case: its cut, wall time, collective counts, weight
    and cache bytes a rank beside one device's.  Then ``SHARDED_TRAIN_CASES``
    (qwen3-1.7b, qwen2-moe-a2.7b, seamless-m4t-medium with its source
-   frames, mamba2-370m with its ``in_zx`` re-blocked for its heads): 2
+   frames, mamba2-370m with its ``in_zx`` re-blocked for its heads,
+   jamba-1.5-large-398b cut to one Mamba and one attention block at its
+   published widths, ``SHARDED_TRAIN_HYBRID_CUT``): 2
    steps of the train cells' step under their sharded-compute hints
    (``specs.train_contexts``), held to one device's steps on the card
    within ``SHARDED_TRAIN_TOL``, ``q8_gather``'s symbols bitwise; one
@@ -464,21 +466,34 @@ SHARDED_MIN_COMPARED = BATCH * (GEN + 1)
 # mamba2-370m cut to DEPTH layers on 2 x 2 with q8_gather=8, its 32 SSD
 # heads over model, in_zx re-blocked for them (train_loop.zx_split: one
 # device's in_zx, its moment and its symbols are re-blocked the same way
-# before rank 0's blocks are held to them)
+# before rank 0's blocks are held to them); jamba-1.5-large-398b cut by
+# SHARDED_TRAIN_HYBRID_CUT on 1 x 2 with f32 moments, its 16 experts
+# split over model, fed one device's router choices
 SHARDED_TRAIN_CASES = (("qwen3-1.7b", (1, 2), 0),
                        ("qwen3-1.7b", (1, 2), 8),
                        ("qwen3-1.7b", (2, 2), 8),
                        ("qwen2-moe-a2.7b", (1, 2), 0),
+                       ("jamba-1.5-large-398b", (1, 2), 0),
                        ("seamless-m4t-medium", (2, 2), 8),
                        ("mamba2-370m", (2, 2), 8))
 SHARDED_TRAIN_DEPTH = {"qwen3-1.7b": DEPTH, "qwen2-moe-a2.7b": 1,
                        "seamless-m4t-medium": ENCDEC_DEPTH,
                        "mamba2-370m": DEPTH}
+# the hybrid's train case at its published widths (d_model 8192, 64 / 8
+# heads of 128, SSD d_state 128 and head_dim 64, vocab 65,536, 16 experts,
+# top-2, every_n 2), cut to one period of 2 blocks: position 0 Mamba with
+# the dense FFN, position 1 attention with the MoE FFN; and the FFNs'
+# hidden dim to 1,024.  One published MoE FFN is 16 x 3 x 8192 x 24576 =
+# 9.66 G weights, whose train state alone exceeds the card; cut, the case
+# is 2.06 G weights (the untied embed and head 1.07 G of them), ~40 GB of
+# one device's train state at qwen2-moe's ~19.6 B a weight
+SHARDED_TRAIN_HYBRID_CUT = {"attn_period": 2, "n_layers": 2, "d_ff": 1024}
 # the worlds of the sharded phase, by mesh shape, in waves: the worlds of a
 # wave run together, sharing the card and the host (a rank's process
-# takes seconds to start).  1 x 2 alone: jamba's period holds 25.7 GB a
-# rank there (with the MoE train case's one-device steps, 23.5 GB); the
-# others' ranks peak at 6.3 GB or less, 56 GB together
+# takes seconds to start).  1 x 2 alone: jamba's serving period holds
+# 25.7 GB a rank there, and its train case's rank 0 one device's train
+# state (~40 GB) while rank 1 holds the weights; the others' ranks peak
+# at 6.3 GB or less, 56 GB together
 SHARDED_WAVES = (((1, 2),), ((1, 4), (2, 1), (2, 2)))
 # loss and grad norm within 2e-3 (PROD_TRAIN_TOL's); each leaf's update within
 # 0.25 relative L2 (tests/test_torch_sharded_train.py's limit, whose
@@ -4288,8 +4303,16 @@ def _sharded_case(arch, shape, mode, want, got, wall, launches):
 
 def sharded_train_config(arch):
     """``arch`` at full width cut to ``SHARDED_TRAIN_DEPTH`` layers (the
-    encdec's encoder and decoder each), a routed config admitting every
-    choice (:func:`sharded_config`)."""
+    encdec's encoder and decoder each; the hybrid by
+    ``SHARDED_TRAIN_HYBRID_CUT``), a routed config admitting every choice
+    (:func:`sharded_config`)."""
+    from repro_torch.configs import registry
+    cfg = registry.get(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, **SHARDED_TRAIN_HYBRID_CUT)
+        cf = float(cfg.moe.padded_experts(16) // cfg.moe.top_k)
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
     cfg = sharded_config(arch)
     depth = SHARDED_TRAIN_DEPTH[arch]
     if cfg.family == "encdec":
@@ -4304,6 +4327,10 @@ def sharded_train_cut(arch):
     cut = {"n_layers": cfg.n_layers}
     if cfg.family == "encdec":
         cut["enc_layers"] = cfg.enc_layers
+    if cfg.family == "hybrid":
+        cut.update(SHARDED_TRAIN_HYBRID_CUT, moe_ffns=cfg.n_layers
+                   // cfg.moe.every_n, experts=cfg.moe.padded_experts(16),
+                   capacity_factor=cfg.moe.capacity_factor)
     return cut
 
 

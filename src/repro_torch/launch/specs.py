@@ -28,14 +28,16 @@ equal the reference's on the production meshes):
   decode (rows whole, D over the data axes, no weight gathered).
   :meth:`Cell.place` re-blocks an SSM's ``in_zx`` so that each rank's
   block of its ``[z | x]`` columns is its heads' (``mamba2.zx_blocks``);
-* the dense, MoE, encdec and ssm train cells compute sharded too, under
-  the reference's train-cell hints (rows over data, ``seq_sp`` per
-  family, the MoE family's EP context), every collective carrying its
-  backward, an SSM's ``in_zx`` re-blocked as the serving cells' is
-  (``train_loop.zx_split``); the hybrid train cell keeps exact TP —
-  weights all-gathered at use, each rank repeating its rows' full-width
-  compute along model — and ``meta["compute"]`` says which.
-  ``q8_gather=`` and ``grad_compress=`` are the reference's options.
+* every train cell computes sharded too, under the reference's
+  train-cell hints (rows over data, ``seq_sp`` for every family but the
+  hybrid, the MoE and hybrid families' EP context), every collective
+  carrying its backward, an SSM's ``in_zx`` (the hybrid's Mamba
+  positions' too) re-blocked as the serving cells' is
+  (``train_loop.zx_split``); ``meta["compute"]`` says so (a family left
+  out of ``SHARDED_TRAIN_FAMILIES`` would keep exact TP — weights
+  all-gathered at use, each rank repeating its rows' full-width compute
+  along model).  ``q8_gather=`` and ``grad_compress=`` are the
+  reference's options.
 
 Weight formats for serving cells: ``bf16``, ``int8`` (QT triples, uint8
 symbols dequantized at use) and ``int4`` (QT4, nibbles packed along the

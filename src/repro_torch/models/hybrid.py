@@ -14,7 +14,8 @@ blocks an O(1) conv and SSM state; the MoE dispatch is
 :func:`repro_torch.models.moe.moe_mlp`.  Under sharded-compute hints each
 block computes its rank's share as its family does; the carry is not
 sequence-parallel (the JAX package's hints for this family), so it rests
-split by batch rows only.
+split by batch rows only, and the train loss is the global batch's
+(:func:`dense.xent`).
 """
 from __future__ import annotations
 
@@ -27,8 +28,7 @@ from . import dense, mamba2
 from .layers import (Schema, Spec, cache_seq_block, carry_features,
                      carry_spec, checkpointed, constrain_carry, init_params,
                      last_position, layer_slice, matmul, rms_norm,
-                     softmax_xent, stacked_layers, swiglu, take_rows,
-                     whole_activation)
+                     stacked_layers, swiglu, take_rows, whole_activation)
 from .moe import _padded_experts, moe_block_schema, moe_mlp
 
 f32 = torch.float32
@@ -126,12 +126,18 @@ def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
                  pos=None, chunk: Optional[int] = None,
                  collect: bool = False, q_block: int = 0,
                  keep: Optional[Tuple[int, int]] = None,
-                 carry: Optional[tuple] = None):
+                 carry: Optional[tuple] = None, remat_inner: bool = False):
     """Apply one period's blocks.  ``caches``: the period's {"k", "v",
     "conv_x", "conv_bc", "ssm"} (a decode step updates them in place).
     Returns (x, the period's new caches | None, the summed MoE aux).
     ``keep`` and ``carry`` as in :func:`dense._attn`: under sharded compute
-    every block takes and hands back the carry of layout ``carry``."""
+    every block takes and hands back the carry of layout ``carry``.
+
+    ``remat_inner`` checkpoints every sub-block (each mixer, each
+    feed-forward) inside the checkpointed period, as the JAX package does:
+    with the period's checkpoint alone its backward replay holds every
+    sub-block's FSDP weight gathers live at once; nested, one sub-block's.
+    The values are the same."""
     new_kv = None
     new_conv_x, new_conv_bc, new_ssm = [], [], []
     aux_total = torch.zeros((), dtype=f32, device=x.device)
@@ -143,15 +149,16 @@ def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
             # the dense family's attention (no qk-norm on these configs):
             # a decode step writes its (k, v) in place at ``pos``
             cache = (caches["k"], caches["v"]) if decode else None
-            out, new_kv = dense._attn(cfg, lp, x, positions=positions,
-                                      cache=cache, pos=pos, q_block=q_block,
-                                      keep=keep, carry=carry)
+            out, new_kv = checkpointed(dense._attn, remat_inner)(
+                cfg, lp, x, positions=positions, cache=cache, pos=pos,
+                q_block=q_block, keep=keep, carry=carry)
             x = x + out
         else:
             cs = ((caches["conv_x"][mamba_i], caches["conv_bc"][mamba_i])
                   if decode else None)
             hs = caches["ssm"][mamba_i] if decode else None
-            out, ((cx2, cbc2), hs2) = mamba2._mamba_block(
+            out, ((cx2, cbc2), hs2) = checkpointed(
+                mamba2._mamba_block, remat_inner)(
                 cfg, lp, x, conv_state=cs, ssm_state=hs, chunk=chunk,
                 carry=carry)
             x = x + out
@@ -160,7 +167,8 @@ def _period_body(cfg: ArchConfig, pp: Dict[str, Any], x: torch.Tensor, *,
                 new_conv_bc.append(cbc2)
                 new_ssm.append(hs2)
             mamba_i += 1
-        x, aux = _ffn(cfg, lp, x, ffn_kind, carry)
+        x, aux = checkpointed(_ffn, remat_inner)(cfg, lp, x, ffn_kind,
+                                                 carry)
         aux_total = aux_total + aux
     out_caches = None
     if decode or collect:
@@ -177,9 +185,8 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             cache_len: Optional[int] = None):
     """Full-sequence forward.  Returns (hidden, [period caches] | None, the
     MoE aux averaged over the layers).  ``remat`` recomputes each period in
-    the backward (the JAX package checkpoints the period and, inside it,
-    each sub-block, which bounds its sharded weight gathers; one device
-    has none, and the values are the same).  Under sharded-compute hints
+    the backward and, inside it, each sub-block (:func:`_period_body`'s
+    ``remat_inner``), as the JAX package does.  Under sharded-compute hints
     the carry rests as the JAX package's ``constrain_activation`` decides
     (batch rows only: the family's carries are not sequence-parallel), at
     its places; ``cache_len`` as in :func:`dense.forward`."""
@@ -192,7 +199,8 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     body = checkpointed(
         lambda pp, x: _period_body(cfg, pp, x, positions=positions,
                                    chunk=chunk, collect=collect_cache,
-                                   q_block=q_block, keep=keep, carry=carry),
+                                   q_block=q_block, keep=keep, carry=carry,
+                                   remat_inner=remat),
         remat)
     caches = []
     for pp in stacked_layers(params, "periods",
@@ -216,13 +224,15 @@ def logits_fn(cfg: ArchConfig, params, x: torch.Tensor, *,
 def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
             q_block: int = 0, aux_coef: float = 0.01,
             chunk: Optional[int] = None) -> torch.Tensor:
-    """Next-token cross-entropy plus ``aux_coef`` times the MoE aux."""
+    """Next-token cross-entropy plus ``aux_coef`` times the MoE aux (under
+    sharded-compute hints ``batch`` is this rank's rows, and both are the
+    global batch's: :func:`dense.xent`, ``moe._routed``'s summed
+    statistics)."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     x, _, aux = forward(cfg, params, inp, remat=remat, chunk=chunk,
                         q_block=q_block)
-    return softmax_xent(logits_fn(cfg, params, x), labels,
-                        cfg.vocab) + aux_coef * aux
+    return dense.xent(cfg, params, x, labels) + aux_coef * aux
 
 
 # ------------------------------------------------------------------------- serving

@@ -80,10 +80,11 @@ class TrainConfig:
 
 
 # the families whose loss and gradients compute sharded under the train
-# cell's hints (``launch/specs.py`` gives the others exact TP).  The
-# hybrid is not one yet: its gradients under those hints are wrong (its
-# blocks' backward has not been held to one device's)
-SHARDED_TRAIN_FAMILIES = ("dense", "moe", "encdec", "ssm")
+# cell's hints (``launch/specs.py``): every family of the registry, as the
+# reference's train cell installs its hints for every one.  Exact TP
+# (``hints=None``) remains for the ones whose train layout it can read
+# (not an SSM's re-blocked ``in_zx``: the ssm and the hybrid)
+SHARDED_TRAIN_FAMILIES = ("dense", "moe", "encdec", "ssm", "hybrid")
 
 
 def loss_for(cfg: ArchConfig) -> Callable:

@@ -17,7 +17,9 @@ Tolerances.
   backward's intermediates, so a gradient is ~1-2.5e-2 from the
   reference's at these widths.
 - Remat on and off give bitwise equal gradients on the CPU: the replay
-  runs the same ops on the same inputs.
+  runs the same ops on the same inputs; so do the hybrid's nested
+  checkpoints (a period's and, inside it, each sub-block's) and the
+  period's alone.
 
 The reference runs compiled with ``remat=False``: under ``jax.checkpoint``
 its compiled backward replays the MoE router, and the replay can route a
@@ -139,6 +141,33 @@ def test_remat_equals_no_remat_bitwise(arch):
     _, _, tb = make_batch(cfg, seed=1)
     l0, g0 = port_grads(cfg, params, tb, remat=False)
     l1, g1 = port_grads(cfg, params, tb, remat=True)
+    assert torch.equal(l0, l1)
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n
+
+
+def test_hybrid_nested_remat_equals_period_remat_bitwise(monkeypatch):
+    """The hybrid checkpoints each sub-block inside the checkpointed period
+    (the JAX package's ``remat_inner``): one device's loss and every
+    gradient are bitwise those of the period's checkpoint alone, and the
+    nesting is in effect (its backward replays the router more often)."""
+    from repro_torch.models import hybrid, moe
+    cfg = treg.reduced(treg.get("jamba-1.5-large-398b"))
+    params = tapi.build(cfg).init(cfg, 0, "cpu")
+    _, _, tb = make_batch(cfg, seed=1)
+    real_route, real_body, calls = moe.route, hybrid._period_body, []
+
+    def route(*args):
+        calls.append(1)
+        return real_route(*args)
+    monkeypatch.setattr(moe, "route", route)
+    l1, g1 = port_grads(cfg, params, tb, remat=True)
+    nested = len(calls)
+    monkeypatch.setattr(hybrid, "_period_body", lambda *a, **k: real_body(
+        *a, **dict(k, remat_inner=False)))
+    calls.clear()
+    l0, g0 = port_grads(cfg, params, tb, remat=True)
+    assert nested > len(calls) > 0, (nested, len(calls))
     assert torch.equal(l0, l1)
     for n in g0:
         assert torch.equal(g0[n], g1[n]), n

@@ -5,8 +5,8 @@ port, so the card's tests (``test_torch_sharded_cuda.py``) share them
 with the CPU ones (``test_torch_sharded_train.py``).
 
 Every job builds the train cell's step as ``launch/specs.py`` builds it
-for the dense, MoE and encoder-decoder families (the reference's
-train-cell hints, the MoE family's EP context), from the whole weights,
+for every family (the reference's train-cell hints, the MoE and hybrid
+families' EP context), from the whole weights,
 which each rank cuts into its ZeRO blocks, and this rank's rows of each
 batch leaf (the tokens and, for the encoder-decoder, ``src_embeds``).
 """
@@ -94,6 +94,24 @@ def recording_routes():
 
 
 @contextlib.contextmanager
+def aux_weighted(aux_coef=None):
+    """The hybrid's loss with the MoE aux weighted ``aux_coef`` (its
+    ``loss_fn`` default, 0.01, when None) for the block: at 1.0 the aux's
+    gradient is most of the router's, which the cross-entropy's gates'
+    gradient otherwise outweighs."""
+    from repro_torch.models import hybrid
+    real = hybrid.loss_fn
+    if aux_coef is not None:
+        def loss_fn(*args, **kw):
+            return real(*args, **dict(kw, aux_coef=aux_coef))
+        hybrid.loss_fn = loss_fn
+    try:
+        yield
+    finally:
+        hybrid.loss_fn = real
+
+
+@contextlib.contextmanager
 def planted(fault):
     """Patch a wrong backward into this process for the block (the faults
     the gradient comparison must catch):
@@ -115,11 +133,18 @@ def planted(fault):
       axis, enters each rank's heads without ``split_use`` (its gradient
       this rank's heads' share only);
     * ``ssm_norm_unsplit``: the SSM's pre-block and final norms on carries
-      split along S without ``split=``."""
+      split along S without ``split=``;
+    * ``hybrid_aux_local``: the MoE aux's statistics (mean probabilities,
+      choice counts) this rank's rows', not summed over the data axes;
+    * ``hybrid_loss_gathered``: the hybrid's loss as one device computes
+      it, on the logits gathered whole (each rank its rows' mean), not
+      :func:`dense.xent`'s global mean."""
     from repro_torch.distributed import collectives
-    from repro_torch.models import dense, encdec, layers, mamba2, moe
+    from repro_torch.models import dense, encdec, hybrid, layers, mamba2, moe
     from repro_torch.training import train_loop
     saved = [(dense, "whole_activation", dense.whole_activation),
+             (dense, "xent", dense.xent),
+             (moe, "_routed", moe._routed),
              (moe, "whole_activation", moe.whole_activation),
              (dense, "rms_norm", dense.rms_norm),
              (moe, "rms_norm", moe.rms_norm),
@@ -155,6 +180,17 @@ def planted(fault):
         train_loop.zx_split = lambda cfg, name, spec, mesh: 1
     elif fault == "ssm_conv_bc_unsummed":
         mamba2.split_use = lambda w: w
+    elif fault == "hybrid_aux_local":
+        real_routed = moe._routed
+
+        def routed(x, wts, mcfg, E, stat_axes=()):
+            return real_routed(x, wts, mcfg, E)
+        moe._routed = routed
+    elif fault == "hybrid_loss_gathered":
+        def xent(cfg, params, x, labels):
+            return layers.softmax_xent(hybrid.logits_fn(cfg, params, x),
+                                       labels, cfg.vocab)
+        dense.xent = xent
     elif fault is not None:
         raise ValueError(fault)
     try:
@@ -178,17 +214,19 @@ def _spec_tree(placed, grads):
 
 
 def grads_job(mesh, cfg, params, batch, *, seq_sp=None, q8_gather=0,
-              fault=None, routes=None, record=False):
+              fault=None, routes=None, record=False, aux_coef=None):
     """The loss and the whole gradients of one batch, from this rank's
     blocks (``train_loop.make_mesh_grad_fn`` under the train cell's
-    contexts); with ``record`` also the collectives it issued
+    contexts; the hybrid's aux weighted ``aux_coef``,
+    :func:`aux_weighted`); with ``record`` also the collectives it issued
     (``collectives.recording``)."""
     from repro_torch.distributed import collectives
     from repro_torch.distributed.ctx import local_block
     from repro_torch.training import train_loop
     tc = train_config(q8_gather)
     hints, ep = cell_contexts(cfg, mesh, seq_sp)
-    fn = train_loop.make_mesh_grad_fn(cfg, tc, mesh, hints, ep)
+    with aux_weighted(aux_coef):
+        fn = train_loop.make_mesh_grad_fn(cfg, tc, mesh, hints, ep)
     b = train_loop.shard_batch({k: v.to(mesh.device)
                                 for k, v in batch.items()}, mesh)
     rows = lambda t: local_block(t, ("data",), mesh)  # noqa: E731
@@ -207,11 +245,13 @@ def grads_job(mesh, cfg, params, batch, *, seq_sp=None, q8_gather=0,
 
 
 def steps_job(mesh, cfg, params, batches, *, q8_gather=0,
-              grad_compress=False, routes=None, cell_shape=None):
+              grad_compress=False, routes=None, cell_shape=None,
+              states=False):
     """``len(batches)`` steps of the train cell's step from the whole
     ``params``: each step's loss and grad norm and the whole params and
-    first moments after the last.  With ``cell_shape`` ((B, S)) the step is
-    ``specs.build_train_cell``'s own, with its own config."""
+    first moments after the last (with ``states``, the whole params and
+    both moments after each step too).  With ``cell_shape`` ((B, S)) the
+    step is ``specs.build_train_cell``'s own, with its own config."""
     from repro_torch.distributed.ctx import local_block
     from repro_torch.training import train_loop
     tc = train_config(q8_gather, grad_compress)
@@ -231,7 +271,7 @@ def steps_job(mesh, cfg, params, batches, *, q8_gather=0,
     placed, state = train_loop.shard_train_state(
         cfg, tc, {n: p.to(mesh.device) for n, p in params.items()}, mesh)
     rows = lambda t: local_block(t, ("data",), mesh)  # noqa: E731
-    losses, norms = [], []
+    losses, norms, after = [], [], []
     with replayed_routes(routes, rows) as seen:
         for b in batches:
             b = train_loop.shard_batch(
@@ -239,10 +279,15 @@ def steps_job(mesh, cfg, params, batches, *, q8_gather=0,
             placed, state, m = step(placed, state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+            if states:
+                after.append(dict(
+                    params=_whole(placed, mesh, cfg),
+                    moments=_whole(_spec_tree(placed, state.m), mesh, cfg),
+                    second=_whole(_spec_tree(placed, state.v), mesh, cfg)))
     return dict(losses=losses, grad_norms=norms,
                 params=_whole(placed, mesh, cfg),
                 moments=_whole(_spec_tree(placed, state.m), mesh, cfg),
-                routes=seen)
+                routes=seen, states=after)
 
 
 def q8_job(mesh, cfg, params, bits_list):
@@ -335,11 +380,11 @@ def run_jobs(mesh, jobs):
     return [fns[name](mesh, **kw) for name, kw in jobs]
 
 
-def single_grads(cfg, params, batch, q8_gather=0):
+def single_grads(cfg, params, batch, q8_gather=0, aux_coef=None):
     """One device's loss and gradients of ``batch`` (float32 numpy), and
-    its router calls."""
+    its router calls (the hybrid's aux weighted ``aux_coef``)."""
     from repro_torch.training import train_loop
-    with recording_routes() as routes:
+    with recording_routes() as routes, aux_weighted(aux_coef):
         loss, grads = train_loop.make_grad_fn(cfg, train_config(q8_gather))(
             params, batch)
     return float(loss), {n: g.float().cpu().numpy()
@@ -347,16 +392,18 @@ def single_grads(cfg, params, batch, q8_gather=0):
 
 
 def single_steps(cfg, params, batches, q8_gather=0, grad_compress=False,
-                 tc=None):
+                 tc=None, state=None, routes=None):
     """One device's steps of the same config: losses, grad norms, the
     params and first moments after the last (float32 numpy), its router
-    calls."""
+    calls.  From the optimizer ``state`` given (zero moments by default);
+    fed the router choices ``routes`` when given (:func:`replayed_routes`)."""
     from repro_torch.training import optimizer as opt, train_loop
     tc = tc or train_config(q8_gather, grad_compress)
     step = train_loop.make_train_step(cfg, tc)
-    state = opt.init_state(tc.opt, params)
+    state = state or opt.init_state(tc.opt, params)
     losses, norms = [], []
-    with recording_routes() as routes:
+    fed = replayed_routes(routes, lambda t: t)
+    with recording_routes() as routes, fed:
         for b in batches:
             params, state, m = step(params, state, b)
             losses.append(float(m["loss"]))
